@@ -1,0 +1,236 @@
+"""Index construction: quasiindex (offline, host-side; copy of
+rapmap_tpu.index.builder — the pseudoindex build belongs to a later slice).
+
+Covers the reference's RapMapSAIndexer / RapMapIndexer (SURVEY.md §2.1 #2, #9):
+FASTA -> $-concatenated coded text -> suffix array (native SA-IS when built,
+numpy fallback) -> k-mer interval table / CSR occurrence lists -> flat arrays.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+
+import numpy as np
+
+from rapmap_tpu_torch.index import encode
+from rapmap_tpu_torch.index.format import QuasiIndex, save_index
+from rapmap_tpu_torch.index.kmer_table import (
+    build_kmer_table,
+    build_prefix_lut,
+    pack_text_2bit,
+)
+from rapmap_tpu_torch.index.suffix_array import suffix_array_numpy
+from rapmap_tpu_torch.io.fastx import read_fasta
+
+log = logging.getLogger("tqm.index")
+
+PAD_TAIL = 1024  # trailing zero pad on text so device gathers never go OOB
+
+
+def concat_transcriptome(fasta_path: str, seed: int = 0, dedup: bool = True):
+    """Read FASTA, encode, dedup identical sequences (logged, as the reference
+    does [MED]), concatenate with '$' after every transcript.
+
+    Returns (text int8 codes incl. PAD_TAIL zeros, n_text, names, offsets int64,
+    lens int32).
+    """
+    names: list[str] = []
+    lens: list[int] = []
+    offsets: list[int] = []
+    chunks: list[np.ndarray] = []
+    seen: dict[bytes, str] = {}
+    pos = 0
+    n_dup = 0
+    for name, seq in read_fasta(fasta_path):
+        if dedup:
+            h = seq.upper()
+            if h in seen:
+                n_dup += 1
+                log.info("duplicate transcript %s == %s; dropped", name, seen[h])
+                continue
+            seen[h] = name
+        codes = encode.encode_transcript(np.frombuffer(seq, dtype=np.uint8), pos, seed)
+        names.append(name)
+        lens.append(len(codes))
+        offsets.append(pos)
+        chunks.append(codes)
+        chunks.append(np.zeros(1, dtype=np.int8))  # '$'
+        pos += len(codes) + 1
+    if not names:
+        raise ValueError(f"no transcripts in {fasta_path}")
+    if n_dup:
+        log.info("dropped %d duplicate transcripts", n_dup)
+    chunks.append(np.zeros(PAD_TAIL, dtype=np.int8))
+    text = np.concatenate(chunks)
+    return (
+        text,
+        pos,
+        names,
+        np.array(offsets, dtype=np.int64),
+        np.array(lens, dtype=np.int32),
+    )
+
+
+def _build_sa(text: np.ndarray, n_text: int) -> np.ndarray:
+    try:
+        from rapmap_tpu_torch.native import bindings as nat
+
+        if nat.available():
+            return nat.suffix_array(text[:n_text])
+    except Exception as exc:  # pragma: no cover - native build issues
+        log.warning("native SA builder unavailable (%s); numpy fallback", exc)
+    return suffix_array_numpy(text[:n_text])
+
+
+def _sa_txp_of(sa: np.ndarray, txp_offsets: np.ndarray, txp_lens: np.ndarray) -> np.ndarray:
+    # transcript t owns global positions [off_t, off_t + len_t]  (incl. its '$');
+    # materialize pos->txp once and gather — one O(1) load per SA slot instead
+    # of a binary search over the offsets per slot
+    spans = txp_lens.astype(np.int64) + 1
+    pos2txp = np.repeat(np.arange(len(txp_lens), dtype=np.int32), spans)
+    return pos2txp[np.asarray(sa)]
+
+
+def build_quasi_index(
+    fasta_path: str,
+    outdir: str | None = None,
+    k: int = 31,
+    prefix_bases: int | None = None,
+    seed: int = 0,
+    dedup: bool = True,
+    big_sa: bool | None = None,
+    require_chd: bool = False,
+    with_chd: bool = True,
+) -> QuasiIndex:
+    """big_sa: force the int64 SA layout (upstream divsufsort64 dispatch,
+    SURVEY.md §3.1). Default None = automatic by text size; True lets tests
+    exercise the bigSA device path on small texts.
+
+    require_chd: `-x/--perfectHash` semantics — fail the build if the CHD
+    perfect hash cannot be constructed (instead of silently falling back to
+    the binary-search probe at map time).
+
+    with_chd=False skips CHD construction entirely (genome-scale builds: a
+    ~2G-key table would need a 2^32-slot permutation; the staged/sharded
+    mappers build per-shard tables or use the binary-search probe)."""
+    if not (1 <= k <= 32):
+        raise ValueError("k must be in [1, 32]")
+    t0 = time.time()
+    text, n_text, names, offsets, lens = concat_transcriptome(fasta_path, seed, dedup)
+    log.info("concat %d transcripts, %d bases (%.1fs)", len(names), n_text, time.time() - t0)
+    t0 = time.time()
+    # SA-IS runs in a worker thread (the native call releases the GIL) while
+    # the main thread packs the text — the pack only needs `text` and the
+    # single-threaded SA build leaves cores idle otherwise
+    import threading
+
+    sa_box: dict = {}
+
+    def _sa_job():
+        try:
+            sa_box["sa"] = _build_sa(text, n_text)
+        except BaseException as exc:  # re-raised at join
+            sa_box["exc"] = exc
+
+    th_sa = threading.Thread(target=_sa_job, name="tqm-sa")
+    th_sa.start()
+    text2b, smask2b = pack_text_2bit(text)  # one pack serves scan + device text
+    th_sa.join()
+    if "exc" in sa_box:
+        raise sa_box["exc"]
+    sa = sa_box["sa"]
+    if big_sa:
+        sa = sa.astype(np.int64)
+    log.info("suffix array + text pack built (%.1fs, overlapped)", time.time() - t0)
+    t0 = time.time()
+    khi, klo, kb, ke = build_kmer_table(
+        text[:n_text], sa, k, packed_smask=(text2b, smask2b)
+    )
+    log.info("k-mer table: %d distinct %d-mers (%.1fs)", len(kb), k, time.time() - t0)
+    t0 = time.time()
+    # canonical-class CHD perfect hash (BooPHF role): the device resolves
+    # BOTH strands of a window with one 2-gather probe (ops/lookup.py).
+    # It only needs the k-mer keys, so it runs in a worker thread (native,
+    # internally OpenMP) overlapped with the derived-array stage below.
+    from rapmap_tpu_torch.index.chd import build_canonical_chd
+
+    chd_box: dict = {}
+    th_chd = None
+    if with_chd:
+
+        def _chd_job():
+            try:
+                chd_box["chd"] = build_canonical_chd(khi, klo, k, seed0=seed + 1)
+            except BaseException as exc:
+                chd_box["exc"] = exc
+
+        th_chd = threading.Thread(target=_chd_job, name="tqm-chd")
+        th_chd.start()
+    elif require_chd:
+        raise ValueError("require_chd and with_chd=False are incompatible")
+
+    if prefix_bases is None:
+        # aim for ~1 entry/bucket: p ~ log4(#kmers)+1, capped to keep the LUT
+        # small relative to the table (4^p ints <= ~2x entries), and <= 12
+        import math as _math
+
+        nk = max(1, len(kb))
+        prefix_bases = max(4, min(k, 12, _math.ceil(_math.log(nk, 4)) + 1))
+    lut = build_prefix_lut(khi, klo, k, prefix_bases)
+    sa_txp = _sa_txp_of(sa, offsets, lens)
+    sa_np = np.asarray(sa)
+    if sa_np.dtype == np.int32:  # offsets fit int32 whenever the SA does
+        sa_tpos = sa_np - offsets.astype(np.int32)[sa_txp]
+    else:
+        sa_tpos = (sa_np - offsets[sa_txp]).astype(np.int32)
+    log.info("lut/pack/sa_txp derived (%.1fs)", time.time() - t0)
+    t0 = time.time()
+    pre_hashes: dict = {}
+    if outdir and th_chd is not None:
+        # stream the big non-CHD arrays to disk while the CHD displacement
+        # search finishes; save_index below skips the already-written names
+        from rapmap_tpu_torch.index.format import save_arrays
+
+        pre_hashes = save_arrays(outdir, {
+            "text": text, "text2b": text2b, "sa": sa, "sa_txp": sa_txp,
+            "sa_tpos": sa_tpos, "kmer_hi": khi, "kmer_lo": klo,
+            "kmer_b": kb, "kmer_e": ke, "prefix_lut": lut,
+            "txp_offsets": offsets, "txp_lens": lens,
+        })
+        log.info("non-CHD arrays saved under the CHD join (%.1fs)", time.time() - t0)
+        t0 = time.time()
+    if th_chd is not None:
+        th_chd.join()
+        if "exc" in chd_box:
+            raise chd_box["exc"]
+        chd = chd_box.get("chd")
+    else:
+        chd = None
+    meta = {}
+    chd_dir = chd_perm = chd_cls = None
+    if chd is not None:
+        chd_dir, chd_perm, chd_cls = chd["dir"], chd["perm"], chd["cls"]
+        meta["chd"] = {k_: chd[k_] for k_ in ("seed", "m_bits", "t_bits", "p_bits", "canonical")}
+        log.info(
+            "canonical CHD perfect hash built (overlapped; %.1fs beyond the "
+            "derived stage)", time.time() - t0,
+        )
+    elif require_chd:
+        raise RuntimeError(
+            "--perfectHash: CHD perfect hash construction failed for this "
+            "k-mer set (native builder unavailable or displacement search "
+            "exhausted); rebuild without -x to use the binary-search probe"
+        )
+    idx = QuasiIndex(
+        k=k, text=text, text2b=text2b, sa=sa, sa_txp=sa_txp,
+        sa_tpos=sa_tpos,
+        kmer_hi=khi, kmer_lo=klo, kmer_b=kb, kmer_e=ke, prefix_lut=lut,
+        txp_offsets=offsets, txp_lens=lens, txp_names=names,
+        n_text=n_text, prefix_bases=prefix_bases, seed=seed,
+        chd_dir=chd_dir, chd_perm=chd_perm, chd_cls=chd_cls, meta=meta,
+    )
+    if outdir:
+        save_index(idx, outdir, pre_hashes=pre_hashes)
+        log.info("index written to %s", outdir)
+    return idx
