@@ -4,11 +4,12 @@
     python3 chip_smoke.py [--seed 0]
 
 Builds the port's native index library and every CUDA kernel from the
-sources in this checkout, holds each kernel against its plain PyTorch
+sources in this checkout, holds each kernel (the voting sort of
+csrc/sort2.cu, the anchor walk of csrc/walk.cu) against its plain PyTorch
 version on the card, builds a 20 Mbp random transcriptome world from the
 seed, maps 262,144 single-end 76 bp reads through QuasiMapper.map_se_async /
 fetch (one batch in flight), and checks the result: map rate, reads mapped
-to their true locus, the sort kernel's launches on the main path, and the
+to their true locus, both kernels' launches on the main path, and the
 card's wire buffer equal to the CPU's on the first batch. Every phase prints
 one JSON line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -22,6 +23,7 @@ with the plain versions, to check the script's control flow off the card.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import subprocess
@@ -35,6 +37,9 @@ CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM non-tensor rate (data sheet, fp32)
 READ_LEN = 76
 BATCHES = 8  # per run; each batch is 4 chunks
 K = 31
+# the __global__ functions of csrc/*.cu, as the profiler names them
+HAND_KERNELS = ("cluster_sort_kernel", "tile_sort_kernel", "tile_merge_kernel",
+                "global_step_kernel", "anchor_walk_kernel", "extend_packed_kernel")
 
 
 def emit(phase: str, **kw) -> None:
@@ -76,6 +81,43 @@ class Timer:
         return (time.perf_counter() - t0) * 1e3 / reps
 
 
+def device_kernels(prof) -> dict[str, list]:
+    """{kernel name: [device ms, count]} of a finished torch.profiler run:
+    every kernel, copy and memset the device ran, by its own duration."""
+    import torch
+
+    by_name: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            v = by_name.setdefault(e.name[:80], [0.0, 0])
+            v[0] += e.time_range.elapsed_us() / 1e3
+            v[1] += 1
+    return by_name
+
+
+def device_ms(fn, reps: int, cuda: bool):
+    """Time the DEVICE spends on one fn(): the durations of everything it
+    ran during `reps` calls under torch.profiler, summed and divided by
+    reps. What the host takes to issue the work is not in it (Timer's
+    wrapper time has that). -> (ms, {kernel name: ms per call})."""
+    if not cuda:
+        return "not measured", {}
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = device_kernels(prof)
+    if not by_name:
+        raise RuntimeError("torch.profiler recorded no device activity")
+    return (sum(v[0] for v in by_name.values()) / reps,
+            {n: v[0] / reps for n, v in by_name.items()})
+
+
 def sort_inputs(n: int, kind: str, rng):
     """(hi, lo) uint32 words as int32 bit patterns: full-range random, heavy
     duplicates, or duplicates with the collate's invalid-slot sentinel
@@ -94,15 +136,23 @@ def sort_inputs(n: int, kind: str, rng):
 
 def phase_sort_kernel(dev, timer):
     """bitonic_sort_pairs (CUDA kernel) against bitonic_sort_pairs_plain on
-    the same card tensors, and its timing at the main path's N."""
+    the same card tensors (every cluster size of the one-launch path: 1, 2,
+    4 and 8 blocks), and its timing at the main path's N: `ms` and
+    `library_ms` are device time, the `wrapper_ms` pair CUDA events around
+    the calls, host included."""
     import torch
 
-    from rapmap_tpu_torch.ops.sort2 import bitonic_sort_pairs, bitonic_sort_pairs_plain
+    from rapmap_tpu_torch.ops.sort2 import (
+        bitonic_sort_pairs, bitonic_sort_pairs_plain, sort_path,
+    )
+
+    def path(n):
+        return sort_path(n) if dev.type == "cuda" else "plain version (CPU)"
 
     rng = np.random.default_rng(1)
     checks = []
     max_err = 0
-    for n in (1024, 65536, 1 << 20):
+    for n in (1024, 8192, 16384, 32768, 65536, 1 << 20):
         for kind in ("random", "duplicates", "sentinel"):
             h, l = sort_inputs(n, kind, rng)
             hi = torch.from_numpy(h).to(dev)
@@ -118,7 +168,8 @@ def phase_sort_kernel(dev, timer):
                 kl.cpu().numpy(), l[order]
             )
             max_err = max(max_err, err)
-            checks.append(dict(n=n, data=kind, equal_plain=err == 0, equal_lexsort=lex_ok))
+            checks.append(dict(n=n, data=kind, path=path(n), equal_plain=err == 0,
+                               equal_lexsort=lex_ok))
     ok = all(c["equal_plain"] and c["equal_lexsort"] for c in checks)
 
     n = 65536  # expand_budget 8 x chunk 8192: the voting pool of one chunk
@@ -126,16 +177,20 @@ def phase_sort_kernel(dev, timer):
     hi = torch.from_numpy(h).to(dev)
     lo = torch.from_numpy(l).to(dev)
     key = (hi.long() & 0xFFFFFFFF) << 32 | (lo.long() & 0xFFFFFFFF)
-    ms = timer(lambda: bitonic_sort_pairs(hi, lo), reps=200)
+    cuda = dev.type == "cuda"
+    wrapper_ms = timer(lambda: bitonic_sort_pairs(hi, lo), reps=200)
+    ms, ms_by = device_ms(lambda: bitonic_sort_pairs(hi, lo), 200, cuda)
     plain_ms = timer(lambda: bitonic_sort_pairs_plain(hi, lo), reps=5, warm=1)
-    library_ms = timer(lambda: torch.sort(key), reps=200)
+    library_wrapper_ms = timer(lambda: torch.sort(key), reps=200)
+    library_ms, _ = device_ms(lambda: torch.sort(key), 200, cuda)
     log2n = n.bit_length() - 1
     nbytes = 16 * n                         # read hi, lo once; write them once
     ops = (n // 2) * log2n * (log2n + 1) // 2  # 64-bit compare-exchanges
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
     timing = dict(
-        n=n, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        n=n, path=path(n), ms=ms, wrapper_ms=wrapper_ms, device_ms_by_kernel=ms_by,
+        plain_ms=plain_ms, library_ms=library_ms, library_wrapper_ms=library_wrapper_ms,
         bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
         bytes=nbytes, compare_exchanges=ops,
     )
@@ -144,13 +199,36 @@ def phase_sort_kernel(dev, timer):
     return ok, max_err, timing
 
 
+def build_index(fa: str):
+    """The port's quasi index (k = 31, canonical CHD) of a FASTA file."""
+    from rapmap_tpu_torch.index.builder import build_quasi_index
+
+    return build_quasi_index(fa, k=K)
+
+
+def sample_reads(idx, rng, n_reads: int, read_len: int, err_rate: float):
+    """Reads of one length sampled from the index's transcripts at uniform
+    loci, with substitutions at err_rate, half reverse-complemented ->
+    (codes (n, read_len) int8, (transcript, position, strand))."""
+    tl = np.asarray(idx.txp_lens, dtype=np.int64)
+    span = np.maximum(tl - read_len + 1, 0)
+    t = rng.choice(len(tl), size=n_reads, p=span / span.sum())
+    pos = (rng.random(n_reads) * span[t]).astype(np.int64)
+    start = np.asarray(idx.txp_offsets, dtype=np.int64)[t] + pos
+    codes = np.asarray(idx.text)[start[:, None] + np.arange(read_len)[None, :]].astype(np.int8)
+    err = rng.random(codes.shape) < err_rate
+    codes[err] = rng.integers(1, 5, int(err.sum()))
+    strand = (rng.random(n_reads) < 0.5).astype(np.int64)
+    rc = strand == 1
+    codes[rc] = (5 - codes[rc])[:, ::-1]
+    return codes, (t, pos, strand)
+
+
 def build_world(seed: int, n_txps: int, n_reads: int, workdir: str):
     """Random transcriptome (500-3,500 bp transcripts), the port's quasi
     index (k=31, canonical CHD), and reads sampled at known
     (transcript, position, strand) with 1% substitutions, half reverse-
     complemented."""
-    from rapmap_tpu_torch.index.builder import build_quasi_index
-
     rng = np.random.default_rng(seed)
     lens = rng.integers(500, 3501, n_txps)
     fa = os.path.join(workdir, "txome.fa")
@@ -159,22 +237,243 @@ def build_world(seed: int, n_txps: int, n_reads: int, workdir: str):
         for i, ln in enumerate(lens):
             f.write(f">t{i}\n{bases[rng.integers(0, 4, int(ln))].tobytes().decode()}\n")
     t0 = time.time()
-    idx = build_quasi_index(fa, k=K)
+    idx = build_index(fa)
     build_s = time.time() - t0
 
-    tl = np.asarray(idx.txp_lens, dtype=np.int64)
-    span = tl - READ_LEN + 1
-    t = rng.choice(len(tl), size=n_reads, p=span / span.sum())
-    pos = (rng.random(n_reads) * span[t]).astype(np.int64)
-    start = np.asarray(idx.txp_offsets, dtype=np.int64)[t] + pos
-    codes = np.asarray(idx.text)[start[:, None] + np.arange(READ_LEN)[None, :]].astype(np.int8)
-    err = rng.random(codes.shape) < 0.01
-    codes[err] = rng.integers(1, 5, int(err.sum()))
-    strand = (rng.random(n_reads) < 0.5).astype(np.int64)
-    rc = strand == 1
-    codes[rc] = (5 - codes[rc])[:, ::-1]
-    lens_r = np.full(n_reads, READ_LEN, np.int32)
-    return idx, codes, lens_r, (t, pos, strand), build_s
+    codes, truth = sample_reads(idx, rng, n_reads, READ_LEN, 0.01)
+    return idx, codes, np.full(n_reads, READ_LEN, np.int32), truth, build_s
+
+
+def repetitive_index(rng, workdir: str):
+    """A small repetitive transcriptome: 40 genes of 1,500 bp, 8 isoforms
+    each that differ from their gene in 0.5% of the bases, so most 31-mers
+    occur several times and the extension's searches take several trips."""
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    fa = os.path.join(workdir, "repetitive.fa")
+    with open(fa, "w") as f:
+        for g in range(40):
+            gene = rng.integers(0, 4, 1500)
+            for i in range(8):
+                iso = gene.copy()
+                mut = rng.random(1500) < 0.005
+                iso[mut] = rng.integers(0, 4, int(mut.sum()))
+                f.write(f">g{g}i{i}\n{bases[iso].tobytes().decode()}\n")
+    return build_index(fa)
+
+
+def extend_packed_kernel(didx, w, b0, e0, pos, active, k: int, steps: int):
+    """csrc/walk.cu's second entry, tqm_extend_packed: the extension's device
+    function once per lane -> (b, e, mlen), the signature of
+    ops.extend_packed.extend_packed. Only this script calls it, to tell a
+    fault in the extension from one in the walk around it."""
+    import torch
+
+    from rapmap_tpu_torch import kernels
+    from rapmap_tpu_torch.ops.extend_packed import ext_words
+
+    R, L = w.preads.shape
+    dev = w.preads.device
+    b, e, mlen = (torch.empty(R, dtype=torch.int64, device=dev) for _ in range(3))
+    act = active.to(torch.uint8).contiguous()
+    fn = kernels.library("walk").tqm_extend_packed
+    fn.restype = ctypes.c_int
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    fn.argtypes = [vp] * 9 + [i64, i32, vp, i64, i64] + [i32] * 4 + [vp] * 4
+    with torch.cuda.device(dev):
+        rc = fn(
+            w.preads.data_ptr(), w.next_bad.data_ptr(), w.lens2.data_ptr(),
+            w.col_off2.data_ptr(), b0.data_ptr(), e0.data_ptr(), pos.data_ptr(),
+            act.data_ptr(), didx.sa_cmp.data_ptr(), didx.sa_cmp.shape[0],
+            didx.sa_cmp.shape[1] - 3, didx.text2q.data_ptr(), didx.text2q.shape[0],
+            R, L, k, steps, ext_words(L, k), b.data_ptr(), e.data_ptr(), mlen.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"tqm_extend_packed launch failed: CUDA error {rc}")
+    return b, e, mlen
+
+
+WALK_INPUTS = ("preads", "next_bad", "lens2", "col_off2", "db2", "de2", "anc2",
+               "sa_cmp", "text2q")
+
+
+def walk_traffic(didx, w, k: int, H: int, ext_steps: int):
+    """csrc/walk.cu's counting entry, tqm_anchor_walk_traffic: the walk
+    compiled with its loads counted, which marks every 32-byte sector of every
+    input tensor that it reads in a bitmap -> (ScanHits, {input: distinct
+    sectors read}, sa_cmp rows compared). Only this script calls it, for the
+    walk's byte bound; the main path's kernel is compiled without the count."""
+    import torch
+
+    from rapmap_tpu_torch import kernels
+    from rapmap_tpu_torch.ops.extend_packed import ext_words
+    from rapmap_tpu_torch.ops.mmp import ScanHits
+
+    tensors = [*w, didx.sa_cmp, didx.text2q]
+    R, L = w.preads.shape
+    S = w.db2.shape[1]
+    dev = w.preads.device
+    # one sector more than the bytes fill: a tensor need not start on a sector
+    words = [((t.numel() * t.element_size() + 31) // 32 + 1 + 31) // 32 for t in tensors]
+    off = np.concatenate([[0], np.cumsum(words)]).astype(np.int64)
+    bits = torch.zeros(int(off[-1]), dtype=torch.int32, device=dev)
+    rows = torch.zeros(1, dtype=torch.int64, device=dev)
+    buf = torch.zeros((R, H, 4), dtype=torch.int64, device=dev)
+    n = torch.empty((R,), dtype=torch.int64, device=dev)
+    trunc = torch.empty((R,), dtype=torch.bool, device=dev)
+    fn = kernels.library("walk").tqm_anchor_walk_traffic
+    fn.restype = ctypes.c_int
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    fn.argtypes = ([vp] * 8 + [i64, i32, vp, i64, i64, i64] + [i32] * 6 + [vp] * 4
+                   + [ctypes.POINTER(i64), vp, vp])
+    with torch.cuda.device(dev):
+        rc = fn(
+            *(t.data_ptr() for t in w), didx.sa_cmp.data_ptr(), didx.sa_cmp.shape[0],
+            didx.sa_cmp.shape[1] - 3, didx.text2q.data_ptr(), didx.text2q.shape[0],
+            R, R // 2, L, S, k, H, ext_steps, ext_words(L, k),
+            buf.data_ptr(), n.data_ptr(), trunc.data_ptr(), bits.data_ptr(),
+            (i64 * len(words))(*off[:-1].tolist()), rows.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"tqm_anchor_walk_traffic launch failed: CUDA error {rc}")
+    torch.cuda.synchronize(dev)
+    marks = bits.cpu().numpy().view(np.uint8)
+    sectors = {
+        name: int(np.unpackbits(marks[4 * off[g] : 4 * off[g + 1]]).sum())
+        for g, name in enumerate(WALK_INPUTS)
+    }
+    hits = ScanHits(q=buf[..., 0], l=buf[..., 1], b=buf[..., 2], e=buf[..., 3],
+                    n=n, truncated=trunc)
+    return hits, sectors, int(rows.cpu()[0])
+
+
+def phase_walk_kernel(dev, timer, mapper, idx, codes, lens, C: int, seed: int, work: str):
+    """anchor_walk (CUDA kernel) against anchor_walk_plain, all six ScanHits
+    fields, and tqm_extend_packed against extend_packed, on card tensors of
+    five input sets; then, at the main path's shape, the walk's timing (`ms`
+    is device time, the hit buffer's zero fill included; `wrapper_ms` CUDA
+    events around the calls, host included) and its byte bound."""
+    import torch
+
+    from rapmap_tpu_torch.config import MapConfig
+    from rapmap_tpu_torch.ops.device_index import upload_index
+    from rapmap_tpu_torch.ops.extend_packed import ext_words, extend_packed
+    from rapmap_tpu_torch.ops.mmp import (
+        ScanHits, anchor_walk, anchor_walk_plain, dense_phase, walk_params,
+    )
+
+    cuda = dev.type == "cuda"
+    rng = np.random.default_rng(seed + 2)
+    n_small = min(C, 4096)
+
+    # (ii) Ns, mixed lengths, reads shorter than k and of length exactly k
+    c2 = codes[C : 2 * C].copy()
+    c2[rng.random(c2.shape) < 0.02] = 5
+    l2 = rng.integers(20, READ_LEN + 1, C).astype(np.int32)
+    l2[::7], l2[1::7], l2[2::7] = K, K - 3, READ_LEN
+    c2[np.arange(READ_LEN)[None, :] >= l2[:, None]] = 5
+    # (iii) 150 bp reads: 8 words beyond depth k against 3 fused in sa_cmp
+    c3, _ = sample_reads(idx, rng, n_small, 150, 0.01)
+    # (iv) a repetitive world, two hit slots: lanes overflow and truncate
+    ridx = repetitive_index(rng, work)
+    rdidx, rst = upload_index(ridx, dev)
+    c4, _ = sample_reads(ridx, rng, n_small, 120, 0.02)
+    l4 = np.full(n_small, 120, np.int32)
+    sets = [
+        ("smoke_chunk", mapper.didx, mapper.st, mapper.cfg, codes[:C], lens[:C]),
+        ("ns_mixed_lengths", mapper.didx, mapper.st, mapper.cfg, c2, l2),
+        ("reads_150bp", mapper.didx, mapper.st, mapper.cfg, c3, np.full(n_small, 150, np.int32)),
+        ("repetitive_2_slots", rdidx, rst, MapConfig(k=K, max_hits_per_strand=2), c4, l4),
+        ("repetitive_16_slots", rdidx, rst, MapConfig(k=K), c4, l4),
+    ]
+
+    def diff(a, b):
+        return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0
+
+    checks, max_err, main = [], 0, None
+    for name, didx, st, cfg, cds, lns in sets:
+        w = dense_phase(didx, st, torch.from_numpy(cds).to(dev),
+                        torch.from_numpy(lns.astype(np.int64)).to(dev), cfg)
+        params = walk_params(st, cfg)
+        got = anchor_walk(didx, *w, **params)
+        want = anchor_walk_plain(didx, *w, **params)
+        errs = {f: diff(getattr(got, f), getattr(want, f)) for f in ScanHits._fields}
+        # the extension alone: at each lane's first anchor, and on the whole
+        # suffix array at random positions (searches of ~log2(n) trips)
+        R, L = w.preads.shape
+        S, k, n_sa = w.db2.shape[1], params["k"], didx.sa_cmp.shape[0]
+        first = got.q[:, 0].contiguous()
+        col = torch.where(torch.arange(R, device=dev) >= R // 2, w.lens2 - k - first, first)
+        col = col.clamp(0, S - 1)[:, None]
+        act = got.n > 0
+        b0 = torch.gather(w.db2, 1, col)[:, 0].contiguous()
+        e0 = torch.gather(w.de2, 1, col)[:, 0].contiguous()
+        rpos = torch.from_numpy(rng.integers(0, S, R)).to(dev)
+        ract = torch.from_numpy(rng.random(R) < 0.9).to(dev)
+        wide = n_sa.bit_length() + 1
+        ext_errs = []
+        for b_, e_, p_, a_, steps in (
+            (b0, e0, first, act, params["ext_steps"]),
+            (torch.zeros_like(b0), torch.full_like(e0, n_sa), rpos, ract, wide),
+        ):
+            pl = extend_packed(didx, w.preads, w.next_bad, w.lens2, b_, e_, p_, a_, k,
+                               steps, L, col_off=w.col_off2)
+            kn = extend_packed_kernel(didx, w, b_, e_, p_, a_, k, steps) if cuda else pl
+            ext_errs.append(max(diff(x, y) for x, y in zip(kn, pl)))
+        hit = torch.arange(got.q.shape[1], device=dev)[None, :] < got.n[:, None]
+        checks.append(dict(
+            set=name, lanes=R, read_len=L, words=ext_words(L, k),
+            fused_words=didx.sa_cmp.shape[1] - 3, hit_slots=params["H"],
+            hits=int(got.n.sum()), truncated_lanes=int(got.truncated.sum()),
+            widest_interval=int(torch.where(hit, got.e - got.b, 0).max()),
+            longest_mmp=int(got.l.max()), field_err=errs, extend_err=ext_errs,
+            equal_plain=not any(errs.values()), extend_equal_plain=not any(ext_errs),
+        ))
+        max_err = max(max_err, *errs.values(), *ext_errs)
+        if name == "smoke_chunk":
+            main = (didx, w, params)
+    by = {c["set"]: c for c in checks}
+    covered = (
+        by["reads_150bp"]["words"] > by["reads_150bp"]["fused_words"]
+        and by["reads_150bp"]["longest_mmp"] > K + 48
+        and by["repetitive_2_slots"]["truncated_lanes"] > 0
+        and by["repetitive_16_slots"]["widest_interval"] > 1
+    )
+    ok = covered and all(c["equal_plain"] and c["extend_equal_plain"] for c in checks)
+
+    # timing and bound at the main path's shape (one chunk: 2 x chunk lanes)
+    didx, w, params = main
+    wrapper_ms = timer(lambda: anchor_walk(didx, *w, **params), reps=50)
+    ms, ms_by = device_ms(lambda: anchor_walk(didx, *w, **params), 50, cuda)
+    plain_ms = timer(lambda: anchor_walk_plain(didx, *w, **params), reps=2, warm=1)
+    hits = anchor_walk(didx, *w, **params)
+    out_bytes = sum(t.numel() * t.element_size() for t in
+                    (hits.q, hits.l, hits.b, hits.e, hits.n, hits.truncated))
+    if cuda:
+        # the bytes the function must move for THIS data: every 32-byte sector
+        # of an input that the walk reads, once (counted by the kernel's
+        # counting build), and every output written once
+        counted, sectors, rows = walk_traffic(didx, w, **params)
+        if any(diff(getattr(counted, f), getattr(hits, f)) for f in ScanHits._fields):
+            raise RuntimeError("the counting build of the walk disagrees with the kernel")
+        nbytes = 32 * sum(sectors.values()) + out_bytes
+        ops = 32 * rows  # index arithmetic and one masked word compare a row, at least
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
+        bound = dict(bound_ms=max(t_bytes, t_ops),
+                     bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=nbytes,
+                     output_bytes=out_bytes, input_sectors_read=sectors, sa_cmp_rows=rows,
+                     share_of_bound=max(t_bytes, t_ops) / ms)
+    else:
+        bound = dict(bound_ms="not measured", bound_by="bytes")
+    timing = dict(
+        lanes=w.preads.shape[0], read_len=w.preads.shape[1], ms=ms, wrapper_ms=wrapper_ms,
+        device_ms_by_kernel=ms_by, plain_ms=plain_ms, library_ms=None, **bound,
+    )
+    emit("kernel_vs_plain", kernel="anchor_walk", ok=ok, max_abs_err=max_err,
+         covered=covered, checks=checks, timing=timing)
+    return ok, max_err, timing
 
 
 def true_locus_share(res, truth, lo: int, hi: int) -> float:
@@ -190,12 +489,12 @@ def true_locus_share(res, truth, lo: int, hi: int) -> float:
 def profile_batch(mapper, codes, lens, C: int, cuda: bool) -> dict:
     """Where one batch's time goes: the device's busy share and its top
     kernels (torch.profiler), and the synchronized host time of one chunk's
-    scan and collate stages."""
+    scan (dense phase, then anchor walk) and collate stages."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from rapmap_tpu_torch.ops.collate import collate_records_se
-    from rapmap_tpu_torch.ops.mmp import scan_dispatch
+    from rapmap_tpu_torch.ops.mmp import anchor_walk, dense_phase, walk_params
     from rapmap_tpu_torch.ops.wire import rec_spec_se
 
     sync = torch.cuda.synchronize if cuda else (lambda: None)
@@ -206,14 +505,11 @@ def profile_batch(mapper, codes, lens, C: int, cuda: bool) -> dict:
         mapper.fetch(mapper.map_se_async(codes, lens))
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
-    by_name: dict[str, list] = {}
-    for e in kern:
-        v = by_name.setdefault(e.name[:80], [0.0, 0])
-        v[0] += e.time_range.elapsed_us() / 1e3
-        v[1] += 1
+    by_name = device_kernels(prof) if cuda else {}
+    busy_ms = sum(v[0] for v in by_name.values())
+    kern = sum(v[1] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    own = [(n, v) for n, v in by_name.items() if any(f"::{k}" in n for k in HAND_KERNELS)]
 
     dev = mapper.device
     r = torch.from_numpy(codes[:C]).to(dev)
@@ -223,19 +519,24 @@ def profile_batch(mapper, codes, lens, C: int, cuda: bool) -> dict:
     for _ in range(2):  # second pass is the one kept (warm)
         sync()
         t0 = time.perf_counter()
-        hits = scan_dispatch(mapper.didx, mapper.st, r, ln, mapper.cfg)
+        w = dense_phase(mapper.didx, mapper.st, r, ln, mapper.cfg)
+        sync()
+        tw = time.perf_counter()
+        hits = anchor_walk(mapper.didx, *w, **walk_params(mapper.st, mapper.cfg))
         sync()
         t1 = time.perf_counter()
         collate_records_se(mapper.didx, mapper.st, hits, ln, mapper.cfg,
                            mapper.cfg.rec_slots * C, rec_spec=spec)
         sync()
-        stage = dict(scan_ms=(t1 - t0) * 1e3, collate_ms=(time.perf_counter() - t1) * 1e3)
+        stage = dict(scan_ms=(t1 - t0) * 1e3, dense_ms=(tw - t0) * 1e3,
+                     walk_ms=(t1 - tw) * 1e3, collate_ms=(time.perf_counter() - t1) * 1e3)
     return dict(
         batch_wall_ms=wall_ms,
         device_busy_ms=busy_ms if kern else "not measured",
         device_idle_share=1.0 - busy_ms / wall_ms if kern else "not measured",
-        kernel_launches=len(kern), launches_per_chunk=len(kern) / (len(codes) // C),
+        kernel_launches=kern, launches_per_chunk=kern / (len(codes) // C),
         top_kernels=[dict(name=n, ms=v[0], count=v[1]) for n, v in top],
+        hand_kernels=[dict(name=n, ms=v[0], count=v[1]) for n, v in own],
         chunk_stages=stage,
     )
 
@@ -304,6 +605,12 @@ def main() -> int:
          max_memory_allocated=torch.cuda.max_memory_allocated() if cuda else "not measured",
          chunk=C, voting_pool=cfg.expand_budget * C)
 
+    walk_ok, walk_err, walk_t = phase_walk_kernel(
+        dev, timer, mapper, idx, codes, lens, C, args.seed, work)
+    if not walk_ok:
+        raise RuntimeError("anchor_walk kernel disagrees with its plain version, or "
+                           "an input set missed what it is there to exercise")
+
     # ---- main path: map_se_async / fetch, one batch in flight --------------
     kernels.reset_launches()
     results = []
@@ -331,8 +638,8 @@ def main() -> int:
          true_locus_share=truth_share, over_budget=ctr["over_budget"],
          counters=ctr, launches=launches,
          max_memory_allocated=torch.cuda.max_memory_allocated() if cuda else "not measured")
-    if cuda and launches["bitonic_sort_pairs"] < n_chunks:
-        raise RuntimeError(f"sort kernel launched {launches} times for {n_chunks} chunks")
+    if cuda and min(launches["bitonic_sort_pairs"], launches["anchor_walk"]) < n_chunks:
+        raise RuntimeError(f"kernel launches {launches} for {n_chunks} chunks")
     if map_rate < 0.9:
         raise RuntimeError(f"map rate {map_rate:.4f} below 0.9")
     for r in results:
@@ -361,9 +668,18 @@ def main() -> int:
         "source": "rapmap_tpu_torch/csrc/sort2.cu",
         "replaces": "rapmap_tpu/ops/pallas/sort2.py:153",
         "launches": launches["bitonic_sort_pairs"], "max_abs_err": sort_err,
-        "matches_plain": sort_ok, "ms": sort_t["ms"], "kernel_ms": sort_t["ms"],
+        "matches_plain": sort_ok, "ms": sort_t["ms"], "wrapper_ms": sort_t["wrapper_ms"],
         "plain_ms": sort_t["plain_ms"], "bound_ms": sort_t["bound_ms"],
         "bound_by": sort_t["bound_by"], "library_ms": sort_t["library_ms"],
+        "library_wrapper_ms": sort_t["library_wrapper_ms"],
+    }, {
+        "name": "anchor_walk", "route": "cuda",
+        "source": "rapmap_tpu_torch/csrc/walk.cu",
+        "replaces": "rapmap_tpu/ops/mmp.py:190",
+        "launches": launches["anchor_walk"], "max_abs_err": walk_err,
+        "matches_plain": walk_ok, "ms": walk_t["ms"], "wrapper_ms": walk_t["wrapper_ms"],
+        "plain_ms": walk_t["plain_ms"], "bound_ms": walk_t["bound_ms"],
+        "bound_by": walk_t["bound_by"], "library_ms": None,
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -30,7 +30,7 @@ NVCC_FLAGS = [
 ]
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES: dict[str, int] = {"bitonic_sort_pairs": 0}
+LAUNCHES: dict[str, int] = {"bitonic_sort_pairs": 0, "anchor_walk": 0}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

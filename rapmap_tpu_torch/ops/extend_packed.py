@@ -26,10 +26,16 @@ from rapmap_tpu_torch.ops.device_index import DeviceQuasiIndex
 from rapmap_tpu_torch.ops.gather import row_gather_nd
 
 
+def ext_words(L: int, k: int) -> int:
+    """32-bit words that cover the L - k chars a read can extend past depth k."""
+    return max(1, -(-(L - k) // 16))
+
+
 def pack_reads(reads: torch.Tensor) -> torch.Tensor:
     """(R, L) int8 codes -> (R, L) words (uint32 in int64): the 16 bases
     starting at each position, big-endian 2-bit (non-ACGT bases contribute
     arbitrary bits and must be masked out by the caller's valid-length logic).
+    The result is contiguous: csrc/walk.cu reads it row by row.
 
     Log-step sliding-window combine: v_k[p] packs bases p..p+2^k-1 into the
     TOP 2^(k+1) bits, and v_{k+1}[p] = v_k[p] | v_k[p+2^k] >> 2^(k+1)."""
@@ -40,7 +46,7 @@ def pack_reads(reads: torch.Tensor) -> torch.Tensor:
     for k in (1, 2, 4, 8):
         shifted = torch.cat([v[:, k:], v.new_zeros((R, k))], dim=1)
         v = v | (shifted >> (2 * k))
-    return v[:, :L]
+    return v[:, :L].contiguous()
 
 
 def _text_words(
@@ -156,7 +162,7 @@ def extend_packed(
     """Returns (b, e, mlen) per lane (one anchor per read row). Lane r's
     data starts at column col_off[r] (position p -> column p + col_off[r])
     and ends at column col_off[r] + lens[r]."""
-    W = max(1, -(-(L - k) // 16))
+    W = ext_words(L, k)
     base = pos + k + col_off
     base_c = base.clamp(0, L - 1)
     rows = torch.arange(pos.shape[0], device=pos.device)

@@ -5,7 +5,8 @@ Port of rapmap_tpu.ops.pallas.sort2. `bitonic_sort_pairs` sorts N pairs
 N a power of two. The words ride int32 tensors holding the uint32 bit
 patterns. On a CUDA tensor it runs the hand-written kernel of
 csrc/sort2.cu (the counterpart of the Pallas kernel
-`bitonic_sort_pairs_pallas`); on a CPU tensor it runs
+`bitonic_sort_pairs_pallas`; one launch of one thread-block cluster for
+8,192 <= N <= 65,536, which covers the main path); on a CPU tensor it runs
 `bitonic_sort_pairs_plain`, the same network in PyTorch. There is no payload,
 so the unstable network's output equals a stable sort's.
 """
@@ -53,6 +54,17 @@ def bitonic_sort_pairs_plain(hi: torch.Tensor, lo: torch.Tensor):
     return as_i32(h), as_i32(l)
 
 
+SORT_PATHS = ("one block", "one cluster launch", "tiled passes")
+
+
+def sort_path(n: int) -> str:
+    """Which path of csrc/sort2.cu sorts n pairs (asks the built library)."""
+    fn = kernels.library("sort2").tqm_bitonic_sort_path
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int64]
+    return SORT_PATHS[fn(n)]
+
+
 def bitonic_sort_pairs(hi: torch.Tensor, lo: torch.Tensor):
     """Sorted copies of (hi, lo): the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors."""
@@ -67,16 +79,14 @@ def bitonic_sort_pairs(hi: torch.Tensor, lo: torch.Tensor):
     N = hi.shape[0]
     if N < 2 or N & (N - 1):
         raise ValueError("bitonic sort needs a power-of-two length >= 2")
-    out_hi = torch.empty_like(hi, memory_format=torch.contiguous_format)
-    out_lo = torch.empty_like(lo, memory_format=torch.contiguous_format)
-    out_hi.copy_(hi)
-    out_lo.copy_(lo)
+    hi, lo = hi.contiguous(), lo.contiguous()
+    out_hi, out_lo = torch.empty_like(hi), torch.empty_like(lo)
     fn = kernels.library("sort2").tqm_bitonic_sort_pairs
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p]
     with torch.cuda.device(hi.device):
         stream = torch.cuda.current_stream(hi.device).cuda_stream
-        rc = fn(out_hi.data_ptr(), out_lo.data_ptr(), N, stream)
+        rc = fn(hi.data_ptr(), lo.data_ptr(), out_hi.data_ptr(), out_lo.data_ptr(), N, stream)
     if rc != 0:
         raise RuntimeError(f"tqm_bitonic_sort_pairs launch failed: CUDA error {rc}")
     kernels.LAUNCHES["bitonic_sort_pairs"] += 1

@@ -247,16 +247,20 @@ def _sort_inputs(n, kind, rng):
     return hi, lo
 
 
-@pytest.mark.parametrize("n", [1024, 4096])
+@pytest.mark.parametrize("n", [2, 1024, 4096, 65536])
 @pytest.mark.parametrize("kind", ["random", "duplicates_sentinels"])
 def test_bitonic_sort(n, kind):
     """plain == wrapper (CPU tensors) == Pallas kernel (interpret mode) ==
-    np.lexsort."""
+    np.lexsort. N = 2 is below the Pallas kernel's lane width and is held to
+    np.lexsort alone; N = 65,536 is the main path's voting pool."""
     hi, lo = _sort_inputs(n, kind, np.random.default_rng(n))
     order = np.lexsort((lo, hi))
     ph, pl = bitonic_sort_pairs_plain(t_(hi.view(np.int32)), t_(lo.view(np.int32)))
     wh, wl = bitonic_sort_pairs(t_(hi.view(np.int32)), t_(lo.view(np.int32)))
-    kh, kl = bitonic_sort_pairs_pallas(jnp.asarray(hi), jnp.asarray(lo), interpret=True)
+    if n >= 128:
+        kh, kl = bitonic_sort_pairs_pallas(jnp.asarray(hi), jnp.asarray(lo), interpret=True)
+    else:
+        kh, kl = hi[order], lo[order]
     for h, l in ((ph, pl), (wh, wl)):
         assert h.dtype == torch.int32 and l.dtype == torch.int32
         assert eq(h, hi[order]) and eq(l, lo[order])
