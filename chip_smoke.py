@@ -3,15 +3,20 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Builds the port's native index library and every CUDA kernel from the
+Builds the port's native host library and every CUDA kernel from the
 sources in this checkout, holds each kernel (the voting sort of
 csrc/sort2.cu, the anchor walk of csrc/walk.cu) against its plain PyTorch
 version on the card, builds a 20 Mbp random transcriptome world from the
 seed, maps 262,144 single-end 76 bp reads through QuasiMapper.map_se_async /
 fetch (one batch in flight), and checks the result: map rate, reads mapped
 to their true locus, both kernels' launches on the main path, and the
-card's wire buffer equal to the CPU's on the first batch. Every phase prints
-one JSON line; the last line is
+card's wire buffer equal to the CPU's on the first batch. Then it drives the
+port's command line in process (rapmap_tpu_torch.cli.main) on the same world,
+FASTQ in and SAM out: at its default flags (batches of 4,096, one program a
+batch), chunked with a parser thread, with a starved expansion budget against
+an ample one on a repetitive world (the host-oracle fallback), and on the card
+against the CPU (SAM files equal byte for byte apart from @PG). Every phase
+prints one JSON line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It exits non-zero, printing no result, without a CUDA card or without the
 rest of the repository beside it.
@@ -25,6 +30,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -199,11 +205,12 @@ def phase_sort_kernel(dev, timer):
     return ok, max_err, timing
 
 
-def build_index(fa: str):
-    """The port's quasi index (k = 31, canonical CHD) of a FASTA file."""
+def build_index(fa: str, outdir: str | None = None):
+    """The port's quasi index (k = 31, canonical CHD) of a FASTA file, saved
+    as an index directory when `outdir` is given."""
     from rapmap_tpu_torch.index.builder import build_quasi_index
 
-    return build_quasi_index(fa, k=K)
+    return build_quasi_index(fa, outdir, k=K)
 
 
 def sample_reads(idx, rng, n_reads: int, read_len: int, err_rate: float):
@@ -226,9 +233,9 @@ def sample_reads(idx, rng, n_reads: int, read_len: int, err_rate: float):
 
 def build_world(seed: int, n_txps: int, n_reads: int, workdir: str):
     """Random transcriptome (500-3,500 bp transcripts), the port's quasi
-    index (k=31, canonical CHD), and reads sampled at known
-    (transcript, position, strand) with 1% substitutions, half reverse-
-    complemented."""
+    index (k=31, canonical CHD; saved as <workdir>/idx for the command line),
+    and reads sampled at known (transcript, position, strand) with 1%
+    substitutions, half reverse-complemented."""
     rng = np.random.default_rng(seed)
     lens = rng.integers(500, 3501, n_txps)
     fa = os.path.join(workdir, "txome.fa")
@@ -237,7 +244,7 @@ def build_world(seed: int, n_txps: int, n_reads: int, workdir: str):
         for i, ln in enumerate(lens):
             f.write(f">t{i}\n{bases[rng.integers(0, 4, int(ln))].tobytes().decode()}\n")
     t0 = time.time()
-    idx = build_index(fa)
+    idx = build_index(fa, os.path.join(workdir, "idx"))
     build_s = time.time() - t0
 
     codes, truth = sample_reads(idx, rng, n_reads, READ_LEN, 0.01)
@@ -247,7 +254,8 @@ def build_world(seed: int, n_txps: int, n_reads: int, workdir: str):
 def repetitive_index(rng, workdir: str):
     """A small repetitive transcriptome: 40 genes of 1,500 bp, 8 isoforms
     each that differ from their gene in 0.5% of the bases, so most 31-mers
-    occur several times and the extension's searches take several trips."""
+    occur several times and the extension's searches take several trips.
+    Saved as <workdir>/repetitive_idx for the command line."""
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)
     fa = os.path.join(workdir, "repetitive.fa")
     with open(fa, "w") as f:
@@ -258,7 +266,99 @@ def repetitive_index(rng, workdir: str):
                 mut = rng.random(1500) < 0.005
                 iso[mut] = rng.integers(0, 4, int(mut.sum()))
                 f.write(f">g{g}i{i}\n{bases[iso].tobytes().decode()}\n")
-    return build_index(fa)
+    return build_index(fa, os.path.join(workdir, "repetitive_idx"))
+
+
+def write_fastq(path: str, codes, truth=None) -> str:
+    """Reads as FASTQ, each named r<i> or, with `truth`, by its true locus:
+    r<i>:<transcript>:<position>:<strand>."""
+    seqs = np.frombuffer(b"NACGTN", dtype=np.uint8)[codes]
+    qual = "I" * codes.shape[1]
+    with open(path, "w") as f:
+        for i, row in enumerate(seqs):
+            name = f"r{i}" if truth is None else (
+                f"r{i}:{truth[0][i]}:{truth[1][i]}:{truth[2][i]}")
+            f.write(f"@{name}\n{row.tobytes().decode()}\n+\n{qual}\n")
+    return path
+
+
+def sam_body(path: str) -> list[str]:
+    """The lines of a SAM file without @PG, which carries the command line."""
+    with open(path) as f:
+        return [ln for ln in f if not ln.startswith("@PG")]
+
+
+def sam_true_locus_share(path: str, n_reads: int) -> float:
+    """Share of the reads (named by write_fastq with their truth) whose
+    PRIMARY record is the true (transcript, position, strand)."""
+    good = 0
+    with open(path) as f:
+        for ln in f:
+            if ln[0] == "@":
+                continue
+            name, flag, rname, pos = ln.split("\t", 4)[:4]
+            flag = int(flag)
+            if flag & 0x104:
+                continue
+            _, t, p, strand = name.split(":")
+            good += (rname == f"t{t}" and int(pos) - 1 == int(p)
+                     and bool(flag & 0x10) == (strand == "1"))
+    return good / n_reads
+
+
+class StageLog(logging.Handler):
+    """Keeps what the command line's --profile logs: {stage: [seconds, calls]}."""
+
+    def __init__(self):
+        super().__init__()
+        self.stages: dict[str, list] = {}
+
+    def emit(self, record):
+        if isinstance(record.msg, str) and record.msg.startswith("stage ") and record.args:
+            name, seconds, calls = record.args
+            self.stages[name] = [seconds, calls]
+
+
+def run_cli(phase: str, argv: list[str], workdir: str, force_cpu: bool = False) -> dict:
+    """One `quasimap` through rapmap_tpu_torch.cli.main in this process, with
+    --statsJson and --profile, the launch counts zeroed just before it and read
+    just after -> the phase's record (also printed as its JSON line). Raises
+    unless the command returns 0."""
+    from rapmap_tpu_torch import cli, kernels
+
+    stats_path = os.path.join(workdir, f"{phase}.json")
+    log = StageLog()
+    logging.getLogger("tqm").addHandler(log)
+    old = os.environ.pop("TQM_FORCE_CPU", None)
+    if force_cpu:
+        os.environ["TQM_FORCE_CPU"] = "1"
+    kernels.reset_launches()
+    t0 = time.time()
+    try:
+        rc = cli.main(["quasimap", *argv, "--statsJson", stats_path, "--profile"])
+    finally:
+        total_s = time.time() - t0
+        launches = dict(kernels.LAUNCHES)
+        logging.getLogger("tqm").removeHandler(log)
+        os.environ.pop("TQM_FORCE_CPU", None)
+        if old is not None:
+            os.environ["TQM_FORCE_CPU"] = old
+    if rc != 0:
+        raise RuntimeError(f"{phase}: the command line returned {rc}")
+    with open(stats_path) as f:
+        stats = json.load(f)
+    rec = dict(
+        argv=argv, on="cpu" if force_cpu else "card", counters=stats, launches=launches,
+        reads_per_s=stats["reads_total"] / stats["wall_s"],
+        steady_reads_per_s=stats.get("steady_reads_per_s", "not measured"),
+        map_rate=stats["reads_mapped"] / stats["reads_total"],
+        stages_s={k: v[0] for k, v in log.stages.items()},
+        stage_calls={k: v[1] for k, v in log.stages.items()},
+        stage_share_of_wall={k: v[0] / stats["wall_s"] for k, v in log.stages.items()},
+        total_s_with_index_load_and_upload=total_s,
+    )
+    emit(phase, **rec)
+    return rec
 
 
 def extend_packed_kernel(didx, w, b0, e0, pos, active, k: int, steps: int):
@@ -348,11 +448,13 @@ def walk_traffic(didx, w, k: int, H: int, ext_steps: int):
     return hits, sectors, int(rows.cpu()[0])
 
 
-def phase_walk_kernel(dev, timer, mapper, idx, codes, lens, C: int, seed: int, work: str):
+def phase_walk_kernel(dev, timer, mapper, idx, codes, lens, C: int, seed: int, work: str,
+                      cli_batch):
     """anchor_walk (CUDA kernel) against anchor_walk_plain, all six ScanHits
     fields, and tqm_extend_packed against extend_packed, on card tensors of
-    five input sets; then, at the main path's shape, the walk's timing (`ms`
-    is device time, the hit buffer's zero fill included; `wrapper_ms` CUDA
+    six input sets (the sixth a ragged last batch as the command line's
+    reader hands it over: `cli_batch`); then, at the main path's shape, the
+    walk's timing (`ms` is device time, the hit buffer's zero fill included; `wrapper_ms` CUDA
     events around the calls, host included) and its byte bound."""
     import torch
 
@@ -386,6 +488,10 @@ def phase_walk_kernel(dev, timer, mapper, idx, codes, lens, C: int, seed: int, w
         ("reads_150bp", mapper.didx, mapper.st, mapper.cfg, c3, np.full(n_small, 150, np.int32)),
         ("repetitive_2_slots", rdidx, rst, MapConfig(k=K, max_hits_per_strand=2), c4, l4),
         ("repetitive_16_slots", rdidx, rst, MapConfig(k=K), c4, l4),
+        # (vi) the command line's default batch, its last one: 4,096 rows in
+        # the reader's length bucket, the pad rows all N with length 0
+        ("cli_ragged_batch", mapper.didx, mapper.st, mapper.cfg,
+         np.ascontiguousarray(cli_batch.codes), cli_batch.lens),
     ]
 
     def diff(a, b):
@@ -423,7 +529,8 @@ def phase_walk_kernel(dev, timer, mapper, idx, codes, lens, C: int, seed: int, w
             ext_errs.append(max(diff(x, y) for x, y in zip(kn, pl)))
         hit = torch.arange(got.q.shape[1], device=dev)[None, :] < got.n[:, None]
         checks.append(dict(
-            set=name, lanes=R, read_len=L, words=ext_words(L, k),
+            set=name, lanes=R, read_len=L, zero_length_lanes=int((w.lens2 == 0).sum()),
+            words=ext_words(L, k),
             fused_words=didx.sa_cmp.shape[1] - 3, hit_slots=params["H"],
             hits=int(got.n.sum()), truncated_lanes=int(got.truncated.sum()),
             widest_interval=int(torch.where(hit, got.e - got.b, 0).max()),
@@ -439,6 +546,8 @@ def phase_walk_kernel(dev, timer, mapper, idx, codes, lens, C: int, seed: int, w
         and by["reads_150bp"]["longest_mmp"] > K + 48
         and by["repetitive_2_slots"]["truncated_lanes"] > 0
         and by["repetitive_16_slots"]["widest_interval"] > 1
+        and by["cli_ragged_batch"]["zero_length_lanes"] > 0
+        and by["cli_ragged_batch"]["hits"] > 0
     )
     ok = covered and all(c["equal_plain"] and c["extend_equal_plain"] for c in checks)
 
@@ -489,13 +598,16 @@ def true_locus_share(res, truth, lo: int, hi: int) -> float:
 def profile_batch(mapper, codes, lens, C: int, cuda: bool) -> dict:
     """Where one batch's time goes: the device's busy share and its top
     kernels (torch.profiler), and the synchronized host time of one chunk's
-    scan (dense phase, then anchor walk) and collate stages."""
+    scan (dense phase, then anchor walk) and collate stages, and of the
+    wire's host halves for the batch. A batch below two chunks runs as one
+    program over the whole batch, as the command line's default batches do."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from rapmap_tpu_torch.ops.collate import collate_records_se
+    from rapmap_tpu_torch.ops.collate import collate_batch, collate_records_se
+    from rapmap_tpu_torch.ops.compact import compact_se
     from rapmap_tpu_torch.ops.mmp import anchor_walk, dense_phase, walk_params
-    from rapmap_tpu_torch.ops.wire import rec_spec_se
+    from rapmap_tpu_torch.ops.wire import pack_in_se, rec_spec_se
 
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
@@ -512,11 +624,27 @@ def profile_batch(mapper, codes, lens, C: int, cuda: bool) -> dict:
     own = [(n, v) for n, v in by_name.items() if any(f"::{k}" in n for k in HAND_KERNELS)]
 
     dev = mapper.device
+    chunked = bool(mapper._chunk_of(len(codes)))
     r = torch.from_numpy(codes[:C]).to(dev)
     ln = torch.from_numpy(lens[:C].astype(np.int64)).to(dev)
     spec = rec_spec_se(mapper.st, mapper.cfg)
-    stage = {}
+    stage, wire = {}, {}
+    res = mapper.map_se_async(codes, lens)
     for _ in range(2):  # second pass is the one kept (warm)
+        # the wire's host halves: pack the reads, pin them, pin a result
+        # buffer, and (the result's copy long done) unpack it
+        t0 = time.perf_counter()
+        win = torch.from_numpy(pack_in_se(codes, lens, len(codes)))
+        t1 = time.perf_counter()
+        if cuda:
+            win = win.pin_memory()
+        t2 = time.perf_counter()
+        torch.empty(res.wire.shape, dtype=res.wire.dtype, pin_memory=cuda)
+        t3 = time.perf_counter()
+        mapper.fetch(res)
+        wire = dict(pack_in_ms=(t1 - t0) * 1e3, pin_in_ms=(t2 - t1) * 1e3,
+                    pin_out_ms=(t3 - t2) * 1e3, unpack_out_ms=(time.perf_counter() - t3) * 1e3,
+                    wire_in_bytes=win.numel(), wire_out_bytes=4 * res.wire.numel())
         sync()
         t0 = time.perf_counter()
         w = dense_phase(mapper.didx, mapper.st, r, ln, mapper.cfg)
@@ -525,8 +653,12 @@ def profile_batch(mapper, codes, lens, C: int, cuda: bool) -> dict:
         hits = anchor_walk(mapper.didx, *w, **walk_params(mapper.st, mapper.cfg))
         sync()
         t1 = time.perf_counter()
-        collate_records_se(mapper.didx, mapper.st, hits, ln, mapper.cfg,
-                           mapper.cfg.rec_slots * C, rec_spec=spec)
+        if chunked:
+            collate_records_se(mapper.didx, mapper.st, hits, ln, mapper.cfg,
+                               mapper.cfg.rec_slots * C, rec_spec=spec)
+        else:
+            compact_se(collate_batch(mapper.didx, mapper.st, hits, ln, mapper.cfg),
+                       mapper.cfg.rec_slots * len(ln))
         sync()
         stage = dict(scan_ms=(t1 - t0) * 1e3, dense_ms=(tw - t0) * 1e3,
                      walk_ms=(t1 - tw) * 1e3, collate_ms=(time.perf_counter() - t1) * 1e3)
@@ -534,10 +666,11 @@ def profile_batch(mapper, codes, lens, C: int, cuda: bool) -> dict:
         batch_wall_ms=wall_ms,
         device_busy_ms=busy_ms if kern else "not measured",
         device_idle_share=1.0 - busy_ms / wall_ms if kern else "not measured",
-        kernel_launches=kern, launches_per_chunk=kern / (len(codes) // C),
+        programs=max(1, len(codes) // C), kernel_launches=kern,
+        launches_per_chunk=kern / max(1, len(codes) // C),
         top_kernels=[dict(name=n, ms=v[0], count=v[1]) for n, v in top],
         hand_kernels=[dict(name=n, ms=v[0], count=v[1]) for n, v in own],
-        chunk_stages=stage,
+        chunk_stages=stage, wire_host=wire,
     )
 
 
@@ -605,8 +738,28 @@ def main() -> int:
          max_memory_allocated=torch.cuda.max_memory_allocated() if cuda else "not measured",
          chunk=C, voting_pool=cfg.expand_budget * C)
 
+    # the command line's inputs: every read with its true locus in its name,
+    # the head of them for the card-against-CPU run, and a file whose last
+    # batch at the command line's batch size is ragged
+    from rapmap_tpu_torch.io import fastx
+
+    cli_bs = 4096 if args.reads >= 8 * 4096 else 256  # --batchSize's default, or a rehearsal's
+    t0 = time.time()
+    reads_fq = write_fastq(os.path.join(work, "reads.fq"), codes, truth)
+    n_head = min(2 * cli_bs, args.reads)
+    head_fq = write_fastq(os.path.join(work, "head.fq"), codes[:n_head], truth)
+    n_ragged = min(cli_bs + cli_bs // 2 - 7, args.reads)
+    ragged_fq = write_fastq(os.path.join(work, "ragged.fq"), codes[:n_ragged])
+    cli_batch = list(fastx.batched_reads(ragged_fq, cli_bs, 512))[-1]
+    emit("cli_inputs", reads_fq=args.reads, head_fq=n_head, ragged_fq=n_ragged,
+         ragged_batch=dict(rows=cli_batch.codes.shape[0], read_len=cli_batch.codes.shape[1],
+                           n_valid=cli_batch.n),
+         native_parser=fastx._use_native(reads_fq), write_s=time.time() - t0)
+    if cli_batch.n >= cli_batch.codes.shape[0] or cli_batch.lens[cli_batch.n:].any():
+        raise RuntimeError("the ragged batch has no zero-length pad rows")
+
     walk_ok, walk_err, walk_t = phase_walk_kernel(
-        dev, timer, mapper, idx, codes, lens, C, args.seed, work)
+        dev, timer, mapper, idx, codes, lens, C, args.seed, work, cli_batch)
     if not walk_ok:
         raise RuntimeError("anchor_walk kernel disagrees with its plain version, or "
                            "an input set missed what it is there to exercise")
@@ -647,6 +800,9 @@ def main() -> int:
             raise RuntimeError("malformed wire result")
 
     emit("profile", **profile_batch(mapper, codes[:B], lens[:B], C, cuda))
+    # one batch of the command line's default size: one program over the batch
+    emit("profile_unchunked", batch=cli_bs,
+         **profile_batch(mapper, codes[:cli_bs], lens[:cli_bs], C, cuda))
 
     # ---- the card's wire buffer equals the CPU's on the first batch --------
     if cuda:
@@ -662,12 +818,101 @@ def main() -> int:
         emit("card_equals_cpu", batch=B, equal=same, cpu_s=time.time() - t0)
         if not same:
             raise RuntimeError("card wire buffer differs from the CPU's")
+        del cpu_mapper, host, card
+
+    # ---- the command line, in process: FASTQ in, SAM out ---------------------
+    force_cpu = not cuda  # a rehearsal runs every command on the CPU
+    idx_dir = os.path.join(work, "idx")
+    n_main_mapped = ctr["reads_mapped"]
+    del results, idx
+
+    def sam(name):
+        return os.path.join(work, name)
+
+    default_bs = [] if cli_bs == 4096 else ["--batchSize", str(cli_bs)]
+    cli_default = run_cli(
+        "cli_default", ["-i", idx_dir, "-r", reads_fq, "-o", sam("a.sam"), *default_bs],
+        work, force_cpu)
+    n_batches = -(-args.reads // cli_bs)
+    share = sam_true_locus_share(sam("a.sam"), args.reads)
+    emit("cli_default_checks", batches=n_batches, primary_at_true_locus_share=share,
+         reads_mapped_main_path=n_main_mapped)
+    if cli_default["counters"]["reads_total"] != args.reads:
+        raise RuntimeError("cli_default: reads_total differs from the reads written")
+    if cli_default["map_rate"] < 0.9 or cli_default["counters"]["reads_mapped"] != n_main_mapped:
+        raise RuntimeError("cli_default: map rate below 0.9 or unequal to the main path's")
+    if share < 0.98:
+        raise RuntimeError(f"cli_default: {share:.4f} of the primary records at the true locus")
+    if cuda and cli_default["launches"]["anchor_walk"] != n_batches:
+        raise RuntimeError(f"cli_default: walk launches {cli_default['launches']} "
+                           f"for {n_batches} batches")
+
+    cli_chunked = run_cli(
+        "cli_chunked", ["-i", idx_dir, "-r", reads_fq, "-o", sam("b.sam"),
+                        "--batchSize", str(B), "--chunkSize", str(C), "-t", "2"],
+        work, force_cpu)
+    same = sam_body(sam("a.sam")) == sam_body(sam("b.sam"))
+    emit("cli_chunked_checks", chunks=n_chunks, sam_equals_cli_default=same)
+    if not same:
+        raise RuntimeError("cli_chunked: SAM differs from cli_default's")
+    if cuda and cli_chunked["launches"]["anchor_walk"] != n_chunks:
+        raise RuntimeError(f"cli_chunked: walk launches {cli_chunked['launches']} "
+                           f"for {n_chunks} chunks")
+
+    # the host-oracle fallback: a starved expansion pool against an ample one
+    # on the repetitive world; half a batch of reads wants ~3 starved pools
+    # of slots (~5.6 a read), and the record buffer (rec_slots x batch) still
+    # holds every record of both runs
+    from rapmap_tpu_torch.index.format import load_index
+
+    rep_dir = os.path.join(work, "repetitive_idx")
+    n_rep = cli_bs // 2
+    rep_codes, _ = sample_reads(load_index(rep_dir), np.random.default_rng(args.seed + 3),
+                                n_rep, 120, 0.02)
+    rep_fq = write_fastq(os.path.join(work, "repetitive.fq"), rep_codes)
+    rep = {}
+    for name, budget in (("starved", 1), ("ample", 64)):
+        rep[name] = run_cli(
+            f"cli_fallback_{name}",
+            ["-i", rep_dir, "-r", rep_fq, "-o", sam(f"rep_{name}.sam"), *default_bs,
+             "--expandBudget", str(budget)], work, force_cpu)
+    same = sam_body(sam("rep_starved.sam")) == sam_body(sam("rep_ample.sam"))
+    n_fb = rep["starved"]["counters"].get("host_fallback", 0)
+    emit("cli_fallback", reads=n_rep, host_fallback=n_fb, sam_equal=same,
+         records=rep["ample"]["counters"]["records"])
+    if n_fb <= 0 or rep["ample"]["counters"].get("host_fallback", 0) or not same:
+        raise RuntimeError("cli_fallback: no fallback with the starved budget, fallback "
+                           "with the ample one, or the two SAM files differ")
+    if cuda and min(r["launches"]["anchor_walk"] for r in rep.values()) < 1:
+        raise RuntimeError("cli_fallback: the walk kernel was not launched")
+
+    # the card's SAM equals the CPU's
+    if cuda:
+        head = {}
+        for name, on_cpu in (("card", False), ("cpu", True)):
+            head[name] = run_cli(
+                f"cli_head_{name}", ["-i", idx_dir, "-r", head_fq, "-o", sam(f"head_{name}.sam")],
+                work, on_cpu)
+        same = sam_body(sam("head_card.sam")) == sam_body(sam("head_cpu.sam"))
+        emit("cli_card_equals_cpu", reads=n_head, equal=same,
+             cpu_launches=head["cpu"]["launches"])
+        if not same or head["cpu"]["launches"]["anchor_walk"]:
+            raise RuntimeError("cli_card_equals_cpu: the card's SAM differs from the CPU's, "
+                               "or the CPU run launched a kernel")
+
+    cli_launches = {"cli_default": cli_default["launches"], "cli_chunked": cli_chunked["launches"],
+                    "cli_fallback_starved": rep["starved"]["launches"],
+                    "cli_fallback_ample": rep["ample"]["launches"]}
+
+    def on_cli(kernel):
+        return {path: n[kernel] for path, n in cli_launches.items()}
 
     print(json.dumps({"kernels": [{
         "name": "bitonic_sort_pairs", "route": "cuda",
         "source": "rapmap_tpu_torch/csrc/sort2.cu",
         "replaces": "rapmap_tpu/ops/pallas/sort2.py:153",
-        "launches": launches["bitonic_sort_pairs"], "max_abs_err": sort_err,
+        "launches": launches["bitonic_sort_pairs"],
+        "launches_on_cli_paths": on_cli("bitonic_sort_pairs"), "max_abs_err": sort_err,
         "matches_plain": sort_ok, "ms": sort_t["ms"], "wrapper_ms": sort_t["wrapper_ms"],
         "plain_ms": sort_t["plain_ms"], "bound_ms": sort_t["bound_ms"],
         "bound_by": sort_t["bound_by"], "library_ms": sort_t["library_ms"],
@@ -676,7 +921,8 @@ def main() -> int:
         "name": "anchor_walk", "route": "cuda",
         "source": "rapmap_tpu_torch/csrc/walk.cu",
         "replaces": "rapmap_tpu/ops/mmp.py:190",
-        "launches": launches["anchor_walk"], "max_abs_err": walk_err,
+        "launches": launches["anchor_walk"],
+        "launches_on_cli_paths": on_cli("anchor_walk"), "max_abs_err": walk_err,
         "matches_plain": walk_ok, "ms": walk_t["ms"], "wrapper_ms": walk_t["wrapper_ms"],
         "plain_ms": walk_t["plain_ms"], "bound_ms": walk_t["bound_ms"],
         "bound_by": walk_t["bound_by"], "library_ms": None,

@@ -1,13 +1,20 @@
 """QuasiMapper — the end-to-end single-end mapping engine on one device.
 
-Port of rapmap_tpu.models.quasi's chunked wire path:
+Port of rapmap_tpu.models.quasi's single-end paths:
   wire_in -> reads -> MMP scan (ops.mmp) -> collation (ops.collate)
-  -> wire_out (ops.wire), one chunk of cfg.chunk reads at a time.
+  -> wire_out (ops.wire)
+either as one program over the whole batch (`map_batch_se_wire`: the slotted
+MapOut of `map_batch_se`, compacted by ops.compact) or, when the batch is a
+multiple of two or more cfg.chunk, one chunk at a time with the direct
+compaction (`map_batch_se_wire_chunked`). `map_se` is the library call that
+returns the MapOut itself.
 
-`map_se_async` enqueues the whole chunk loop on the device's current stream
-and starts a non-blocking copy of the result into pinned host memory;
-`fetch` waits for that copy alone, so a caller can hold one batch in flight
-while it prepares the next.
+`map_se_async` enqueues the batch on the device's current stream and starts
+a non-blocking copy of the result into pinned host memory; `fetch` waits for
+that copy alone, so a caller can hold batches in flight while it prepares the
+next. Every call pins fresh buffers, and a fetched result's records may be a
+view of its buffer: nothing is reused while a result is alive. Paired-end
+and the mapping score are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,11 +27,12 @@ import torch
 
 from rapmap_tpu_torch.config import MapConfig, auto_expand_budget, sampled_width
 from rapmap_tpu_torch.index.format import QuasiIndex
-from rapmap_tpu_torch.ops.collate import collate_records_se
+from rapmap_tpu_torch.ops.collate import MapOut, collate_batch, collate_records_se
+from rapmap_tpu_torch.ops.compact import compact_se
 from rapmap_tpu_torch.ops.device_index import DeviceQuasiIndex, EngineStatic, upload_index
 from rapmap_tpu_torch.ops.mmp import scan_dispatch
 from rapmap_tpu_torch.ops.wire import (
-    HDR, encode_read_flags, pack_counts_flags, pack_in_se, rec_spec_se,
+    HDR, encode_read_flags, pack_counts_flags, pack_in_se, pack_out, rec_spec_se,
     unpack_in_se, unpack_out,
 )
 
@@ -38,6 +46,40 @@ class Counters(NamedTuple):
     over_budget: torch.Tensor
     records: torch.Tensor
     out_truncated: torch.Tensor  # reads whose records exceeded cfg.out_slots
+
+
+def map_batch_se(
+    didx: DeviceQuasiIndex,
+    st: EngineStatic,
+    reads: torch.Tensor,    # (B, L) int8
+    lens: torch.Tensor,     # (B,)
+    n_valid: torch.Tensor,  # scalar: non-pad rows
+    cfg: MapConfig,
+) -> tuple[MapOut, Counters]:
+    hits = scan_dispatch(didx, st, reads, lens, cfg)
+    out = collate_batch(didx, st, hits, lens, cfg)
+    real = torch.arange(reads.shape[0], device=reads.device) < n_valid
+    ctr = Counters(
+        reads_total=n_valid,
+        reads_mapped=(out.mapped & real).sum(),
+        too_ambiguous=(out.too_ambiguous & real).sum(),
+        over_budget=(out.over_budget & real).sum(),
+        records=((out.t != -1) & real[:, None]).sum(),
+        out_truncated=(out.out_truncated & real).sum(),
+    )
+    return out, ctr
+
+
+def map_batch_se_wire(
+    didx: DeviceQuasiIndex, st: EngineStatic, wire_in: torch.Tensor,
+    cfg: MapConfig, cap: int, B: int, L: int,
+) -> torch.Tensor:
+    """Single-buffer in/out SE mapping step (ops.wire format), one program
+    over the whole batch -> int32 wire_out on the wire's device."""
+    reads, lens, n_valid = unpack_in_se(wire_in, B, L)
+    out, ctr = map_batch_se(didx, st, reads, lens, n_valid, cfg)
+    flags = encode_read_flags(out.over_budget, out.out_truncated, out.too_ambiguous, out.mapped)
+    return pack_out(compact_se(out, cap), ctr, flags)
 
 
 def _se_counters(flags, n_valid, C: int) -> Counters:
@@ -101,7 +143,7 @@ class SEResult(NamedTuple):
     B: int
     wire: torch.Tensor               # int32 wire_out (pinned host memory on CUDA)
     done: torch.cuda.Event | None    # recorded after the copy; None on the CPU
-    C: int
+    C: int                           # chunk size, 0 = one program over the batch
     capc: int
     spec: object
 
@@ -142,6 +184,25 @@ class QuasiMapper:
             )
         self.cfg = cfg
         self.didx, self.st = upload_index(idx, self.device, meta_pairs=cfg.expand_pairs)
+        self.host_index = idx  # oracle fallback for budget-degraded reads
+        self.txp_names = idx.txp_names
+        self.txp_lens = np.asarray(idx.txp_lens)
+
+    def map_se(self, codes: np.ndarray, lens: np.ndarray, n_valid: int | None = None):
+        """-> (MapOut, Counters) as numpy (int32 fields, bool flags)."""
+        out, ctr = map_batch_se(
+            self.didx, self.st,
+            torch.from_numpy(np.ascontiguousarray(codes, dtype=np.int8)).to(self.device),
+            torch.from_numpy(np.ascontiguousarray(lens, dtype=np.int64)).to(self.device),
+            torch.tensor(n_valid if n_valid is not None else len(lens), device=self.device),
+            self.cfg,
+        )
+
+        def host(x):
+            x = x.cpu().numpy()
+            return x if x.dtype == np.bool_ else x.astype(np.int32)
+
+        return MapOut(*map(host, out)), Counters(*map(host, ctr))
 
     def _cap(self, B: int) -> int:
         return self.cfg.rec_slots * B
@@ -153,21 +214,21 @@ class QuasiMapper:
     def map_se_async(self, codes, lens, n_valid: int | None = None) -> SEResult:
         B, L = codes.shape
         C = self._chunk_of(B)
-        if not C:
-            raise NotImplementedError(
-                "unchunked batches (cfg.chunk == 0, or a batch that is not a "
-                "multiple of two or more chunks) come with the map_se / "
-                "map_batch_se_wire slice"
-            )
         nv = n_valid if n_valid is not None else B
         win = torch.from_numpy(pack_in_se(np.asarray(codes), np.asarray(lens), nv))
         on_cuda = self.device.type == "cuda"
         if on_cuda:
             win = win.pin_memory().to(self.device, non_blocking=True)
-        capc = self._cap(C)
-        out = map_batch_se_wire_chunked(
-            self.didx, self.st, win, self.cfg, capc, B, L, C
-        )
+        if C:
+            capc, spec = self._cap(C), rec_spec_se(self.st, self.cfg)
+            out = map_batch_se_wire_chunked(
+                self.didx, self.st, win, self.cfg, capc, B, L, C
+            )
+        else:
+            capc, spec = 0, None
+            out = map_batch_se_wire(
+                self.didx, self.st, win, self.cfg, self._cap(B), B, L
+            )
         done = None
         if on_cuda:
             host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
@@ -175,7 +236,7 @@ class QuasiMapper:
             done = torch.cuda.Event()
             done.record()
             out = host
-        return SEResult(B, out, done, C, capc, rec_spec_se(self.st, self.cfg))
+        return SEResult(B, out, done, C, capc, spec)
 
     def fetch(self, result: SEResult):
         """-> WireResult; recs fields (t, pos, strand, score)."""
@@ -183,5 +244,6 @@ class QuasiMapper:
             result.done.synchronize()
         return unpack_out(
             result.wire.numpy(), result.B, 4, chunk=result.C, capc=result.capc,
-            rec_spec=result.spec, packed_cf=_packed_cf(self.cfg, result.C),
+            rec_spec=result.spec,
+            packed_cf=bool(result.C) and _packed_cf(self.cfg, result.C),
         )

@@ -1,6 +1,6 @@
-"""ctypes bindings for the index-build native library (SA-IS, k-mer scan,
-canonical classes, CHD). Copy of rapmap_tpu.native.bindings' build-side
-entry points; the FASTQ parser and SAM formatter belong to the CLI slice.
+"""ctypes bindings for the native host library (SA-IS, k-mer scan,
+canonical classes, CHD, FASTQ parser, SAM formatter). Copy of
+rapmap_tpu.native.bindings.
 
 Builds libtqm_native.so with make on first use, into the checkout's
 build/native/ (the sources stay read-only in the package). All callers fall
@@ -25,15 +25,18 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 _BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(_DIR)), "build", "native"
 )
-_LIB_PATH = os.path.join(_BUILD_DIR, "libtqm_native.so")
-_lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
-_tried = False
-
 # must equal native/abi.cpp's tqm_abi_version(); a mismatched (stale) .so is
 # rebuilt once, and rejected if still stale — calling through a changed
 # signature corrupts memory silently, the numpy fallbacks are always safe
-ABI_VERSION = 6
+ABI_VERSION = 7
+
+# the file name carries the ABI version: a process that has loaded a stale
+# build gets the same stale handle back from dlopen() of the same path, so a
+# rebuild under the old name would never be seen
+_LIB_PATH = os.path.join(_BUILD_DIR, f"libtqm_native.abi{ABI_VERSION}.so")
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+_tried = False
 
 
 def _abi_of(lib: ctypes.CDLL) -> int:
@@ -123,6 +126,30 @@ def _load() -> ctypes.CDLL | None:
                 ctypes.c_void_p, ctypes.c_int32,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ]
+        P, I64, I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
+        lib.tqm_sam_se.restype = I64
+        lib.tqm_sam_se.argtypes = [
+            P, P, I64,          # recs, counts, B
+            P, P, P, P, P, P,   # names/off, seqs/off, quals/off
+            P, P, I64,          # tnames/off, n_txps
+            I32, I32,           # write_unmapped, with_score
+            P, I64, P,          # out, out_cap, n_records
+        ]
+        lib.tqm_sam_pe.restype = I64
+        lib.tqm_sam_pe.argtypes = [
+            P, P, I64,                 # recs, counts, B
+            P, P,                      # names/off
+            P, P, P, P, P, P, P, P,    # seqs1/off quals1/off seqs2/off quals2/off
+            P, P, I64,                 # tnames/off, n_txps
+            I32, I32,                  # write_unmapped, with_score
+            P, I64, P,                 # out, out_cap, n_records
+        ]
+        lib.tqm_fastq_parse.restype = ctypes.c_int64
+        lib.tqm_fastq_parse.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ]
         _lib = lib
         return _lib
 
@@ -253,3 +280,120 @@ def chd_build(
     if rc != 0:
         raise ValueError(f"tqm_chd_build failed with code {rc}")
     return dirv, perm
+
+
+def fastq_parse(buf: bytes, max_reads: int, pad_len: int):
+    """Parse FASTQ bytes -> (codes (R,pad_len) int8, lens, name_off, name_len,
+    seq_off, seq_len, qual_off, consumed_bytes). Incomplete tail not consumed."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    codes = np.empty((max_reads, pad_len), dtype=np.int8)
+    lens = np.empty(max_reads, dtype=np.int32)
+    name_off = np.empty(max_reads, dtype=np.int64)
+    name_len = np.empty(max_reads, dtype=np.int32)
+    seq_off = np.empty(max_reads, dtype=np.int64)
+    seq_len = np.empty(max_reads, dtype=np.int32)
+    qual_off = np.empty(max_reads, dtype=np.int64)
+    consumed = ctypes.c_int64(0)
+    n = lib.tqm_fastq_parse(
+        buf, len(buf), max_reads, pad_len,
+        codes.ctypes.data, lens.ctypes.data, name_off.ctypes.data,
+        name_len.ctypes.data, seq_off.ctypes.data, seq_len.ctypes.data,
+        qual_off.ctypes.data, ctypes.byref(consumed),
+    )
+    if n < 0:
+        raise ValueError(f"malformed FASTQ at byte {consumed.value}")
+    return codes, lens, name_off, name_len, seq_off, seq_len, qual_off, int(consumed.value), int(n)
+
+
+def _max_len(off: np.ndarray) -> int:
+    return int(np.diff(off).max()) if len(off) > 1 else 0
+
+
+def _flat(items: list[bytes]) -> tuple[np.ndarray, np.ndarray]:
+    """list of bytes -> (flat uint8 buffer, (n+1,) int64 offsets)."""
+    off = np.zeros(len(items) + 1, dtype=np.int64)
+    np.cumsum([len(b) for b in items], out=off[1:])
+    buf = np.frombuffer(b"".join(items), dtype=np.uint8) if items else np.empty(0, np.uint8)
+    return buf, off
+
+
+class SamFormatter:
+    """Reusable native SAM renderer; caches the transcript-name buffer and
+    grows the output buffer geometrically across batches."""
+
+    def __init__(self, txp_names: list[str]):
+        lib = _load()
+        if lib is None:
+            raise RuntimeError("native library unavailable")
+        self._lib = lib
+        self._tbuf, self._toff = _flat([n.encode() for n in txp_names])
+        self._n_txps = len(txp_names)
+        self._out = np.empty(1 << 22, dtype=np.uint8)
+
+    def _call(self, fn, cap_hint: int, write_unmapped: bool, with_score: bool,
+              *args) -> bytes:
+        if len(self._out) < cap_hint:
+            self._out = np.empty(int(cap_hint * 1.5), dtype=np.uint8)
+        while True:
+            nrec = ctypes.c_int64(0)
+            n = fn(*args, self._tbuf.ctypes.data, self._toff.ctypes.data,
+                   self._n_txps, 1 if write_unmapped else 0,
+                   1 if with_score else 0,
+                   self._out.ctypes.data, len(self._out),
+                   ctypes.byref(nrec))
+            if n == -1:  # buffer too small: grow and retry
+                self._out = np.empty(len(self._out) * 2, dtype=np.uint8)
+                continue
+            if n < 0:
+                raise ValueError(f"native SAM formatter failed with code {n}")
+            self.last_n_records = int(nrec.value)
+            return self._out[:n].tobytes()
+
+    def se(self, names, seqs, quals, recs: np.ndarray, counts: np.ndarray,
+           write_unmapped: bool = True, with_score: bool = False) -> bytes:
+        B = len(names)
+        nbuf, noff = _flat([n.encode() if isinstance(n, str) else n for n in names])
+        sbuf, soff = _flat(seqs)
+        qbuf, qoff = _flat(quals)
+        c = np.ascontiguousarray(counts, dtype=np.int32)
+        total = int(c.sum())
+        r = np.ascontiguousarray(recs[:total], dtype=np.int32)
+        line = (_max_len(noff) + 2 * _max_len(soff)
+                + _max_len(self._toff) + 80)
+        cap = (total + B) * line
+        return self._call(
+            self._lib.tqm_sam_se, cap, write_unmapped, with_score,
+            r.ctypes.data, c.ctypes.data, B,
+            nbuf.ctypes.data, noff.ctypes.data,
+            sbuf.ctypes.data, soff.ctypes.data,
+            qbuf.ctypes.data, qoff.ctypes.data,
+        )
+
+    def pe(self, names, seqs1, quals1, seqs2, quals2,
+           recs: np.ndarray, counts: np.ndarray,
+           write_unmapped: bool = True, with_score: bool = False) -> bytes:
+        B = len(names)
+        nbuf, noff = _flat([n.encode() if isinstance(n, str) else n for n in names])
+        s1b, s1o = _flat(seqs1)
+        q1b, q1o = _flat(quals1)
+        s2b, s2o = _flat(seqs2)
+        q2b, q2o = _flat(quals2)
+        c = np.ascontiguousarray(counts, dtype=np.int32)
+        total = int(c.sum())
+        r = np.ascontiguousarray(recs[:total], dtype=np.int32)
+        if r.shape[1] != (9 if with_score else 7):
+            raise ValueError("PE record width does not match with_score")
+        line = (_max_len(noff) + 2 * max(_max_len(s1o), _max_len(s2o))
+                + _max_len(self._toff) + 80)
+        cap = (2 * total + 2 * B) * line
+        return self._call(
+            self._lib.tqm_sam_pe, cap, write_unmapped, with_score,
+            r.ctypes.data, c.ctypes.data, B,
+            nbuf.ctypes.data, noff.ctypes.data,
+            s1b.ctypes.data, s1o.ctypes.data,
+            q1b.ctypes.data, q1o.ctypes.data,
+            s2b.ctypes.data, s2o.ctypes.data,
+            q2b.ctypes.data, q2o.ctypes.data,
+        )

@@ -1,6 +1,7 @@
 """Hit collation: SA intervals -> per-transcript mappings (HitManager rebuild).
 
-Port of rapmap_tpu.ops.collate (single-end, direct-compaction path).
+Port of rapmap_tpu.ops.collate (single-end: the direct-compaction path of
+the chunked wire and the slotted MapOut layout of the unchunked one).
 SEMANTICS.md §4 with a GLOBAL slot pool: hits from all reads expand into one
 (CAPG,) pool sized cfg.expand_budget slots per read on average.
 
@@ -15,7 +16,8 @@ Pipeline:
      support counts
   5. per-(read, t, strand) best position by segment argmax; consistency /
      strict filters
-  6. winners compact into the dense record buffer
+  6. winners compact into the dense record buffer (collate_records_se) or
+     scatter into the (B, MAX_OUT) MapOut layout (collate_batch)
 
 Budget overflow (pool exhausted) sets those reads' over_budget flags.
 """
@@ -114,6 +116,18 @@ def _sort_packed(hi0, lo0, cfg: MapConfig):
         torch.where(inval, M32, key >> 32),
         torch.where(inval, M32, key & M32),
     )
+
+
+class MapOut(NamedTuple):
+    t: torch.Tensor        # (B, MAX_OUT) int32, -1 = none
+    pos: torch.Tensor      # (B, MAX_OUT) int32
+    strand: torch.Tensor   # (B, MAX_OUT) int32, 0 = fwd, 1 = rc
+    score: torch.Tensor    # (B, MAX_OUT) int32 (MMP support)
+    n_mappings: torch.Tensor   # (B,) pre-cap mapping count
+    mapped: torch.Tensor       # (B,) bool
+    too_ambiguous: torch.Tensor  # (B,) bool
+    over_budget: torch.Tensor    # (B,) bool — expansion pool or hit buffer blown
+    out_truncated: torch.Tensor  # (B,) bool — winners > max_out emitted slots
 
 
 class CollateCore(NamedTuple):
@@ -316,6 +330,37 @@ def _collate_core(
         keep=keep, rclip=rclip, k2s=k2s, p2=p2, sup2=sup2, rank=rank,
         counts=counts, too_ambiguous=counts > cfg.max_num_hits,
         over_budget=over_budget,
+    )
+
+
+def collate_batch(
+    didx: DeviceQuasiIndex,
+    st: EngineStatic,
+    hits: ScanHits,
+    lens: torch.Tensor,
+    cfg: MapConfig,
+) -> MapOut:
+    """Winners scattered into the slotted (B, MAX_OUT) MapOut layout (used by
+    the unchunked wire path and the library API)."""
+    B = hits.q.shape[0] // 2
+    MO = cfg.out_slots
+    c = _collate_core(didx, st, hits, lens, cfg)
+    emit = c.keep & ~c.too_ambiguous[c.rclip] & (c.rank < MO)
+    # rows that are not emitted go to the sink row B * MO, which is cut off;
+    # emitted rows have distinct (read, rank) slots
+    flatpos = torch.where(emit, c.rclip * MO + c.rank, B * MO)
+    rows = torch.stack(
+        [c.k2s >> 1, c.p2, c.k2s & 1, c.sup2], dim=-1
+    ).to(torch.int32)
+    buf = torch.zeros((B * MO + 1, 4), dtype=torch.int32, device=rows.device)
+    buf[:, 0] = -1
+    out = buf.index_put_((flatpos,), rows)[: B * MO].reshape(B, MO, 4)
+    n_map = c.counts
+    return MapOut(
+        t=out[..., 0], pos=out[..., 1], strand=out[..., 2], score=out[..., 3],
+        n_mappings=n_map, mapped=(n_map >= 1) & ~c.too_ambiguous,
+        too_ambiguous=c.too_ambiguous, over_budget=c.over_budget,
+        out_truncated=(n_map > MO) & ~c.too_ambiguous,
     )
 
 

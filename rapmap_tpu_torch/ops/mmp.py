@@ -275,9 +275,10 @@ def scan_dispatch(
     lens: torch.Tensor,   # (B,)
     cfg: MapConfig,
 ) -> ScanHits:
-    """Strand-paired scan of forward reads -> (2B, H) lane hits. Only the
-    canonical-CHD scan is ported; indexes without a canonical CHD (the
-    reference's `scan_batch` binary-search path) are refused."""
+    """Strand-paired scan of forward reads -> (2B, H) lane hits, for every
+    device program (chunked or over the whole batch): one anchor-walk launch
+    each. Only the canonical-CHD scan is ported; indexes without a canonical
+    CHD (the reference's `scan_batch` binary-search path) are refused."""
     if not st.chd_canonical:
         raise NotImplementedError(
             "the binary-search probe path (indexes without a canonical CHD) "

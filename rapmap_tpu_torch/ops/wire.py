@@ -8,11 +8,14 @@ wire_in  (uint8): per read block, 2-bit packed bases [ceil(L/4) B] +
                   | n_valid int32 [4B].
 wire_out (int32): [0] total records | [1] overflowed | [2:8] counters
                   (reads_total, reads_mapped, too_ambiguous, over_budget,
-                  records, out_truncated), then one block per chunk of
-                  [counts | flags | records]: counts ride uint16 pairs, flags
-                  8-per-word nibbles (when the chunk allows), and records
-                  pack into 2 words whenever the index's static stats bound
-                  the fields (rec_spec_se).
+                  records, out_truncated) | [8:8+B] per-read record counts
+                  | [8+B:8+2B] per-read outcome flag bits (FLAG_*)
+                  | [8+2B:] records row-major, 4 fields each (pack_out).
+                  The CHUNKED path holds one block per chunk of
+                  [counts | flags | records] after the header: counts ride
+                  uint16 pairs, flags 8-per-word nibbles (when the chunk
+                  allows), and records pack into 2 words whenever the
+                  index's static stats bound the fields (rec_spec_se).
 
 The per-read flags let the host apply a targeted oracle remap to exactly the
 reads whose device results were degraded by a static budget.
@@ -180,6 +183,19 @@ def unpack_counts_flags(cw: np.ndarray, fw: np.ndarray, C: int):
     for j in range(8):
         flags[j::8] = (fw >> (4 * j)) & 0xF
     return counts, flags
+
+
+def pack_out(recsd, ctr, flags: torch.Tensor) -> torch.Tensor:
+    """SERecords + Counters + per-read flags -> one int32 vector."""
+    hdr = torch.stack([
+        recsd.total, recsd.overflowed.to(torch.int64),
+        ctr.reads_total, ctr.reads_mapped, ctr.too_ambiguous,
+        ctr.over_budget, ctr.records, ctr.out_truncated,
+    ]).to(torch.int32)
+    return torch.cat([
+        hdr, recsd.counts.to(torch.int32), flags.to(torch.int32),
+        recsd.recs.reshape(-1),
+    ])
 
 
 class WireResult(NamedTuple):

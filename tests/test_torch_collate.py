@@ -1,6 +1,7 @@
 """rapmap_tpu_torch collation against rapmap_tpu: the same ScanHits through
 both `_collate_core` and `collate_records_se` give equal CollateCore fields,
-records and flags over a config sweep (exact equality: all integers)."""
+records and flags over a config sweep, and through `collate_batch` the same
+slotted MapOut (exact equality: all integers)."""
 
 import dataclasses
 
@@ -105,3 +106,38 @@ def test_collate_parity(world, name):
         assert core.keep.shape[0] == 8 * B
     if name == "records_over_cap":
         assert bool(se.overflowed)
+
+
+@pytest.mark.parametrize("name", ["default", "m2", "s_c", "pairs", "exhausted_pool",
+                                  "one_out_slot"])
+def test_collate_batch_parity(world, name):
+    """`collate_batch`: winners in the (B, MAX_OUT) MapOut layout, with
+    max_out = 1 cutting multimappers (out_truncated)."""
+    idx, codes, lens = world
+    kw = dict(k=idx.k, max_hits_per_strand=8, expand_budget=8, max_out=8)
+    kw.update(SWEEP.get(name, {}))
+    if name == "one_out_slot":
+        kw["max_out"] = 1
+    cfg, rcfg = MapConfig(**kw), RefConfig(**kw)
+    rdidx, rst = ref_upload(idx, lean=True, meta_pairs=cfg.expand_pairs)
+    didx, st = upload_index(index_from_reference(vars(idx)), "cpu",
+                            meta_pairs=cfg.expand_pairs)
+    lt = torch.from_numpy(lens.astype(np.int64))
+    hits = scan_dispatch(didx, st, torch.from_numpy(codes), lt, cfg)
+    rhits = RefHits(*(jnp.asarray(h.numpy().astype(
+        bool if h.dtype == torch.bool else np.int32)) for h in hits))
+    want = jax.jit(lambda d, h, ln: rcol.collate_batch(d, rst, h, ln, rcfg))(
+        rdidx, rhits, jnp.asarray(lens))
+    got = col.collate_batch(didx, st, hits, lt, cfg)
+    assert got.t.dtype == torch.int32 and got.t.shape == (B, cfg.out_slots)
+    for f in want._fields:
+        g = getattr(got, f).numpy().astype(np.int64)
+        w = np.asarray(getattr(want, f)).astype(np.int64)
+        assert g.shape == w.shape and np.array_equal(g, w), f
+    assert np.asarray(want.mapped).any()
+    if name == "one_out_slot":
+        assert np.asarray(want.out_truncated).any()
+    if name == "m2":
+        assert np.asarray(want.too_ambiguous).any()
+    if name == "exhausted_pool":
+        assert np.asarray(want.over_budget).any()

@@ -1,7 +1,9 @@
 """rapmap_tpu_torch stands alone: with jax and rapmap_tpu refused at import,
-every module imports, a toy index builds and maps on the CPU; a mapper asked
+every module imports, a toy index builds and maps on the CPU, and the command
+line (`rapmap_tpu_torch.cli`) indexes and maps FASTQ to SAM; a mapper asked
 for the default device without a CUDA card raises instead of running on the
-CPU; chip_smoke.py without the package beside it exits non-zero."""
+CPU, and the command line returns non-zero; chip_smoke.py without the package
+beside it exits non-zero."""
 
 import json
 import os
@@ -55,15 +57,34 @@ SCRIPT = textwrap.dedent("""
     res = QuasiMapper(idx, cfg, device="cpu")
     out = res.fetch(res.map_se_async(codes, lens))
 
+    # the command line, in process: quasiindex, then quasimap FASTQ -> SAM
+    import os
+    from rapmap_tpu_torch import cli
+
+    fq, sam, idir = fa + ".fq", fa + ".sam", fa + ".idx"
+    with open(fq, "w") as f:
+        for i in range(16):
+            f.write(f"@r{i}\\n" + "".join("ACGT"[c - 1] for c in codes[i]) + "\\n+\\n"
+                    + "I" * 40 + "\\n")
+    os.environ["TQM_FORCE_CPU"] = "1"
+    rc_index = cli.main(["quasiindex", "-t", fa, "-i", idir, "-k", "11"])
+    rc_map = cli.main(["quasimap", "-i", idir, "-r", fq, "-o", sam, "--batchSize", "8"])
+    with open(sam) as f:
+        sam_mapped = sum(1 for ln in f if ln[0] != "@" and not int(ln.split("\\t")[1]) & 0x104)
+
     torch.cuda.is_available = lambda: False
     try:
         QuasiMapper(idx, cfg)
         raised = False
     except RuntimeError:
         raised = True
+    del os.environ["TQM_FORCE_CPU"]
+    rc_no_card = cli.main(["quasimap", "-i", idir, "-r", fq, "-o", sam + ".2"])
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "rapmap_tpu"))
     print(json.dumps(dict(modules=mods, mapped=out.counters["reads_mapped"],
-                          raised=raised, loaded=loaded)))
+                          raised=raised, loaded=loaded, rc_index=rc_index, rc_map=rc_map,
+                          sam_mapped=sam_mapped, rc_no_card=rc_no_card,
+                          second_sam=os.path.exists(sam + ".2"))))
 """)
 
 
@@ -82,6 +103,11 @@ def test_port_imports_and_maps_without_jax(tmp_path):
     assert "rapmap_tpu_torch.ops.sort2" in res["modules"]
     assert res["mapped"] == 16
     assert res["raised"], "QuasiMapper(device=None) ran without a CUDA card"
+    for m in ("cli", "io.fastx", "io.sam", "oracle.quasimap", "models.fallback",
+              "utils.timers", "ops.compact"):
+        assert f"rapmap_tpu_torch.{m}" in res["modules"]
+    assert (res["rc_index"], res["rc_map"], res["sam_mapped"]) == (0, 0, 16)
+    assert res["rc_no_card"] != 0 and not res["second_sam"]
 
 
 def test_chip_smoke_alone_fails(tmp_path):

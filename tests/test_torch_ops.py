@@ -1,7 +1,8 @@
 """rapmap_tpu_torch device ops against rapmap_tpu on the same numpy inputs:
 encode/keys, the canonical CHD probe (p_bits 0 and > 0), the packed
-extension, the strand-paired scan, the wire's device halves and the bitonic
-sort. Every value is an integer, so every comparison is exact equality."""
+extension, the strand-paired scan, the wire's device halves, the record
+compaction (past its cap too), `pack_out` through `unpack_out`, and the
+bitonic sort. Every value is an integer, so every comparison is exact equality."""
 
 import jax
 import jax.numpy as jnp
@@ -13,7 +14,9 @@ from rapmap_tpu.config import MapConfig as RefConfig
 from rapmap_tpu.index.builder import build_quasi_index as ref_build
 from rapmap_tpu.index.chd import mix32_np
 from rapmap_tpu.ops import encode as rdenc
+from rapmap_tpu.ops import compact as rcompact
 from rapmap_tpu.ops import wire as rwire
+from rapmap_tpu.ops.collate import MapOut as RefMapOut
 from rapmap_tpu.ops.device_index import upload_index as ref_upload
 from rapmap_tpu.ops.extend_packed import extend_packed as ref_extend
 from rapmap_tpu.ops.extend_packed import pack_reads as ref_pack_reads
@@ -23,7 +26,8 @@ from rapmap_tpu.ops.pallas.sort2 import bitonic_sort_pairs_pallas
 from rapmap_tpu_torch.config import MapConfig
 from rapmap_tpu_torch.index.format import index_from_reference
 from rapmap_tpu_torch.ops import encode as denc
-from rapmap_tpu_torch.ops import wire
+from rapmap_tpu_torch.ops import compact, wire
+from rapmap_tpu_torch.ops.collate import MapOut
 from rapmap_tpu_torch.ops.device_index import upload_index
 from rapmap_tpu_torch.ops.extend_packed import extend_packed, pack_reads
 from rapmap_tpu_torch.ops.lookup import _mix32, kmer_lookup_2str
@@ -231,6 +235,74 @@ def test_wire_device_halves():
     assert eq(hi, rhi) and eq(lo, rlo)
     back = wire.unpack_rec_rows(spec, np.stack([hi.numpy(), lo.numpy()], axis=1))
     assert np.array_equal(back, np.stack(fields, axis=1))
+
+
+# ---- record compaction and the unchunked wire out -----------------------------
+
+def _random_mapout(rng, B, MO):
+    """A slotted MapOut as collate_batch leaves it: each read's records fill
+    its first slots, the rest hold t = -1 and zeros."""
+    n = rng.integers(0, MO + 1, B)
+    n[rng.random(B) < 0.4] = 0
+    live = np.arange(MO)[None, :] < n[:, None]
+    t = np.where(live, rng.integers(0, 50, (B, MO)), -1).astype(np.int32)
+    pos = np.where(live, rng.integers(-40, 3000, (B, MO)), 0).astype(np.int32)
+    strand = np.where(live, rng.integers(0, 2, (B, MO)), 0).astype(np.int32)
+    score = np.where(live, rng.integers(1, 9, (B, MO)), 0).astype(np.int32)
+    flags = [rng.random(B) < 0.3 for _ in range(4)]
+    return (t, pos, strand, score, n.astype(np.int32), *flags)
+
+
+@pytest.mark.parametrize("cap", [256, 9, 1], ids=["ample", "past_cap", "cap_1"])
+def test_compact_se(cap):
+    """`_compact` / `compact_se`: dense records, per-read counts clamped to
+    what was written, total and the overflow flag, under and past the cap."""
+    rng = np.random.default_rng(cap)
+    B, MO = 48, 6
+    mo = _random_mapout(rng, B, MO)
+    want = rcompact.compact_se(RefMapOut(*(jnp.asarray(a) for a in mo)), cap)
+    got = compact.compact_se(MapOut(*(t_(a) for a in mo)), cap)
+    assert got.recs.dtype == torch.int32 and got.recs.shape == (cap, 4)
+    for f in want._fields:
+        assert eq(getattr(got, f), getattr(want, f)), f
+    assert bool(got.overflowed) == (int((mo[0] != -1).sum()) > cap)
+    if cap != 256:
+        assert bool(got.overflowed) and int(got.counts.sum()) == cap
+    rrecs, rcounts, rtotal, rovf = rcompact._compact(
+        [jnp.asarray(mo[0]), jnp.asarray(mo[3])], jnp.asarray(mo[0] != -1), cap)
+    recs, counts, total, ovf = compact._compact(
+        [t_(mo[0]), t_(mo[3])], t_(mo[0] != -1), cap)
+    assert eq(recs, rrecs) and eq(counts, rcounts)
+    assert int(total) == int(rtotal) and bool(ovf) == bool(rovf)
+
+
+@pytest.mark.parametrize("cap", [256, 9], ids=["ample", "past_cap"])
+def test_pack_out_then_unpack_out(cap):
+    """The unchunked wire out: the port's `pack_out` equals the reference's
+    int32 for int32, and the port's `unpack_out` reads it back as the
+    reference's does."""
+    from rapmap_tpu.models.quasi import Counters as RefCounters
+    from rapmap_tpu_torch.models.quasi import Counters
+
+    rng = np.random.default_rng(100 + cap)
+    B, MO = 48, 6
+    mo = _random_mapout(rng, B, MO)
+    ctr = rng.integers(0, 1000, 6).astype(np.int32)
+    fbits = rng.integers(0, 16, B).astype(np.int32)
+    rse = rcompact.compact_se(RefMapOut(*(jnp.asarray(a) for a in mo)), cap)
+    se = compact.compact_se(MapOut(*(t_(a) for a in mo)), cap)
+    want = np.asarray(rwire.pack_out(
+        rse, RefCounters(*(jnp.int32(c) for c in ctr)), jnp.asarray(fbits)))
+    got = wire.pack_out(se, Counters(*(torch.tensor(int(c)) for c in ctr)), t_(fbits))
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    a, b = wire.unpack_out(got.numpy(), B, 4), rwire.unpack_out(want, B, 4)
+    for f in b._fields:
+        assert np.array_equal(np.asarray(getattr(a, f)), np.asarray(getattr(b, f))), f
+    assert len(a.recs) == min(a.total, cap) == int(a.counts.sum())
+    assert a.overflowed == (a.total > cap)
+    assert a.counters == dict(zip(
+        ("reads_total", "reads_mapped", "too_ambiguous", "over_budget", "records",
+         "out_truncated"), (int(c) for c in ctr)))
 
 
 # ---- bitonic sort -------------------------------------------------------------
