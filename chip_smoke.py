@@ -10,9 +10,10 @@ version on the card, builds a 20 Mbp random transcriptome world from the
 seed, maps 262,144 single-end 76 bp reads through QuasiMapper.map_se_async /
 fetch (one batch in flight), and checks the result: map rate, reads mapped
 to their true locus, both kernels' launches on the main path, and the
-card's wire buffer equal to the CPU's on the first batch. Then it drives the
-port's command line in process (rapmap_tpu_torch.cli.main) on the same world,
-FASTQ in and SAM out: at its default flags (batches of 4,096, one program a
+card's wire buffer equal to the CPU's on the first batch; it times the walk
+with a warm and a cold L2 and lists one program's scan kernels by name. Then
+it drives the port's command line in process (rapmap_tpu_torch.cli.main) on
+the same world, FASTQ in and SAM out: at its default flags (batches of 4,096, one program a
 batch), chunked with a parser thread, with a starved expansion budget against
 an ample one on a repetitive world (the host-oracle fallback), and on the card
 against the CPU (SAM files equal byte for byte apart from @PG). Every phase
@@ -87,14 +88,24 @@ class Timer:
         return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def device_kernels(prof) -> dict[str, list]:
-    """{kernel name: [device ms, count]} of a finished torch.profiler run:
-    every kernel, copy and memset the device ran, by its own duration."""
+def device_kernels(work) -> dict[str, list]:
+    """{kernel name: [device ms, count]} of what work() runs on the device
+    under torch.profiler: every kernel, copy and memset, by its own duration.
+    A profiler session loses its first few device events on the card (49 of
+    50 walk launches were recorded without this), so eight short primer
+    kernels (`torch.cuda._sleep`) run first and are left out."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        work()
+        torch.cuda.synchronize()
     by_name: dict[str, list] = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.name:
             v = by_name.setdefault(e.name[:80], [0.0, 0])
             v[0] += e.time_range.elapsed_us() / 1e3
             v[1] += 1
@@ -103,25 +114,21 @@ def device_kernels(prof) -> dict[str, list]:
 
 def device_ms(fn, reps: int, cuda: bool):
     """Time the DEVICE spends on one fn(): the durations of everything it
-    ran during `reps` calls under torch.profiler, summed and divided by
-    reps. What the host takes to issue the work is not in it (Timer's
-    wrapper time has that). -> (ms, {kernel name: ms per call})."""
+    ran during `reps` calls under torch.profiler, per call. What the host
+    takes to issue the work is not in it (Timer's wrapper time has that).
+    A kernel recorded fewer times than its launches counts by the mean of
+    its recorded durations. -> (ms, {kernel name: ms per call})."""
     if not cuda:
         return "not measured", {}
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    by_name = device_kernels(prof)
+    by_name = device_kernels(lambda: [fn() for _ in range(reps)])
     if not by_name:
         raise RuntimeError("torch.profiler recorded no device activity")
-    return (sum(v[0] for v in by_name.values()) / reps,
-            {n: v[0] / reps for n, v in by_name.items()})
+    per_call = {n: v[0] / v[1] * max(1, round(v[1] / reps)) for n, v in by_name.items()}
+    return sum(per_call.values()), per_call
 
 
 def sort_inputs(n: int, kind: str, rng):
@@ -269,16 +276,16 @@ def repetitive_index(rng, workdir: str):
     return build_index(fa, os.path.join(workdir, "repetitive_idx"))
 
 
-def write_fastq(path: str, codes, truth=None) -> str:
+def write_fastq(path: str, codes, truth=None, lens=None) -> str:
     """Reads as FASTQ, each named r<i> or, with `truth`, by its true locus:
-    r<i>:<transcript>:<position>:<strand>."""
+    r<i>:<transcript>:<position>:<strand>; with `lens`, row i cut to lens[i]."""
     seqs = np.frombuffer(b"NACGTN", dtype=np.uint8)[codes]
-    qual = "I" * codes.shape[1]
     with open(path, "w") as f:
         for i, row in enumerate(seqs):
             name = f"r{i}" if truth is None else (
                 f"r{i}:{truth[0][i]}:{truth[1][i]}:{truth[2][i]}")
-            f.write(f"@{name}\n{row.tobytes().decode()}\n+\n{qual}\n")
+            seq = row.tobytes().decode() if lens is None else row[: lens[i]].tobytes().decode()
+            f.write(f"@{name}\n{seq}\n+\n{'I' * len(seq)}\n")
     return path
 
 
@@ -393,16 +400,20 @@ def extend_packed_kernel(didx, w, b0, e0, pos, active, k: int, steps: int):
     return b, e, mlen
 
 
-WALK_INPUTS = ("preads", "next_bad", "lens2", "col_off2", "db2", "de2", "anc2",
-               "sa_cmp", "text2q")
+WALK_INPUTS = ("preads", "next_bad", "lens2", "col_off2", "bf", "ef", "br", "er", "anch_f",
+               "anch_rF", "sa_cmp", "text2q")
 
 
-def walk_traffic(didx, w, k: int, H: int, ext_steps: int):
-    """csrc/walk.cu's counting entry, tqm_anchor_walk_traffic: the walk
-    compiled with its loads counted, which marks every 32-byte sector of every
-    input tensor that it reads in a bitmap -> (ScanHits, {input: distinct
-    sectors read}, sa_cmp rows compared). Only this script calls it, for the
-    walk's byte bound; the main path's kernel is compiled without the count."""
+def walk_on_0xff(didx, w, k: int, H: int, ext_steps: int, count: bool = False):
+    """csrc/walk.cu's entries called straight, on outputs that start as 0xFF
+    bytes, so that a byte the kernel leaves unwritten shows in a comparison
+    with the plain version (the wrapper allocates them unfilled, and a fresh
+    allocation may hold zeros already). count=False: tqm_anchor_walk, the
+    main path's kernel -> (ScanHits, None, None). count=True:
+    tqm_anchor_walk_traffic, the walk compiled with its loads counted, which
+    marks every 32-byte sector of every input tensor that it uses in a bitmap
+    -> (ScanHits, {input: distinct sectors read}, sa_cmp rows compared), for
+    the walk's byte bound. Only this script calls them."""
     import torch
 
     from rapmap_tpu_torch import kernels
@@ -411,54 +422,104 @@ def walk_traffic(didx, w, k: int, H: int, ext_steps: int):
 
     tensors = [*w, didx.sa_cmp, didx.text2q]
     R, L = w.preads.shape
-    S = w.db2.shape[1]
+    S = w.bf.shape[1]
     dev = w.preads.device
-    # one sector more than the bytes fill: a tensor need not start on a sector
-    words = [((t.numel() * t.element_size() + 31) // 32 + 1 + 31) // 32 for t in tensors]
-    off = np.concatenate([[0], np.cumsum(words)]).astype(np.int64)
-    bits = torch.zeros(int(off[-1]), dtype=torch.int32, device=dev)
-    rows = torch.zeros(1, dtype=torch.int64, device=dev)
-    buf = torch.zeros((R, H, 4), dtype=torch.int64, device=dev)
-    n = torch.empty((R,), dtype=torch.int64, device=dev)
-    trunc = torch.empty((R,), dtype=torch.bool, device=dev)
-    fn = kernels.library("walk").tqm_anchor_walk_traffic
-    fn.restype = ctypes.c_int
+    buf = torch.full((R, H, 4), -1, dtype=torch.int64, device=dev)
+    n = torch.full((R,), -1, dtype=torch.int64, device=dev)
+    trunc = torch.full((R,), 0xFF, dtype=torch.uint8, device=dev)
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    fn.argtypes = ([vp] * 8 + [i64, i32, vp, i64, i64, i64] + [i32] * 6 + [vp] * 4
-                   + [ctypes.POINTER(i64), vp, vp])
-    with torch.cuda.device(dev):
-        rc = fn(
-            *(t.data_ptr() for t in w), didx.sa_cmp.data_ptr(), didx.sa_cmp.shape[0],
+    argtypes = [vp] * 11 + [i64, i32, vp, i64, i64, i64] + [i32] * 6 + [vp] * 3
+    args = [*(t.data_ptr() for t in w), didx.sa_cmp.data_ptr(), didx.sa_cmp.shape[0],
             didx.sa_cmp.shape[1] - 3, didx.text2q.data_ptr(), didx.text2q.shape[0],
             R, R // 2, L, S, k, H, ext_steps, ext_words(L, k),
-            buf.data_ptr(), n.data_ptr(), trunc.data_ptr(), bits.data_ptr(),
-            (i64 * len(words))(*off[:-1].tolist()), rows.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+            buf.data_ptr(), n.data_ptr(), trunc.data_ptr()]
+    lib = kernels.library("walk")
+    if count:
+        # one sector more than the bytes fill: a tensor need not start on a sector
+        words = [((t.numel() * t.element_size() + 31) // 32 + 1 + 31) // 32 for t in tensors]
+        off = np.concatenate([[0], np.cumsum(words)]).astype(np.int64)
+        bits = torch.zeros(int(off[-1]), dtype=torch.int32, device=dev)
+        rows = torch.zeros(1, dtype=torch.int64, device=dev)
+        fn = lib.tqm_anchor_walk_traffic
+        argtypes += [vp, ctypes.POINTER(i64), vp]
+        args += [bits.data_ptr(), (i64 * len(words))(*off[:-1].tolist()), rows.data_ptr()]
+    else:
+        fn = lib.tqm_anchor_walk
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes + [vp]
+    with torch.cuda.device(dev):
+        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"tqm_anchor_walk_traffic launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {rc}")
     torch.cuda.synchronize(dev)
+    hits = ScanHits(q=buf[..., 0], l=buf[..., 1], b=buf[..., 2], e=buf[..., 3],
+                    n=n, truncated=trunc)
+    if not count:
+        return hits, None, None
     marks = bits.cpu().numpy().view(np.uint8)
     sectors = {
         name: int(np.unpackbits(marks[4 * off[g] : 4 * off[g + 1]]).sum())
         for g, name in enumerate(WALK_INPUTS)
     }
-    hits = ScanHits(q=buf[..., 0], l=buf[..., 1], b=buf[..., 2], e=buf[..., 3],
-                    n=n, truncated=trunc)
     return hits, sectors, int(rows.cpu()[0])
+
+
+def walk_cold_ms(fn, reps: int, cuda: bool):
+    """The walk with a cold L2: before each call a 1 GiB fill (more than the
+    card's 50 MB L2, and longer on the device than the host takes to issue
+    fn()) outside the timed events -> (CUDA events around each call, mean
+    ms; device time of the walk's kernel alone under torch.profiler, mean
+    ms)."""
+    if not cuda:
+        return "not measured", "not measured"
+    import torch
+
+    flush = torch.empty(1 << 28, dtype=torch.int32, device="cuda")
+    flush.fill_(0)
+    fn()
+    torch.cuda.synchronize()
+    marks = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(reps)]
+    for a, b in marks:
+        flush.fill_(1)
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    event_ms = sum(a.elapsed_time(b) for a, b in marks) / reps
+
+    def work():
+        for _ in range(reps):
+            flush.fill_(1)
+            fn()
+
+    by_name = device_kernels(work)
+    walk = [v for n, v in by_name.items() if "anchor_walk_kernel" in n]
+    if sum(v[1] for v in walk) < reps // 2:
+        raise RuntimeError(f"the cold walk timing saw {by_name} for {reps} launches")
+    del flush
+    torch.cuda.empty_cache()
+    return event_ms, sum(v[0] for v in walk) / sum(v[1] for v in walk)
 
 
 def phase_walk_kernel(dev, timer, mapper, idx, codes, lens, C: int, seed: int, work: str,
                       cli_batch):
     """anchor_walk (CUDA kernel) against anchor_walk_plain, all six ScanHits
     fields, and tqm_extend_packed against extend_packed, on card tensors of
-    six input sets (the sixth a ragged last batch as the command line's
-    reader hands it over: `cli_batch`); then, at the main path's shape, the
-    walk's timing (`ms` is device time, the hit buffer's zero fill included; `wrapper_ms` CUDA
-    events around the calls, host included) and its byte bound."""
+    seven input sets (the sixth a ragged last batch as the command line's
+    reader hands it over: `cli_batch`; the seventh 144-160 bp reads in the
+    reader's 160-column bucket, past the mask words and query words the
+    kernel keeps in registers); the main path's kernel on outputs that start
+    as 0xFF bytes with hit slots past what a block can stage in shared memory
+    for 64 lanes (H = 150 and 300: 48 and 24 lanes a block, partial warps;
+    H = 8,000: lanes write the buffer directly) against the plain version's
+    H = 16; then, at the main path's shape, the walk's timing (`ms` is device time with a warm L2,
+    `cold_ms` with the L2 flushed before each launch; `wrapper_ms` CUDA events
+    around the calls, host included) and its byte bound."""
     import torch
 
     from rapmap_tpu_torch.config import MapConfig
+    from rapmap_tpu_torch.io import fastx
     from rapmap_tpu_torch.ops.device_index import upload_index
     from rapmap_tpu_torch.ops.extend_packed import ext_words, extend_packed
     from rapmap_tpu_torch.ops.mmp import (
@@ -482,6 +543,13 @@ def phase_walk_kernel(dev, timer, mapper, idx, codes, lens, C: int, seed: int, w
     rdidx, rst = upload_index(ridx, dev)
     c4, _ = sample_reads(ridx, rng, n_small, 120, 0.02)
     l4 = np.full(n_small, 120, np.int32)
+    # (vii) 144-160 bp reads through the command line's reader: the 160-column
+    # bucket gives S = 130 > 128 mask columns and W = 9 > 8 query words
+    c7, _ = sample_reads(idx, rng, n_small, 160, 0.01)
+    l7 = rng.integers(144, 161, n_small)
+    l7[::4] = 160
+    b7 = next(fastx.batched_reads(
+        write_fastq(os.path.join(work, "bucket160.fq"), c7, lens=l7), n_small, 512))
     sets = [
         ("smoke_chunk", mapper.didx, mapper.st, mapper.cfg, codes[:C], lens[:C]),
         ("ns_mixed_lengths", mapper.didx, mapper.st, mapper.cfg, c2, l2),
@@ -492,6 +560,8 @@ def phase_walk_kernel(dev, timer, mapper, idx, codes, lens, C: int, seed: int, w
         # the reader's length bucket, the pad rows all N with length 0
         ("cli_ragged_batch", mapper.didx, mapper.st, mapper.cfg,
          np.ascontiguousarray(cli_batch.codes), cli_batch.lens),
+        ("cli_bucket_160", mapper.didx, mapper.st, mapper.cfg,
+         np.ascontiguousarray(b7.codes), b7.lens),
     ]
 
     def diff(a, b):
@@ -508,13 +578,13 @@ def phase_walk_kernel(dev, timer, mapper, idx, codes, lens, C: int, seed: int, w
         # the extension alone: at each lane's first anchor, and on the whole
         # suffix array at random positions (searches of ~log2(n) trips)
         R, L = w.preads.shape
-        S, k, n_sa = w.db2.shape[1], params["k"], didx.sa_cmp.shape[0]
+        S, k, n_sa = w.bf.shape[1], params["k"], didx.sa_cmp.shape[0]
         first = got.q[:, 0].contiguous()
         col = torch.where(torch.arange(R, device=dev) >= R // 2, w.lens2 - k - first, first)
         col = col.clamp(0, S - 1)[:, None]
         act = got.n > 0
-        b0 = torch.gather(w.db2, 1, col)[:, 0].contiguous()
-        e0 = torch.gather(w.de2, 1, col)[:, 0].contiguous()
+        b0 = torch.gather(torch.cat([w.bf, w.br]), 1, col)[:, 0].contiguous()
+        e0 = torch.gather(torch.cat([w.ef, w.er]), 1, col)[:, 0].contiguous()
         rpos = torch.from_numpy(rng.integers(0, S, R)).to(dev)
         ract = torch.from_numpy(rng.random(R) < 0.9).to(dev)
         wide = n_sa.bit_length() + 1
@@ -530,7 +600,7 @@ def phase_walk_kernel(dev, timer, mapper, idx, codes, lens, C: int, seed: int, w
         hit = torch.arange(got.q.shape[1], device=dev)[None, :] < got.n[:, None]
         checks.append(dict(
             set=name, lanes=R, read_len=L, zero_length_lanes=int((w.lens2 == 0).sum()),
-            words=ext_words(L, k),
+            columns=S, words=ext_words(L, k),
             fused_words=didx.sa_cmp.shape[1] - 3, hit_slots=params["H"],
             hits=int(got.n.sum()), truncated_lanes=int(got.truncated.sum()),
             widest_interval=int(torch.where(hit, got.e - got.b, 0).max()),
@@ -539,7 +609,7 @@ def phase_walk_kernel(dev, timer, mapper, idx, codes, lens, C: int, seed: int, w
         ))
         max_err = max(max_err, *errs.values(), *ext_errs)
         if name == "smoke_chunk":
-            main = (didx, w, params)
+            main = (didx, w, params, want)
     by = {c["set"]: c for c in checks}
     covered = (
         by["reads_150bp"]["words"] > by["reads_150bp"]["fused_words"]
@@ -548,13 +618,34 @@ def phase_walk_kernel(dev, timer, mapper, idx, codes, lens, C: int, seed: int, w
         and by["repetitive_16_slots"]["widest_interval"] > 1
         and by["cli_ragged_batch"]["zero_length_lanes"] > 0
         and by["cli_ragged_batch"]["hits"] > 0
+        and by["cli_bucket_160"]["read_len"] == 160
+        and by["cli_bucket_160"]["columns"] > 128  # mask words rebuilt from the row
+        and by["cli_bucket_160"]["words"] > 8       # query words from global memory
+        and by["cli_bucket_160"]["longest_mmp"] > K + 128  # ... that a compare reached
     )
     ok = covered and all(c["equal_plain"] and c["extend_equal_plain"] for c in checks)
 
+    # more hit slots than a block stages for 64 lanes, on outputs that start
+    # as 0xFF bytes: the smoke chunk's plain H = 16 result, no lane of which
+    # truncates, padded with empty slots
+    didx, w, params, want = main
+    large_h = []
+    if cuda:
+        for H in (150, 300, 8000):
+            got, _, _ = walk_on_0xff(didx, w, **{**params, "H": H})
+            pad = H - want.q.shape[1]
+            errs = {f: diff(getattr(got, f), torch.nn.functional.pad(getattr(want, f), (0, pad)))
+                    for f in ("q", "l", "b", "e")}
+            errs.update(n=diff(got.n, want.n), truncated=diff(got.truncated, want.truncated))
+            large_h.append(dict(hit_slots=H, field_err=errs, equal_plain=not any(errs.values())))
+            max_err = max(max_err, *errs.values())
+            del got
+        ok = ok and not bool(want.truncated.any()) and all(c["equal_plain"] for c in large_h)
+
     # timing and bound at the main path's shape (one chunk: 2 x chunk lanes)
-    didx, w, params = main
     wrapper_ms = timer(lambda: anchor_walk(didx, *w, **params), reps=50)
     ms, ms_by = device_ms(lambda: anchor_walk(didx, *w, **params), 50, cuda)
+    cold_event_ms, cold_ms = walk_cold_ms(lambda: anchor_walk(didx, *w, **params), 50, cuda)
     plain_ms = timer(lambda: anchor_walk_plain(didx, *w, **params), reps=2, warm=1)
     hits = anchor_walk(didx, *w, **params)
     out_bytes = sum(t.numel() * t.element_size() for t in
@@ -563,25 +654,27 @@ def phase_walk_kernel(dev, timer, mapper, idx, codes, lens, C: int, seed: int, w
         # the bytes the function must move for THIS data: every 32-byte sector
         # of an input that the walk reads, once (counted by the kernel's
         # counting build), and every output written once
-        counted, sectors, rows = walk_traffic(didx, w, **params)
+        counted, sectors, rows = walk_on_0xff(didx, w, **params, count=True)
         if any(diff(getattr(counted, f), getattr(hits, f)) for f in ScanHits._fields):
             raise RuntimeError("the counting build of the walk disagrees with the kernel")
         nbytes = 32 * sum(sectors.values()) + out_bytes
         ops = 32 * rows  # index arithmetic and one masked word compare a row, at least
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
-        bound = dict(bound_ms=max(t_bytes, t_ops),
-                     bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=nbytes,
-                     output_bytes=out_bytes, input_sectors_read=sectors, sa_cmp_rows=rows,
-                     share_of_bound=max(t_bytes, t_ops) / ms)
+        bound_ms = max(t_bytes, t_ops)
+        bound = dict(bound_ms=bound_ms, bound_by="bytes" if t_bytes >= t_ops else "operations",
+                     bytes=nbytes, output_bytes=out_bytes, input_sectors_read=sectors,
+                     sa_cmp_rows=rows, share_of_bound=bound_ms / ms,
+                     share_of_bound_cold=bound_ms / cold_ms)
     else:
         bound = dict(bound_ms="not measured", bound_by="bytes")
     timing = dict(
-        lanes=w.preads.shape[0], read_len=w.preads.shape[1], ms=ms, wrapper_ms=wrapper_ms,
-        device_ms_by_kernel=ms_by, plain_ms=plain_ms, library_ms=None, **bound,
+        lanes=w.preads.shape[0], read_len=w.preads.shape[1], ms=ms, cold_ms=cold_ms,
+        cold_event_ms=cold_event_ms, wrapper_ms=wrapper_ms, device_ms_by_kernel=ms_by,
+        plain_ms=plain_ms, library_ms=None, **bound,
     )
     emit("kernel_vs_plain", kernel="anchor_walk", ok=ok, max_abs_err=max_err,
-         covered=covered, checks=checks, timing=timing)
+         covered=covered, checks=checks, large_hit_slots=large_h, timing=timing)
     return ok, max_err, timing
 
 
@@ -595,14 +688,41 @@ def true_locus_share(res, truth, lo: int, hi: int) -> float:
     return float(np.bincount(rid[m], minlength=hi - lo).astype(bool).mean())
 
 
+def scan_kernels(mapper, r, ln, cuda: bool) -> dict:
+    """The device kernels of one program's scan (dense phase, then anchor
+    walk) by name, under torch.profiler, and those of the anchor tables that
+    the dense phase no longer builds (`anchor_tables`, which only the plain
+    walk runs), on the same inputs: what left the main path."""
+    if not cuda:
+        return dict(scan="not measured", anchor_tables="not measured")
+    import torch
+
+    from rapmap_tpu_torch.ops.mmp import anchor_tables, anchor_walk, dense_phase, walk_params
+
+    def run(fn):
+        fn()  # warm: the allocator and the kernels' libraries
+        torch.cuda.synchronize()
+        by_name = sorted(device_kernels(fn).items(), key=lambda kv: -kv[1][0])
+        return dict(device_ms=sum(v[0] for _, v in by_name),
+                    launches=sum(v[1] for _, v in by_name),
+                    kernels=[dict(name=n, ms=v[0], count=v[1]) for n, v in by_name])
+
+    def scan():
+        w = dense_phase(mapper.didx, mapper.st, r, ln, mapper.cfg)
+        anchor_walk(mapper.didx, *w, **walk_params(mapper.st, mapper.cfg))
+
+    w = dense_phase(mapper.didx, mapper.st, r, ln, mapper.cfg)
+    return dict(scan=run(scan), anchor_tables=run(lambda: anchor_tables(*w[4:])))
+
+
 def profile_batch(mapper, codes, lens, C: int, cuda: bool) -> dict:
     """Where one batch's time goes: the device's busy share and its top
-    kernels (torch.profiler), and the synchronized host time of one chunk's
-    scan (dense phase, then anchor walk) and collate stages, and of the
-    wire's host halves for the batch. A batch below two chunks runs as one
-    program over the whole batch, as the command line's default batches do."""
+    kernels (torch.profiler), the device kernels of one program's scan by
+    name, and the synchronized host time of one chunk's scan (dense phase,
+    then anchor walk) and collate stages, and of the wire's host halves for
+    the batch. A batch below two chunks runs as one program over the whole
+    batch, as the command line's default batches do."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from rapmap_tpu_torch.ops.collate import collate_batch, collate_records_se
     from rapmap_tpu_torch.ops.compact import compact_se
@@ -610,14 +730,21 @@ def profile_batch(mapper, codes, lens, C: int, cuda: bool) -> dict:
     from rapmap_tpu_torch.ops.wire import pack_in_se, rec_spec_se
 
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
-    sync()
-    with profile(activities=acts) as prof:
+    wall = []
+
+    def batch():
         t0 = time.perf_counter()
         mapper.fetch(mapper.map_se_async(codes, lens))
         sync()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = device_kernels(prof) if cuda else {}
+        wall.append((time.perf_counter() - t0) * 1e3)
+
+    sync()
+    if cuda:
+        by_name = device_kernels(batch)
+    else:
+        batch()
+        by_name = {}
+    wall_ms = wall[0]
     busy_ms = sum(v[0] for v in by_name.values())
     kern = sum(v[1] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
@@ -627,6 +754,7 @@ def profile_batch(mapper, codes, lens, C: int, cuda: bool) -> dict:
     chunked = bool(mapper._chunk_of(len(codes)))
     r = torch.from_numpy(codes[:C]).to(dev)
     ln = torch.from_numpy(lens[:C].astype(np.int64)).to(dev)
+    scan_device = scan_kernels(mapper, r, ln, cuda)
     spec = rec_spec_se(mapper.st, mapper.cfg)
     stage, wire = {}, {}
     res = mapper.map_se_async(codes, lens)
@@ -670,7 +798,7 @@ def profile_batch(mapper, codes, lens, C: int, cuda: bool) -> dict:
         launches_per_chunk=kern / max(1, len(codes) // C),
         top_kernels=[dict(name=n, ms=v[0], count=v[1]) for n, v in top],
         hand_kernels=[dict(name=n, ms=v[0], count=v[1]) for n, v in own],
-        chunk_stages=stage, wire_host=wire,
+        scan_device=scan_device, chunk_stages=stage, wire_host=wire,
     )
 
 
@@ -765,6 +893,8 @@ def main() -> int:
                            "an input set missed what it is there to exercise")
 
     # ---- main path: map_se_async / fetch, one batch in flight --------------
+    if cuda:  # the peak of the index and the main path, not of the checks above
+        torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     results = []
     t0 = time.time()
@@ -923,9 +1053,9 @@ def main() -> int:
         "replaces": "rapmap_tpu/ops/mmp.py:190",
         "launches": launches["anchor_walk"],
         "launches_on_cli_paths": on_cli("anchor_walk"), "max_abs_err": walk_err,
-        "matches_plain": walk_ok, "ms": walk_t["ms"], "wrapper_ms": walk_t["wrapper_ms"],
-        "plain_ms": walk_t["plain_ms"], "bound_ms": walk_t["bound_ms"],
-        "bound_by": walk_t["bound_by"], "library_ms": None,
+        "matches_plain": walk_ok, "ms": walk_t["ms"], "cold_ms": walk_t["cold_ms"],
+        "wrapper_ms": walk_t["wrapper_ms"], "plain_ms": walk_t["plain_ms"],
+        "bound_ms": walk_t["bound_ms"], "bound_by": walk_t["bound_by"], "library_ms": None,
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

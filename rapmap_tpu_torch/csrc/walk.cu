@@ -4,22 +4,60 @@
 //
 // Replaces no Pallas kernel. The reference runs this as XLA lax.while_loops
 // (rapmap_tpu/ops/mmp.py:190-248 calling rapmap_tpu/ops/extend_packed.py:
-// 154-286 every trip), which XLA compiles into one program. Eager PyTorch has
-// no counterpart: the plain versions (ops/mmp.py anchor_walk_plain,
-// ops/extend_packed.py extend_packed) issue thousands of small launches per
-// chunk, every trip for every lane whether or not it is active.
+// 154-286 every trip), which XLA compiles into one program, after building
+// next- and previous-anchor tables with cumulative min/max scans
+// (rapmap_tpu/ops/mmp.py:161-170). Eager PyTorch has no counterpart: the
+// plain versions (ops/mmp.py anchor_walk_plain, ops/extend_packed.py
+// extend_packed) build those tables and then issue thousands of small
+// launches per chunk, every trip for every lane whether or not it is active.
 // Here a lane's searches stop at lo == hi and its walk at pos >= S, so no
 // masked trip runs and nothing syncs with the host.
 //
-// Bound on the card: bytes, namely the hit buffer written once and the
-// 32-byte sectors of the inputs that the lanes read (a few columns of each
-// lane row, and the random 24-byte sa_cmp rows: one or two sectors each, data
-// dependent). tqm_anchor_walk_traffic, the kCount = true build of the same
-// code, counts those sectors for a given launch. The kernel is
-// latency-bound, not byte-bound: a lane's compares form one dependent chain
-// of ~10 uncached gathers. One thread per lane keeps 16,384 such chains in
-// flight per launch, which hides most of that; a warp per lane, read words
-// staged in shared memory and 8-byte row loads are later work.
+// What bounds it on the card. The byte bound is the hit buffer written once
+// (R x H x 32 bytes, three quarters of the bytes at H = 16) plus the 32-byte
+// sectors of the inputs that the lanes read: each lane's anchor-mask row, a
+// few columns of its interval rows and read words, and the random sa_cmp rows
+// (one or two sectors each, data dependent). tqm_anchor_walk_traffic, the
+// kCount = true build of the same code, counts those sectors for a given
+// launch, each word where a scan or a compare uses it, so the count is what
+// the function needs, not what the kernel loads ahead. In practice the
+// kernel is latency-bound: a lane's compares form one dependent chain of
+// gathers (row at mid, compare, next mid), and 16,384 lanes are only ~4
+// warps per SM to hide it. One thread per lane stays: on a
+// transcriptome most anchors have narrow intervals, so a lane's work is a
+// chain of hops, not one wide search, and a warp per lane would idle.
+//
+// What the design does about it:
+//  - Anchors come from masks. A lane reads its (B, S) bool mask row (forward
+//    lanes anch_f, rc lanes anch_r in forward columns) with aligned 16-byte
+//    loads and keeps it as bits, the first kMaskRegWords words in registers
+//    (S <= 128; words beyond are rebuilt from the row when a scan reaches
+//    them). The next anchor >= c is a find-first-set, the previous anchor
+//    <= c a find-last-set, with S and -1 as the tables' sentinels; so the
+//    dense phase launches no table scans and stacks no (2B, S) copies.
+//  - Every output byte is written once, by the kernel, with no zero fill
+//    before it: each warp stages its lanes' H slots (empty ones as zeros) in
+//    dynamic shared memory and, when its lanes are done, writes its
+//    contiguous part of the buffer with 16-byte stores. When H is so large
+//    that the stage does not fit, a block takes fewer lanes; when not even
+//    one lane's slots fit, lanes write their slots, zeros included, straight
+//    to the buffer. (Writing the slots that must stay empty early, to overlap
+//    the walk, cost more in per-unit bookkeeping than it saved: with ~4 warps
+//    an SM nothing hides a warp's own instruction latency.)
+//  - At each anchor the lane loads the query words a compare can reach once,
+//    into registers (kRegWords: reads to k + 128 bases), and each sa_cmp row
+//    whole, in one batch of 8-byte read-only loads, so a compare waits on one
+//    load round, not on a chain of them. Query words beyond kRegWords load
+//    from global memory. An sa_cmp row is 3 + F int32 with F fused words
+//    (SA_CMP_WORDS = 3 in ops/device_index.py): the launch refuses a table
+//    whose rows are not whole 8-byte pairs or hold more than kRegWords fused
+//    words, so every fused word a compare reads is in registers. (Loading
+//    them where a compare uses them, 4 bytes at a time, took 12-14% more
+//    time with a warm L2 and 24-25% more with a cold one on an H100:
+//    scripts/walk_ablation.py.)
+//  - The equal range's two searches run one after the other. (Interleaving
+//    them, one trip of each per pass so that two row loads are in flight,
+//    took 3-4% more time: the same script.)
 //
 // Words are uint32_t here and compares are unsigned. The plain version
 // carries them as int64 values in [0, 2^32) (ops/bits.py); the kernel loads
@@ -30,34 +68,29 @@
 // clz32 does.
 //
 // C interface for ctypes: every pointer and the stream are void* on the
-// Python side; both entries return the CUDA error code (0 = success).
+// Python side; every entry returns the CUDA error code (0 = success).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kLaneThreads = 64;  // lanes per block: 16,384 lanes -> 256 blocks
+constexpr int kMaxLanes = 64;      // lanes (threads) per block: 16,384 lanes -> 256 blocks
+constexpr int kMaskRegWords = 4;   // anchor-mask words in registers: S <= 128
+constexpr int kRegWords = 8;       // query words and fused sa_cmp words in registers
 
 struct Index {
-  const int32_t* sa_cmp;  // (n_sa, 3 + F) [wi, sub, tleft, w0..w_{F-1}]
+  const int32_t* sa_cmp;  // (n_sa, 3 + F) [wi, sub, tleft, w0..w_{F-1}], 8-byte aligned rows
   int64_t n_sa;
-  int F;
+  int F;                  // odd and <= kRegWords (index_ok)
   const int32_t* text2q;  // (nw, 4) packed words i..i+3
   int64_t nw;
 };
 
-// One lane's query: the read suffix beyond depth k at column `base`.
-struct Query {
-  const int64_t* words;  // the lane's row of packed read words (L of them)
-  int64_t base;
-  int L;
-  int W;                 // words that cover L - k chars
-};
-
 // The input tensors, as the traffic count names them.
 enum Region {
-  kPreads, kNextBad, kLens, kColOff, kDb, kDe, kAnc, kSaCmp, kText2q, kRegions
+  kPreads, kNextBad, kLens, kColOff, kBf, kEf, kBr, kEr, kAnchF, kAnchR, kSaCmp, kText2q,
+  kRegions
 };
 
 // What a launch read, for the byte bound of a run: one bitmap per input
@@ -82,22 +115,172 @@ __device__ __forceinline__ void touch(const Traffic& tr, Region g, const void* p
   }
 }
 
-// A counted load of one element.
+__device__ __forceinline__ int64_t ldg(const int64_t* p) {
+  return __ldg(reinterpret_cast<const long long*>(p));
+}
+__device__ __forceinline__ int32_t ldg(const int32_t* p) { return __ldg(p); }
+
+// A counted load of one element, through the read-only path.
 template <bool kCount, typename T>
 __device__ __forceinline__ T load(const Traffic& tr, Region g, const T* p) {
   touch<kCount>(tr, g, p, sizeof(T));
-  return *p;
+  return ldg(p);
 }
 
 __device__ __forceinline__ int64_t clamp64(int64_t v, int64_t lo, int64_t hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
+// ---- anchor masks ------------------------------------------------------------
+
+// 16 bool bytes -> 16 bits, bit i set when byte i is nonzero.
+__device__ __forceinline__ uint32_t bits16(uint4 v) {
+  auto b4 = [](uint32_t x) {  // the low bit of each byte, gathered into bits 24..27
+    return ((__vcmpne4(x, 0u) & 0x01010101u) * 0x01020408u) >> 24;
+  };
+  return b4(v.x) | (b4(v.y) << 4) | (b4(v.z) << 8) | (b4(v.w) << 12);
+}
+
+// Bits of the aligned 16-byte chunk `i` of a mask row (chunk 0 holds the
+// row's first byte), or 0 when the chunk starts at or past the row's end:
+// such a chunk is never read, and one that is read lies in the 16-byte blocks
+// the row's own bytes occupy, so no load leaves the tensor's pages.
+__device__ __forceinline__ uint32_t chunk_bits(const uint8_t* row, int S, int i) {
+  const uintptr_t r = reinterpret_cast<uintptr_t>(row);
+  const uintptr_t c = (r & ~uintptr_t(15)) + 16 * static_cast<uintptr_t>(i);
+  if (c >= r + S) return 0u;
+  return bits16(__ldg(reinterpret_cast<const uint4*>(c)));
+}
+
+// Mask word w from the bits of chunks 2w, 2w + 1, 2w + 2: bit c is column
+// 32 w + c, 0 at and beyond S.
+__device__ __forceinline__ uint32_t mask_word(uint32_t h0, uint32_t h1, uint32_t h2, int head,
+                                              int S, int w) {
+  const uint32_t x = __funnelshift_r(h0 | (h1 << 16), h2, head);
+  const int left = S - 32 * w;  // columns of the row in this word
+  return left >= 32 ? x : (left <= 0 ? 0u : x & ((1u << left) - 1u));
+}
+
+// A lane's anchor columns as bits, bit c of word w being column 32 w + c.
+template <bool kCount>
+struct AnchorMask {
+  const uint8_t* row;  // S bool bytes
+  int S;
+  int head;            // row address mod 16
+  Region g;
+  uint32_t reg[kMaskRegWords];
+
+  __device__ __forceinline__ void init(const uint8_t* row_, int S_, Region g_) {
+    row = row_;
+    S = S_;
+    g = g_;
+    head = static_cast<int>(reinterpret_cast<uintptr_t>(row_) & 15);
+    uint32_t h[2 * kMaskRegWords + 1];
+#pragma unroll
+    for (int i = 0; i < 2 * kMaskRegWords + 1; ++i) h[i] = chunk_bits(row, S, i);
+#pragma unroll
+    for (int w = 0; w < kMaskRegWords; ++w)
+      reg[w] = mask_word(h[2 * w], h[2 * w + 1], h[2 * w + 2], head, S, w);
+  }
+
+  // Word w (32 w < S), counted as the row bytes of its columns.
+  __device__ __forceinline__ uint32_t word(int w, const Traffic& tr) const {
+    touch<kCount>(tr, g, row + 32 * w, S - 32 * w < 32 ? S - 32 * w : 32);
+    if (w < kMaskRegWords) {
+      uint32_t x = 0;
+#pragma unroll
+      for (int i = 0; i < kMaskRegWords; ++i) x = i == w ? reg[i] : x;
+      return x;
+    }
+    return mask_word(chunk_bits(row, S, 2 * w), chunk_bits(row, S, 2 * w + 1),
+                     chunk_bits(row, S, 2 * w + 2), head, S, w);
+  }
+
+  // Smallest anchor column >= c (c >= 0), else S: the next-anchor table.
+  __device__ int next(int c, const Traffic& tr) const {
+    for (int w = c >> 5; 32 * w < S; ++w) {
+      uint32_t x = word(w, tr);
+      if (w == c >> 5) x &= 0xFFFFFFFFu << (c & 31);
+      if (x) return 32 * w + __ffs(static_cast<int>(x)) - 1;
+    }
+    return S;
+  }
+
+  // Largest anchor column <= c (0 <= c < S), else -1: the prev-anchor table.
+  __device__ int prev(int c, const Traffic& tr) const {
+    for (int w = c >> 5; w >= 0; --w) {
+      uint32_t x = word(w, tr);
+      if (w == c >> 5) x &= 0xFFFFFFFFu >> (31 - (c & 31));
+      if (x) return 32 * w + 31 - __clz(static_cast<int>(x));
+    }
+    return -1;
+  }
+};
+
+// ---- the packed extension ----------------------------------------------------
+
+// One lane's query: the read suffix beyond depth k at column `base`.
+struct Query {
+  const int64_t* words;  // the lane's row of packed read words (L of them)
+  int64_t base;
+  int L;
+  int W;                 // words that cover L - k chars
+  uint32_t reg[kRegWords];  // words j < kRegWords that a compare can reach, else 0
+};
+
+// Query word j, 0 past the read's L columns; counted when kCount (the
+// address is clamped as the load's is).
 template <bool kCount>
 __device__ __forceinline__ uint32_t query_word(const Query& q, int j, const Traffic& tr) {
   const int64_t c = q.base + 16 * j;
   if (c >= q.L) return 0u;
   return static_cast<uint32_t>(load<kCount>(tr, kPreads, q.words + clamp64(c, 0, q.L - 1)));
+}
+
+// The words j < kRegWords with 16 j < qmax, loaded together and counted
+// where a compare uses them. A compare of qlen <= qmax chars never reads word
+// j once 16 j >= qlen: it stops at the first word with fewer than 16 query
+// chars, and a word with none is masked to nothing.
+__device__ __forceinline__ void load_query(Query& q, int qmax) {
+  const Traffic none{};
+#pragma unroll
+  for (int j = 0; j < kRegWords; ++j)
+    q.reg[j] = (j < q.W && 16 * j < qmax) ? query_word<false>(q, j, none) : 0u;
+}
+
+// An sa_cmp row with its first fused words, loaded in one batch.
+struct Row {
+  const int32_t* p;
+  int64_t wi;
+  int sub;
+  int tleft;
+  uint32_t f[kRegWords];  // fused words j < min(F, W)
+};
+
+// The ints a compare can read, 3 + min(F, W), as 8-byte pairs: (3 + F) is
+// even, so a pair that starts below them ends inside the row. What a compare
+// uses is counted there (suffix_cmp), the row itself here.
+template <bool kCount>
+__device__ __forceinline__ Row load_row(const Index& ix, int64_t slot, int W, const Traffic& tr) {
+  Row row;
+  row.p = ix.sa_cmp + clamp64(slot, 0, ix.n_sa - 1) * (3 + ix.F);
+  const int n = 3 + min(ix.F, W);
+  int32_t v[3 + kRegWords + 1] = {};
+#pragma unroll
+  for (int i = 0; i < (3 + kRegWords + 1) / 2; ++i) {
+    if (2 * i < n) {
+      const int2 x = __ldg(reinterpret_cast<const int2*>(row.p) + i);
+      v[2 * i] = x.x;
+      v[2 * i + 1] = x.y;
+    }
+  }
+  if constexpr (kCount) atomicAdd(tr.rows, 1ull);
+  row.wi = v[0];
+  row.sub = v[1];
+  row.tleft = v[2];
+#pragma unroll
+  for (int j = 0; j < kRegWords; ++j) row.f[j] = static_cast<uint32_t>(v[3 + j]);
+  return row;
 }
 
 // Raw text word i of the run that starts at quad row wi0: rows advance by 4
@@ -109,62 +292,80 @@ __device__ __forceinline__ uint32_t raw_text_word(const Index& ix, int64_t wi0, 
   return static_cast<uint32_t>(load<kCount>(tr, kText2q, ix.text2q + row * 4 + (i & 3)));
 }
 
-// Compare the suffix at SA[slot] (depth-k based) against the query's first
+// Text word j >= F of the suffix at a row: the text2q run shifted by the
+// row's sub-word offset (words j < F are the row's fused words).
+template <bool kCount>
+__device__ uint32_t text_word(const Index& ix, const Row& row, int j, const Traffic& tr) {
+  touch<kCount>(tr, kSaCmp, row.p, 8);  // wi, sub
+  const int jj = j - ix.F;
+  const int sh = row.sub << 1;
+  const uint32_t r0 = raw_text_word<kCount>(ix, row.wi + ix.F, jj, tr);
+  if (sh == 0) return r0;
+  const uint32_t r1 = raw_text_word<kCount>(ix, row.wi + ix.F, jj + 1, tr);
+  return (r0 << sh) | (r1 >> (32 - sh));
+}
+
+// Word j of a compare: n = min(query chars, text chars) chars from the top
+// of each word. Adds the word's lcp and returns true, with cmp set, when the
+// word decides.
+__device__ __forceinline__ bool cmp_word(uint32_t qw, uint32_t tw, int qlen, int tleft, int j,
+                                         int& cmp, int& lcp) {
+  int qn = qlen - 16 * j;
+  qn = qn < 0 ? 0 : (qn > 16 ? 16 : qn);
+  int tn = tleft - 16 * j;
+  tn = tn < 0 ? 0 : (tn > 16 ? 16 : tn);
+  const int n = qn < tn ? qn : tn;
+  // n chars from the top: a shift by 32 (n == 0) is undefined in C
+  const uint32_t mask = n == 0 ? 0u : (0xFFFFFFFFu << (32 - 2 * n));
+  const uint32_t qv = qw & mask;
+  const uint32_t tv = tw & mask;
+  const int diffpos = __clz(static_cast<int>(qv ^ tv)) >> 1;  // chars; 16 if equal
+  const bool has_diff = diffpos < n;
+  lcp += has_diff ? diffpos : n;
+  if (has_diff || tn < qn || qn < 16) {
+    // no diff within n: transcript ends first -> suffix smaller; query
+    // exhausted -> prefix-equal
+    cmp = has_diff ? (tv < qv ? -1 : 1) : (tn < qn ? -1 : 0);
+    return true;
+  }
+  return false;
+}
+
+// Compare the suffix of a row (depth-k based) against the query's first
 // qlen chars. cmp < 0: suffix < query; 0: prefix-equal; > 0: suffix > query.
 // lcp in chars. Stops at the first deciding word; the plain version runs all
 // W words with decided lanes masked, which gives the same pair.
 template <bool kCount>
-__device__ void suffix_cmp(const Index& ix, const Query& q, int qlen, int64_t slot,
-                           int& cmp, int& lcp, const Traffic& tr) {
-  const int64_t s = clamp64(slot, 0, ix.n_sa - 1);
-  const int32_t* row = ix.sa_cmp + s * (3 + ix.F);
-  touch<kCount>(tr, kSaCmp, row, 12);  // wi, sub, tleft; the words as they are read
-  if constexpr (kCount) atomicAdd(tr.rows, 1ull);
-  const int64_t wi = row[0];
-  const int sub = row[1];
-  const int tleft = row[2];
-  const int sh = sub << 1;
+__device__ __forceinline__ void suffix_cmp(const Index& ix, const Query& q, const Row& row,
+                                           int qlen, int& cmp, int& lcp, const Traffic& tr) {
   cmp = 0;
   lcp = 0;
-  for (int j = 0; j < q.W; ++j) {
-    int qn = qlen - 16 * j;
-    qn = qn < 0 ? 0 : (qn > 16 ? 16 : qn);
-    int tn = tleft - 16 * j;
-    tn = tn < 0 ? 0 : (tn > 16 ? 16 : tn);
-    const int n = qn < tn ? qn : tn;
-    // n chars from the top: a shift by 32 (n == 0) is undefined in C
-    const uint32_t mask = n == 0 ? 0u : (0xFFFFFFFFu << (32 - 2 * n));
-    uint32_t tw;
-    if (j < ix.F) {
-      tw = static_cast<uint32_t>(load<kCount>(tr, kSaCmp, row + 3 + j));
-    } else {
-      const int jj = j - ix.F;
-      const uint32_t r0 = raw_text_word<kCount>(ix, wi + ix.F, jj, tr);
-      if (sh == 0) {
-        tw = r0;
-      } else {
-        const uint32_t r1 = raw_text_word<kCount>(ix, wi + ix.F, jj + 1, tr);
-        tw = (r0 << sh) | (r1 >> (32 - sh));
-      }
+  touch<kCount>(tr, kSaCmp, row.p + 2, 4);  // tleft
+  // a word that holds no char of the query or of the suffix is masked away:
+  // it is not counted, and no text2q word is loaded for it
+#pragma unroll
+  for (int j = 0; j < kRegWords; ++j) {
+    if (j >= q.W) return;
+    const bool used = 16 * j < qlen && 16 * j < row.tleft;
+    if constexpr (kCount) {  // the register words this compare uses
+      if (used) query_word<kCount>(q, j, tr);
+      if (used && j < ix.F) touch<kCount>(tr, kSaCmp, row.p + 3 + j, 4);
     }
-    const uint32_t qv = query_word<kCount>(q, j, tr) & mask;
-    const uint32_t tv = tw & mask;
-    const int diffpos = __clz(static_cast<int>(qv ^ tv)) >> 1;  // chars; 16 if equal
-    const bool has_diff = diffpos < n;
-    lcp += has_diff ? diffpos : n;
-    if (has_diff || tn < qn || qn < 16) {
-      // no diff within n: transcript ends first -> suffix smaller; query
-      // exhausted -> prefix-equal
-      cmp = has_diff ? (tv < qv ? -1 : 1) : (tn < qn ? -1 : 0);
-      return;
-    }
+    const uint32_t tw = j < ix.F ? row.f[j] : (used ? text_word<kCount>(ix, row, j, tr) : 0u);
+    if (cmp_word(q.reg[j], tw, qlen, row.tleft, j, cmp, lcp)) return;
+  }
+  for (int j = kRegWords; j < q.W; ++j) {
+    const bool used = 16 * j < qlen && 16 * j < row.tleft;
+    const uint32_t tw = used ? text_word<kCount>(ix, row, j, tr) : 0u;
+    const uint32_t qw = used ? query_word<kCount>(q, j, tr) : 0u;
+    if (cmp_word(qw, tw, qlen, row.tleft, j, cmp, lcp)) return;
   }
 }
 
-// Binary search in [lo, hi): first S_p >= Q (upper false) or first S_p > Q
-// (upper true), with the lcps of the last "less" and the last "not less"
-// compare (the neighbours of the insertion point). At most `steps` trips, as
-// the plain version's static bound.
+// Binary search in [lo, hi) for the first S_p >= Q (upper false) or the
+// first S_p > Q (upper true), with the lcps of the last "less" and the last
+// "not less" compare (the neighbours of the insertion point). At most
+// `steps` trips, as the plain version's static bound.
 template <bool kCount>
 __device__ int64_t bound_search(const Index& ix, const Query& q, int qlen, int64_t lo,
                                 int64_t hi, bool upper, int steps, int& ll, int& lg,
@@ -174,7 +375,7 @@ __device__ int64_t bound_search(const Index& ix, const Query& q, int qlen, int64
   for (int t = 0; t < steps && lo < hi; ++t) {
     const int64_t mid = (lo + hi) >> 1;
     int cmp, lcp;
-    suffix_cmp<kCount>(ix, q, qlen, mid, cmp, lcp, tr);
+    suffix_cmp<kCount>(ix, q, load_row<kCount>(ix, mid, q.W, tr), qlen, cmp, lcp, tr);
     if (cmp < 0 || (upper && cmp == 0)) {
       ll = lcp;
       lo = mid + 1;
@@ -197,82 +398,127 @@ __device__ void extend_lane(const Index& ix, const int64_t* words, const int64_t
   q.base = pos + k + col_off;
   q.L = L;
   q.W = W;
-  // valid query chars beyond depth k: up to the next N and the read end
+  // valid query chars beyond depth k: up to the next N and the read end; the
+  // query words are loaded beside next_bad, up to the read end alone
+  const int64_t end = len + col_off;
+  load_query(q, static_cast<int>(clamp64(end - q.base, 0, L - k)));
   const int64_t nb =
       q.base < L ? load<kCount>(tr, kNextBad, nbad + clamp64(q.base, 0, L - 1)) : q.base;
-  const int64_t end = len + col_off;
   const int qlen = static_cast<int>(clamp64((nb < end ? nb : end) - q.base, 0, L - k));
   const int64_t b0a = active ? b0 : 0;
   const int64_t e0a = active ? e0 : 0;
-  int ll, lg, dummy0, dummy1;
+  int ll, lg, unused0, unused1;
   const int64_t lb = bound_search<kCount>(ix, q, qlen, b0a, e0a, false, steps, ll, lg, tr);
   const int l_left = lb > b0a ? ll : 0;
   const int l_right = lb < e0a ? lg : 0;
   int ext = l_left > l_right ? l_left : l_right;
   ext = ext < qlen ? ext : qlen;
   // equal range of the query truncated to ext chars over the narrowed spans
-  const int64_t lb2 = bound_search<kCount>(ix, q, ext, l_left < ext ? lb : b0a, lb, false, steps,
-                                   dummy0, dummy1, tr);
-  const int64_t ub2 = bound_search<kCount>(ix, q, ext, lb, l_right < ext ? lb : e0a, true, steps,
-                                   dummy0, dummy1, tr);
+  const int64_t lb2 = bound_search<kCount>(ix, q, ext, l_left < ext ? lb : b0a, lb, false,
+                                           steps, unused0, unused1, tr);
+  const int64_t ub2 = bound_search<kCount>(ix, q, ext, lb, l_right < ext ? lb : e0a, true,
+                                           steps, unused0, unused1, tr);
   const bool ok = active && ub2 > lb2;
   b = ok ? lb2 : b0;
   e = ok ? ub2 : e0;
   mlen = ok ? k + ext : k;
 }
 
+// ---- the walk ------------------------------------------------------------------
+
+__device__ __forceinline__ void put_slot(int64_t* slot, int64_t a, int64_t b, int64_t c,
+                                         int64_t d) {
+  reinterpret_cast<longlong2*>(slot)[0] = make_longlong2(a, b);
+  reinterpret_cast<longlong2*>(slot)[1] = make_longlong2(c, d);
+}
+
+// Lane r < B is forward and reads row r of bf/ef/anch_f; lane r >= B is rc
+// and reads row r - B of br/er/anch_r, in forward columns.
 template <bool kCount>
-__global__ void anchor_walk_kernel(
+__global__ void __launch_bounds__(kMaxLanes) anchor_walk_kernel(
     const int64_t* __restrict__ preads, const int64_t* __restrict__ next_bad,
     const int64_t* __restrict__ lens2, const int64_t* __restrict__ col_off2,
-    const int64_t* __restrict__ db2, const int64_t* __restrict__ de2,
-    const int64_t* __restrict__ anc2, Index ix, int64_t R, int64_t B, int L, int S, int k,
-    int H, int steps, int W, int64_t* __restrict__ buf, int64_t* __restrict__ n_out,
-    uint8_t* __restrict__ trunc_out, Traffic tr) {
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (r >= R) return;
+    const int64_t* __restrict__ bf, const int64_t* __restrict__ ef,
+    const int64_t* __restrict__ br, const int64_t* __restrict__ er,
+    const uint8_t* __restrict__ anch_f, const uint8_t* __restrict__ anch_r, Index ix,
+    int64_t R, int64_t B, int L, int S, int k, int H, int steps, int W, bool staged,
+    int64_t* __restrict__ buf, int64_t* __restrict__ n_out, uint8_t* __restrict__ trunc_out,
+    Traffic tr) {
+  // staged: the block's lanes x H slots x [pos, mlen, b, e], laid out as in buf
+  extern __shared__ __align__(16) int64_t stage[];
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * blockDim.x;
+  const bool live = r0 + threadIdx.x < R;
+  const int64_t r = live ? r0 + threadIdx.x : R - 1;  // past R: lane R - 1, writing nothing
   const bool is_rc = r >= B;
+  const int64_t rr = is_rc ? r - B : r;
   const int64_t len = load<kCount>(tr, kLens, lens2 + r);
   const int64_t col_off = load<kCount>(tr, kColOff, col_off2 + r);
-  const int64_t* words = preads + r * L;
-  const int64_t* nbad = next_bad + r * L;
-  const int64_t* anc = anc2 + r * S;
-
-  // Smallest lane-local anchor position >= nxt, else S. Forward lanes read
-  // the next-anchor row; rc lanes the prev-anchor row in mirrored columns.
-  auto next_anchor_pos = [&](int64_t nxt) -> int64_t {
-    const int64_t col = is_rc ? len - k - nxt : nxt;
-    const int64_t v = load<kCount>(tr, kAnc, anc + clamp64(col, 0, S - 1));
-    if (!is_rc) return nxt < S ? v : S;
-    return (col >= 0 && v >= 0) ? len - k - v : S;
-  };
-
-  int64_t pos = next_anchor_pos(0);
-  int64_t n = 0;
-  bool trunc = false;
-  while (pos < S) {
-    if (n >= H) {  // the hit buffer is full: record nothing more
-      trunc = true;
-      break;
-    }
-    const int64_t posc = clamp64(pos, 0, S - 1);
-    const int64_t col = clamp64(is_rc ? len - k - posc : posc, 0, S - 1);
-    int64_t b, e, mlen;
-    extend_lane<kCount>(ix, words, nbad, len, col_off,
-                        load<kCount>(tr, kDb, db2 + r * S + col),
-                        load<kCount>(tr, kDe, de2 + r * S + col), posc, true, k, steps, L, W,
-                        b, e, mlen, tr);
-    int64_t* slot = buf + (r * H + n) * 4;
-    slot[0] = posc;
-    slot[1] = mlen;
-    slot[2] = b;
-    slot[3] = e;
-    n += 1;
-    const int64_t adv = mlen - k + 1;
-    pos = next_anchor_pos(posc + (adv > 1 ? adv : 1));
+  AnchorMask<kCount> mask;
+  mask.init((is_rc ? anch_r : anch_f) + rr * S, S, is_rc ? kAnchR : kAnchF);
+  // Each warp zeroes, stages and writes out its own lanes' part of buf, so
+  // its stores go out when its lanes are done, not when the block's are; the
+  // zeroing runs while the loads above are in flight.
+  const int lane = threadIdx.x & 31;
+  const int wbase = threadIdx.x - lane;
+  const int wthreads = blockDim.x - wbase < 32 ? blockDim.x - wbase : 32;  // < 32: partial warp
+  const unsigned wmask = wthreads == 32 ? 0xFFFFFFFFu : (1u << wthreads) - 1u;
+  const int64_t wlanes = R - (r0 + wbase) < wthreads ? R - (r0 + wbase) : wthreads;
+  const int64_t units = wlanes * H * 2;  // 16-byte units of the warp's part
+  longlong2* wstage = reinterpret_cast<longlong2*>(stage + static_cast<int64_t>(wbase) * H * 4);
+  if (staged) {  // uniform over the block
+    for (int64_t i = lane; i < units; i += wthreads) wstage[i] = make_longlong2(0, 0);
+    __syncwarp(wmask);
   }
-  n_out[r] = n;
-  trunc_out[r] = trunc ? 1 : 0;
+
+  if (live) {
+    const int64_t* words = preads + r * L;
+    const int64_t* nbad = next_bad + r * L;
+    const int64_t* db = (is_rc ? br : bf) + rr * S;
+    const int64_t* de = (is_rc ? er : ef) + rr * S;
+    const Region gb = is_rc ? kBr : kBf;
+    const Region ge = is_rc ? kEr : kEf;
+
+    // Smallest lane-local anchor position >= nxt, else S. Forward lanes take
+    // the next anchor; rc lanes the previous one in mirrored columns.
+    auto next_anchor_pos = [&](int64_t nxt) -> int64_t {
+      if (!is_rc) return nxt < S ? mask.next(static_cast<int>(nxt < 0 ? 0 : nxt), tr) : S;
+      const int64_t col = len - k - nxt;
+      if (col < 0) return S;
+      const int v = mask.prev(static_cast<int>(col < S - 1 ? col : S - 1), tr);
+      return v >= 0 ? len - k - v : S;
+    };
+
+    int64_t* out = staged ? stage + static_cast<int64_t>(threadIdx.x) * H * 4 : buf + r * H * 4;
+    int64_t pos = next_anchor_pos(0);
+    int n = 0;
+    bool trunc = false;
+    while (pos < S) {
+      if (n >= H) {  // the hit buffer is full: record nothing more
+        trunc = true;
+        break;
+      }
+      const int64_t posc = clamp64(pos, 0, S - 1);
+      const int64_t col = clamp64(is_rc ? len - k - posc : posc, 0, S - 1);
+      int64_t b, e, mlen;
+      extend_lane<kCount>(ix, words, nbad, len, col_off, load<kCount>(tr, gb, db + col),
+                          load<kCount>(tr, ge, de + col), posc, true, k, steps, L, W, b, e,
+                          mlen, tr);
+      put_slot(out + 4 * n, posc, mlen, b, e);
+      n += 1;
+      const int64_t adv = mlen - k + 1;
+      pos = next_anchor_pos(posc + (adv > 1 ? adv : 1));
+    }
+    if (!staged)  // empty slots read 0
+      for (int s = n; s < H; ++s) put_slot(out + 4 * s, 0, 0, 0, 0);
+    n_out[r] = n;
+    trunc_out[r] = trunc ? 1 : 0;
+  }
+
+  if (staged) {
+    __syncwarp(wmask);
+    longlong2* dst = reinterpret_cast<longlong2*>(buf + (r0 + wbase) * H * 4);
+    for (int64_t i = lane; i < units; i += wthreads) dst[i] = wstage[i];
+  }
 }
 
 __global__ void extend_packed_kernel(
@@ -287,50 +533,82 @@ __global__ void extend_packed_kernel(
   const Traffic tr{};
   int64_t b, e, mlen;
   extend_lane<false>(ix, preads + r * L, next_bad + r * L, lens[r], col_off[r], b0[r], e0[r],
-              pos[r], active[r] != 0, k, steps, L, W, b, e, mlen, tr);
+                     pos[r], active[r] != 0, k, steps, L, W, b, e, mlen, tr);
   b_out[r] = b;
   e_out[r] = e;
   mlen_out[r] = mlen;
 }
 
-unsigned lane_blocks(int64_t R) {
-  return static_cast<unsigned>((R + kLaneThreads - 1) / kLaneThreads);
+// What the compare takes: sa_cmp rows of whole 8-byte pairs on 8-byte
+// boundaries, with at most kRegWords fused words.
+bool index_ok(const void* sa_cmp, int64_t n_sa, int F, int64_t nw) {
+  return n_sa > 0 && nw > 0 && F >= 0 && F <= kRegWords && (3 + F) % 2 == 0 &&
+         reinterpret_cast<uintptr_t>(sa_cmp) % 8 == 0;
+}
+
+Index make_index(const void* sa_cmp, int64_t n_sa, int F, const void* text2q, int64_t nw) {
+  return Index{static_cast<const int32_t*>(sa_cmp), n_sa, F,
+               static_cast<const int32_t*>(text2q), nw};
 }
 
 template <bool kCount>
 int launch_walk(const void* preads, const void* next_bad, const void* lens2,
-                const void* col_off2, const void* db2, const void* de2, const void* anc2,
-                const void* sa_cmp, int64_t n_sa, int F, const void* text2q, int64_t nw,
-                int64_t R, int64_t B, int L, int S, int k, int H, int steps, int W, void* buf,
-                void* n_out, void* trunc_out, const Traffic& tr, void* stream) {
-  if (R <= 0 || n_sa <= 0 || nw <= 0 || L <= 0 || S <= 0 || H <= 0 || F < 0 || W < 1)
+                const void* col_off2, const void* bf, const void* ef, const void* br,
+                const void* er, const void* anch_f, const void* anch_r, const void* sa_cmp,
+                int64_t n_sa, int F, const void* text2q, int64_t nw, int64_t R, int64_t B,
+                int L, int S, int k, int H, int steps, int W, void* buf, void* n_out,
+                void* trunc_out, const Traffic& tr, void* stream) {
+  if (R <= 0 || B <= 0 || R > 2 * B || !index_ok(sa_cmp, n_sa, F, nw) || L <= 0 || S <= 0 ||
+      H <= 0 || W < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Index ix{static_cast<const int32_t*>(sa_cmp), n_sa, F,
-                 static_cast<const int32_t*>(text2q), nw};
-  anchor_walk_kernel<kCount>
-      <<<lane_blocks(R), kLaneThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const int64_t*>(preads), static_cast<const int64_t*>(next_bad),
-          static_cast<const int64_t*>(lens2), static_cast<const int64_t*>(col_off2),
-          static_cast<const int64_t*>(db2), static_cast<const int64_t*>(de2),
-          static_cast<const int64_t*>(anc2), ix, R, B, L, S, k, H, steps, W,
-          static_cast<int64_t*>(buf), static_cast<int64_t*>(n_out),
-          static_cast<uint8_t*>(trunc_out), tr);
+  int dev = 0;
+  int cap = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&cap, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // as many lanes a block (up to kMaxLanes) as the shared memory stages
+  const int64_t lane_bytes = 32 * static_cast<int64_t>(H);
+  const bool staged = lane_bytes <= cap;
+  const int lanes = staged ? static_cast<int>(kMaxLanes < cap / lane_bytes ? kMaxLanes
+                                                                          : cap / lane_bytes)
+                           : kMaxLanes;
+  const size_t smem = staged ? static_cast<size_t>(lanes * lane_bytes) : 0;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(anchor_walk_kernel<kCount>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const unsigned blocks = static_cast<unsigned>((R + lanes - 1) / lanes);
+  anchor_walk_kernel<kCount><<<blocks, lanes, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(preads), static_cast<const int64_t*>(next_bad),
+      static_cast<const int64_t*>(lens2), static_cast<const int64_t*>(col_off2),
+      static_cast<const int64_t*>(bf), static_cast<const int64_t*>(ef),
+      static_cast<const int64_t*>(br), static_cast<const int64_t*>(er),
+      static_cast<const uint8_t*>(anch_f), static_cast<const uint8_t*>(anch_r),
+      make_index(sa_cmp, n_sa, F, text2q, nw), R, B, L, S, k, H, steps, W, staged,
+      static_cast<int64_t*>(buf), static_cast<int64_t*>(n_out),
+      static_cast<uint8_t*>(trunc_out), tr);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // The anchor walk over R = 2B lanes (rows [0, B) forward, [B, 2B) rc).
-// buf (R, H, 4) int64 [pos, mlen, b, e] must come in zeroed: unwritten slots
-// read 0. n_out (R,) int64, trunc_out (R,) bytes.
+// bf, ef, br, er (B, S) int64 and anch_f, anch_r (B, S) bool: the dense
+// phase's intervals and anchor masks of both strands, in forward columns.
+// Writes every byte of buf (R, H, 4) int64 [pos, mlen, b, e] (unused slots
+// 0), n_out (R,) int64 and trunc_out (R,) bytes: none needs a fill.
 extern "C" int tqm_anchor_walk(
     const void* preads, const void* next_bad, const void* lens2, const void* col_off2,
-    const void* db2, const void* de2, const void* anc2, const void* sa_cmp, int64_t n_sa,
-    int F, const void* text2q, int64_t nw, int64_t R, int64_t B, int L, int S, int k, int H,
-    int steps, int W, void* buf, void* n_out, void* trunc_out, void* stream) {
-  return launch_walk<false>(preads, next_bad, lens2, col_off2, db2, de2, anc2, sa_cmp, n_sa, F,
-                            text2q, nw, R, B, L, S, k, H, steps, W, buf, n_out, trunc_out,
-                            Traffic{}, stream);
+    const void* bf, const void* ef, const void* br, const void* er, const void* anch_f,
+    const void* anch_r, const void* sa_cmp, int64_t n_sa, int F, const void* text2q, int64_t nw,
+    int64_t R, int64_t B, int L, int S, int k, int H, int steps, int W, void* buf, void* n_out,
+    void* trunc_out, void* stream) {
+  return launch_walk<false>(preads, next_bad, lens2, col_off2, bf, ef, br, er, anch_f, anch_r,
+                            sa_cmp, n_sa, F, text2q, nw, R, B, L, S, k, H, steps, W, buf, n_out,
+                            trunc_out, Traffic{}, stream);
 }
 
 // The same walk, counting what it reads: for measuring the byte bound of a
@@ -342,21 +620,21 @@ extern "C" int tqm_anchor_walk(
 // receives the number of sa_cmp rows compared.
 extern "C" int tqm_anchor_walk_traffic(
     const void* preads, const void* next_bad, const void* lens2, const void* col_off2,
-    const void* db2, const void* de2, const void* anc2, const void* sa_cmp, int64_t n_sa,
-    int F, const void* text2q, int64_t nw, int64_t R, int64_t B, int L, int S, int k, int H,
-    int steps, int W, void* buf, void* n_out, void* trunc_out, void* bits,
-    const int64_t* word_off, void* rows, void* stream) {
-  const void* tensors[kRegions] = {preads, next_bad, lens2, col_off2, db2,
-                                   de2,    anc2,     sa_cmp, text2q};
+    const void* bf, const void* ef, const void* br, const void* er, const void* anch_f,
+    const void* anch_r, const void* sa_cmp, int64_t n_sa, int F, const void* text2q, int64_t nw,
+    int64_t R, int64_t B, int L, int S, int k, int H, int steps, int W, void* buf, void* n_out,
+    void* trunc_out, void* bits, const int64_t* word_off, void* rows, void* stream) {
+  const void* tensors[kRegions] = {preads, next_bad, lens2,  col_off2, bf,     ef,
+                                   br,     er,       anch_f, anch_r,   sa_cmp, text2q};
   Traffic tr;
   for (int g = 0; g < kRegions; ++g) {
     tr.base[g] = reinterpret_cast<uintptr_t>(tensors[g]) >> 5;
     tr.bits[g] = static_cast<uint32_t*>(bits) + word_off[g];
   }
   tr.rows = static_cast<unsigned long long*>(rows);
-  return launch_walk<true>(preads, next_bad, lens2, col_off2, db2, de2, anc2, sa_cmp, n_sa, F,
-                           text2q, nw, R, B, L, S, k, H, steps, W, buf, n_out, trunc_out, tr,
-                           stream);
+  return launch_walk<true>(preads, next_bad, lens2, col_off2, bf, ef, br, er, anch_f, anch_r,
+                           sa_cmp, n_sa, F, text2q, nw, R, B, L, S, k, H, steps, W, buf, n_out,
+                           trunc_out, tr, stream);
 }
 
 // The extension alone, once per lane on given (b0, e0, pos, active): the
@@ -368,16 +646,15 @@ extern "C" int tqm_extend_packed(
     const void* sa_cmp, int64_t n_sa, int F, const void* text2q, int64_t nw, int64_t R,
     int L, int k, int steps, int W, void* b_out, void* e_out, void* mlen_out,
     void* stream) {
-  if (R <= 0 || n_sa <= 0 || nw <= 0 || L <= 0 || F < 0 || W < 1)
+  if (R <= 0 || !index_ok(sa_cmp, n_sa, F, nw) || L <= 0 || W < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Index ix{static_cast<const int32_t*>(sa_cmp), n_sa, F,
-                 static_cast<const int32_t*>(text2q), nw};
-  extend_packed_kernel<<<lane_blocks(R), kLaneThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  extend_packed_kernel<<<static_cast<unsigned>((R + kMaxLanes - 1) / kMaxLanes), kMaxLanes, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(preads), static_cast<const int64_t*>(next_bad),
       static_cast<const int64_t*>(lens), static_cast<const int64_t*>(col_off),
       static_cast<const int64_t*>(b0), static_cast<const int64_t*>(e0),
-      static_cast<const int64_t*>(pos), static_cast<const uint8_t*>(active), ix, R, L, k,
-      steps, W, static_cast<int64_t*>(b_out), static_cast<int64_t*>(e_out),
-      static_cast<int64_t*>(mlen_out));
+      static_cast<const int64_t*>(pos), static_cast<const uint8_t*>(active),
+      make_index(sa_cmp, n_sa, F, text2q, nw), R, L, k, steps, W, static_cast<int64_t*>(b_out),
+      static_cast<int64_t*>(e_out), static_cast<int64_t*>(mlen_out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,18 +4,21 @@ Port of rapmap_tpu.ops.mmp's canonical-CHD strand-paired scan, two phases:
 
   1. *Dense lookup*: one canonical CHD probe per forward window answers both
      strands of every (read, strand) lane at once — no loop.
-  2. *Anchor walk*: the NIP-skipping scan, in lockstep across lanes; each
-     trip lands directly on the next anchor (precomputed next-anchor table).
+  2. *Anchor walk*: the NIP-skipping scan; each trip lands directly on the
+     next anchor of the lane's anchor mask.
 
 On CUDA tensors the walk is one launch of the hand-written kernel of
 csrc/walk.cu (`anchor_walk`): one thread per lane, each looping to its own
-convergence, with the packed extension inside it. On CPU tensors it is
-`anchor_walk_plain`, which runs max_hits_per_strand + 1 trips with finished
-lanes masked: every trip of an active lane either records a hit or sets
-`truncated`, so that many trips finish every lane, and per-lane results are
-identical to the reference's loop-until-done. The reference's dead-lane
-compaction and narrow tail only change the lockstep width (its docstring
-says the output is bit-identical) and are not carried over.
+convergence, with the packed extension inside it; it finds a lane's next
+anchor by a bit scan of its mask row and writes every output byte itself. On
+CPU tensors it is `anchor_walk_plain`, which builds the reference's
+next-/prev-anchor tables from the masks and runs max_hits_per_strand + 1
+trips with finished lanes masked: every trip of an active lane either
+records a hit or sets `truncated`, so that many trips finish every lane, and
+per-lane results are identical to the reference's loop-until-done. The
+reference's dead-lane compaction and narrow tail only change the lockstep
+width (its docstring says the output is bit-identical) and are not carried
+over.
 """
 
 from __future__ import annotations
@@ -34,6 +37,8 @@ from rapmap_tpu_torch.ops.extend_packed import ext_words, extend_packed, pack_re
 from rapmap_tpu_torch.ops.gather import row_gather
 from rapmap_tpu_torch.ops.lookup import kmer_lookup_2str
 
+WALK_FUSED_WORDS_MAX = 8  # csrc/walk.cu kRegWords: fused sa_cmp words it holds in registers
+
 
 class ScanHits(NamedTuple):
     q: torch.Tensor      # (R, H) query positions
@@ -45,16 +50,21 @@ class ScanHits(NamedTuple):
 
 
 class WalkInputs(NamedTuple):
-    """What the dense phase hands the anchor walk: (R = 2B)-lane tensors,
-    rows [0, B) forward lanes, [B, 2B) rc lanes, all int64."""
+    """What the dense phase hands the anchor walk. Lane tensors have R = 2B
+    rows, [0, B) forward lanes and [B, 2B) rc lanes; the per-window tensors
+    have B rows in forward columns, `*f` for forward lanes, `*r`/`*rF` for rc
+    lanes (rc lane r reads row r - B). All int64 but the bool masks."""
 
     preads: torch.Tensor    # (R, L) packed read words
     next_bad: torch.Tensor  # (R, L)
     lens2: torch.Tensor     # (R,)
     col_off2: torch.Tensor  # (R,) 0 for fwd lanes, L - len for rc lanes
-    db2: torch.Tensor       # (R, S) dense interval begins, lane-aligned
-    de2: torch.Tensor       # (R, S) dense interval ends
-    anc2: torch.Tensor      # (R, S) next-anchor (fwd) / prev-anchor (rc) rows
+    bf: torch.Tensor        # (B, S) forward k-mer interval begins
+    ef: torch.Tensor        # (B, S) forward k-mer interval ends
+    br: torch.Tensor        # (B, S) rc k-mer interval begins
+    er: torch.Tensor        # (B, S) rc k-mer interval ends
+    anch_f: torch.Tensor    # (B, S) bool: forward anchors
+    anch_rF: torch.Tensor   # (B, S) bool: rc anchors
 
 
 def walk_params(st: EngineStatic, cfg: MapConfig) -> dict:
@@ -77,8 +87,8 @@ def dense_phase(
     """ONE canonical probe per forward window answers both strands: the rc
     lane's window at position s' is the reverse complement of the fwd window
     at lens-k-s'. The rc lane's anchor walk runs in its own coordinates;
-    dense-array accesses map through col = lens - k - pos, and its
-    next-anchor table is a prev-anchor scan in fwd coordinates."""
+    dense-array accesses map through col = lens - k - pos, and its next
+    anchor is the previous rc anchor in fwd coordinates."""
     B, L = reads.shape
     k = st.k
     S = L - k + 1
@@ -101,17 +111,9 @@ def dense_phase(
     ok = kvalid & ((s_ix + k) <= lens[:, None])
     anch_f = ff & ok & ((ef - bf) <= cfg.max_interval)
     anch_rF = fr & ok & ((er - br) <= cfg.max_interval)  # rc anchors, fwd coords
-
-    nf = torch.where(anch_f, s_ix, S)  # next anchor >= s (fwd lanes)
-    next_f = torch.flip(torch.cummin(torch.flip(nf, dims=[1]), dim=1).values, dims=[1])
-    pv = torch.where(anch_rF, s_ix, -1)  # prev anchor <= s (rc lanes)
-    prev_rF = torch.cummax(pv, dim=1).values
-
-    # lane-aligned stacks: row r < B = fwd arrays, row r >= B = rc arrays
     return WalkInputs(
         preads=preads, next_bad=next_bad, lens2=lens2, col_off2=col_off2,
-        db2=torch.cat([bf, br], dim=0), de2=torch.cat([ef, er], dim=0),
-        anc2=torch.cat([next_f, prev_rF], dim=0),
+        bf=bf, ef=ef, br=br, er=er, anch_f=anch_f, anch_rF=anch_rF,
     )
 
 
@@ -129,19 +131,34 @@ def scan_batch_paired(
     return anchor_walk(didx, *w, **walk_params(st, cfg))
 
 
+def anchor_tables(bf, ef, br, er, anch_f, anch_rF):
+    """The reference's lane-aligned walk tables, (2B, S) int64 each: interval
+    begins, ends, and the next-anchor (fwd rows) / prev-anchor (rc rows, fwd
+    coordinates) scans of the masks, S and -1 where there is none."""
+    S = bf.shape[1]
+    s_ix = torch.arange(S, dtype=torch.int64, device=bf.device)[None, :]
+    nf = torch.where(anch_f, s_ix, S)  # next anchor >= s (fwd lanes)
+    next_f = torch.flip(torch.cummin(torch.flip(nf, dims=[1]), dim=1).values, dims=[1])
+    pv = torch.where(anch_rF, s_ix, -1)  # prev anchor <= s (rc lanes)
+    prev_rF = torch.cummax(pv, dim=1).values
+    # lane-aligned stacks: row r < B = fwd arrays, row r >= B = rc arrays
+    return (torch.cat([bf, br], dim=0), torch.cat([ef, er], dim=0),
+            torch.cat([next_f, prev_rF], dim=0))
+
+
 def anchor_walk_plain(
     didx: DeviceQuasiIndex,
     preads: torch.Tensor,    # (R, L) packed read words of the [fwd; rc] lanes
     next_bad: torch.Tensor,  # (R, L)
     lens2: torch.Tensor,     # (R,)
     col_off2: torch.Tensor,  # (R,) 0 for fwd lanes, L - len for rc lanes
-    db2: torch.Tensor,       # (R, S) dense interval begins, lane-aligned
-    de2: torch.Tensor,       # (R, S) dense interval ends
-    anc2: torch.Tensor,      # (R, S) next-anchor (fwd) / prev-anchor (rc) rows
+    bf, ef, br, er, anch_f, anch_rF,  # (B, S) each, as in WalkInputs
     *, k: int, H: int, ext_steps: int,
 ) -> ScanHits:
     """The anchor walk in PyTorch, all R = 2B lanes in lockstep (rows [0, B)
-    forward, [B, 2B) rc): H + 1 trips with finished lanes masked."""
+    forward, [B, 2B) rc): the anchor tables, then H + 1 trips with finished
+    lanes masked."""
+    db2, de2, anc2 = anchor_tables(bf, ef, br, er, anch_f, anch_rF)
     R, L = preads.shape
     S = db2.shape[1]
     B = R // 2
@@ -186,73 +203,78 @@ def anchor_walk_plain(
     )
 
 
-def _check_walk_inputs(didx, preads, next_bad, lens2, col_off2, db2, de2, anc2):
+def _check_walk_inputs(didx, preads, next_bad, lens2, col_off2, bf, ef, br, er, anch_f,
+                       anch_rF):
     """Raise on what csrc/walk.cu does not take: anything but contiguous
-    int64 lane tensors and int32 index tables of the expected shapes, all on
-    one CUDA device."""
+    int64 lane and interval tensors, bool masks and int32 index tables of the
+    expected shapes, all on one CUDA device; sa_cmp rows must be whole 8-byte
+    pairs on 8-byte boundaries with at most WALK_FUSED_WORDS_MAX fused words
+    (the index builds 3 + 3)."""
     dev = preads.device
     lanes = dict(preads=preads, next_bad=next_bad, lens2=lens2, col_off2=col_off2,
-                 db2=db2, de2=de2, anc2=anc2)
+                 bf=bf, ef=ef, br=br, er=er)
+    masks = dict(anch_f=anch_f, anch_rF=anch_rF)
     tables = dict(sa_cmp=didx.sa_cmp, text2q=didx.text2q)
-    for name, t in {**lanes, **tables}.items():
+    for name, t in {**lanes, **masks, **tables}.items():
         if t.device != dev:
             raise ValueError(f"anchor_walk: {name} lies on {t.device}, preads on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"anchor_walk: {name} must be contiguous")
-    for name, t in lanes.items():
-        if t.dtype != torch.int64:
-            raise TypeError(f"anchor_walk: {name} must be int64, got {t.dtype}")
-    for name, t in tables.items():
-        if t.dtype != torch.int32:
-            raise TypeError(f"anchor_walk: {name} must be int32, got {t.dtype}")
-    if preads.dim() != 2 or preads.shape[0] % 2:
-        raise ValueError("anchor_walk: preads must be (2B, L)")
+    for group, dtype in ((lanes, torch.int64), (masks, torch.bool), (tables, torch.int32)):
+        for name, t in group.items():
+            if t.dtype != dtype:
+                raise TypeError(f"anchor_walk: {name} must be {dtype}, got {t.dtype}")
+    if preads.dim() != 2 or preads.shape[0] % 2 or preads.shape[0] == 0:
+        raise ValueError("anchor_walk: preads must be (2B, L) with B >= 1")
     R, L = preads.shape
     if next_bad.shape != (R, L):
         raise ValueError("anchor_walk: next_bad must have the shape of preads")
     if lens2.shape != (R,) or col_off2.shape != (R,):
         raise ValueError("anchor_walk: lens2 and col_off2 must be (2B,)")
-    if db2.dim() != 2 or db2.shape[0] != R or de2.shape != db2.shape or anc2.shape != db2.shape:
-        raise ValueError("anchor_walk: db2, de2 and anc2 must share one (2B, S) shape")
-    if didx.sa_cmp.dim() != 2 or didx.sa_cmp.shape[1] < 3:
-        raise ValueError("anchor_walk: sa_cmp must be (n, 3 + words)")
+    if bf.dim() != 2 or bf.shape[0] != R // 2 or any(
+        t.shape != bf.shape for t in (ef, br, er, anch_f, anch_rF)
+    ):
+        raise ValueError("anchor_walk: bf, ef, br, er, anch_f and anch_rF must share one "
+                         "(B, S) shape")
+    if (didx.sa_cmp.dim() != 2 or didx.sa_cmp.shape[1] % 2
+            or not 3 < didx.sa_cmp.shape[1] <= 3 + WALK_FUSED_WORDS_MAX):
+        raise ValueError("anchor_walk: sa_cmp must be (n, 3 + F) with F odd and "
+                         f"F <= {WALK_FUSED_WORDS_MAX}")
     if didx.text2q.dim() != 2 or didx.text2q.shape[1] != 4:
         raise ValueError("anchor_walk: text2q must be (nw, 4)")
     if dev.type != "cuda":
         raise ValueError(f"anchor_walk: no kernel for device {dev}")
+    if didx.sa_cmp.data_ptr() % 8:
+        raise ValueError("anchor_walk: sa_cmp must start on an 8-byte boundary")
 
 
 def anchor_walk(
-    didx: DeviceQuasiIndex, preads, next_bad, lens2, col_off2, db2, de2, anc2,
-    *, k: int, H: int, ext_steps: int,
+    didx: DeviceQuasiIndex, preads, next_bad, lens2, col_off2, bf, ef, br, er, anch_f,
+    anch_rF, *, k: int, H: int, ext_steps: int,
 ) -> ScanHits:
     """The anchor walk over the [fwd; rc] lanes after the dense phase: the
     CUDA kernel of csrc/walk.cu for CUDA tensors (one launch, one thread per
-    lane), `anchor_walk_plain` for CPU tensors."""
-    every = (preads, next_bad, lens2, col_off2, db2, de2, anc2, didx.sa_cmp, didx.text2q)
-    if all(t.device.type == "cpu" for t in every):
-        return anchor_walk_plain(
-            didx, preads, next_bad, lens2, col_off2, db2, de2, anc2,
-            k=k, H=H, ext_steps=ext_steps,
-        )
-    _check_walk_inputs(didx, preads, next_bad, lens2, col_off2, db2, de2, anc2)
+    lane, every output byte written by the kernel: no fill), `anchor_walk_plain`
+    for CPU tensors."""
+    w = (preads, next_bad, lens2, col_off2, bf, ef, br, er, anch_f, anch_rF)
+    if all(t.device.type == "cpu" for t in (*w, didx.sa_cmp, didx.text2q)):
+        return anchor_walk_plain(didx, *w, k=k, H=H, ext_steps=ext_steps)
+    _check_walk_inputs(didx, *w)
     R, L = preads.shape
-    S = db2.shape[1]
+    S = bf.shape[1]
     if S != L - k + 1 or H < 1:
         raise ValueError("anchor_walk: need S == L - k + 1 and H >= 1")
     dev = preads.device
-    # unwritten hit slots must read 0, as in the plain version
-    buf = torch.zeros((R, H, 4), dtype=torch.int64, device=dev)
+    buf = torch.empty((R, H, 4), dtype=torch.int64, device=dev)
     n = torch.empty((R,), dtype=torch.int64, device=dev)
     trunc = torch.empty((R,), dtype=torch.bool, device=dev)
     fn = kernels.library("walk").tqm_anchor_walk
     fn.restype = ctypes.c_int
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    fn.argtypes = [vp] * 8 + [i64, i32, vp, i64, i64, i64] + [i32] * 6 + [vp] * 4
+    fn.argtypes = [vp] * 11 + [i64, i32, vp, i64, i64, i64] + [i32] * 6 + [vp] * 4
     with torch.cuda.device(dev):
         rc = fn(
-            preads.data_ptr(), next_bad.data_ptr(), lens2.data_ptr(), col_off2.data_ptr(),
-            db2.data_ptr(), de2.data_ptr(), anc2.data_ptr(),
+            *(t.data_ptr() for t in w),
             didx.sa_cmp.data_ptr(), didx.sa_cmp.shape[0], didx.sa_cmp.shape[1] - 3,
             didx.text2q.data_ptr(), didx.text2q.shape[0],
             R, R // 2, L, S, k, H, ext_steps, ext_words(L, k),

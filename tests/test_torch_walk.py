@@ -1,6 +1,7 @@
 """The anchor walk of rapmap_tpu_torch (ops.mmp.anchor_walk and its plain
 version) against rapmap_tpu's strand-paired scan, against a scalar per-lane
-model of the control flow of csrc/walk.cu, and the wrapper's refusals. Every
+model of the control flow of csrc/walk.cu (anchors found by a bit scan of the
+lane's mask row, as the kernel finds them), and the wrapper's refusals. Every
 value is an integer, so every comparison is exact equality."""
 
 import jax
@@ -18,7 +19,7 @@ from rapmap_tpu_torch.index.format import index_from_reference
 from rapmap_tpu_torch.ops.device_index import upload_index
 from rapmap_tpu_torch.ops.extend_packed import ext_words, extend_packed
 from rapmap_tpu_torch.ops.mmp import (
-    ScanHits, anchor_walk, anchor_walk_plain, dense_phase, walk_params,
+    ScanHits, anchor_tables, anchor_walk, anchor_walk_plain, dense_phase, walk_params,
 )
 from tests.test_device_parity import batch_of
 from tests.util import BASES, sample_reads, toy_index
@@ -89,6 +90,65 @@ def clamp(v, lo, hi):
 
 def clz32(x):
     return 32 - x.bit_length()
+
+
+class MaskModel:
+    """A lane's anchor-mask row as the kernel holds it: 32-bit words, bit c
+    of word w being column 32 w + c; scans by find-first / find-last set."""
+
+    def __init__(self, row):
+        self.S = len(row)
+        cols = np.flatnonzero(row)
+        self.words = [0] * (-(-self.S // 32))
+        for c in cols.tolist():
+            self.words[c >> 5] |= 1 << (c & 31)
+
+    def next(self, c):
+        """Smallest anchor column >= c (0 <= c < S), else S."""
+        w = c >> 5
+        while 32 * w < self.S:
+            x = self.words[w]
+            if w == c >> 5:
+                x &= (M32 << (c & 31)) & M32
+            if x:
+                return 32 * w + (x & -x).bit_length() - 1  # find-first-set
+            w += 1
+        return self.S
+
+    def prev(self, c):
+        """Largest anchor column <= c (0 <= c < S), else -1."""
+        w = c >> 5
+        while w >= 0:
+            x = self.words[w]
+            if w == c >> 5:
+                x &= M32 >> (31 - (c & 31))
+            if x:
+                return 32 * w + 31 - clz32(x)  # find-last-set
+            w -= 1
+        return -1
+
+
+def next_anchor_pos(mask, is_rc, ln, k, nxt):
+    """csrc/walk.cu's next anchor of a lane from position nxt: forward lanes
+    the next anchor, rc lanes the previous one in mirrored columns."""
+    S = mask.S
+    if not is_rc:
+        return mask.next(max(nxt, 0)) if nxt < S else S
+    col = ln - k - nxt
+    if col < 0:
+        return S
+    v = mask.prev(min(col, S - 1))
+    return ln - k - v if v >= 0 else S
+
+
+def next_anchor_pos_tables(anc_row, is_rc, ln, k, nxt):
+    """The same from the plain version's next-/prev-anchor table row."""
+    S = len(anc_row)
+    col = ln - k - nxt if is_rc else nxt
+    v = int(anc_row[clamp(col, 0, S - 1)])
+    if not is_rc:
+        return v if nxt < S else S
+    return ln - k - v if (col >= 0 and v >= 0) else S
 
 
 class LaneModel:
@@ -173,25 +233,19 @@ class LaneModel:
 
     def walk(self, w, H):
         R, L = w.preads.shape
-        S = w.db2.shape[1]
+        S = w.bf.shape[1]
         B, k = R // 2, self.k
-        pre, nbad, anc = w.preads.numpy(), w.next_bad.numpy(), w.anc2.numpy()
-        db, de = w.db2.numpy(), w.de2.numpy()
+        pre, nbad = w.preads.numpy(), w.next_bad.numpy()
         buf = np.zeros((R, H, 4), np.int64)
         n_out = np.zeros(R, np.int64)
         trunc = np.zeros(R, bool)
         for r in range(R):
             is_rc = r >= B
+            rr = r - B if is_rc else r  # the strand's row of the (B, S) tensors
+            db, de, anch = ((w.br, w.er, w.anch_rF) if is_rc else (w.bf, w.ef, w.anch_f))
+            mask = MaskModel(anch[rr].numpy())
             ln, col_off = int(w.lens2[r]), int(w.col_off2[r])
-
-            def next_anchor_pos(nxt):
-                col = ln - k - nxt if is_rc else nxt
-                v = int(anc[r, clamp(col, 0, S - 1)])
-                if not is_rc:
-                    return v if nxt < S else S
-                return ln - k - v if (col >= 0 and v >= 0) else S
-
-            pos = next_anchor_pos(0)
+            pos = next_anchor_pos(mask, is_rc, ln, k, 0)
             n = 0
             while pos < S:
                 if n >= H:
@@ -199,11 +253,11 @@ class LaneModel:
                     break
                 posc = clamp(pos, 0, S - 1)
                 col = clamp(ln - k - posc if is_rc else posc, 0, S - 1)
-                b, e, mlen = self.extend(pre[r], nbad[r], ln, col_off, int(db[r, col]),
-                                         int(de[r, col]), posc, True)
+                b, e, mlen = self.extend(pre[r], nbad[r], ln, col_off, int(db[rr, col]),
+                                         int(de[rr, col]), posc, True)
                 buf[r, n] = (posc, mlen, b, e)
                 n += 1
-                pos = next_anchor_pos(posc + max(mlen - k + 1, 1))
+                pos = next_anchor_pos(mask, is_rc, ln, k, posc + max(mlen - k + 1, 1))
             n_out[r] = n
         return ScanHits(buf[..., 0], buf[..., 1], buf[..., 2], buf[..., 3], n_out, trunc)
 
@@ -226,6 +280,36 @@ def test_lane_model_matches_walk_plain(world, H):
         assert got.truncated.any()
     else:  # some compare ran past the fused words into text2q
         assert (got.l > params["k"] + 48).any()
+
+
+@pytest.mark.parametrize("S", [1, 31, 32, 33, 66, 120, 129, 200])
+def test_mask_scan_matches_anchor_tables(S):
+    """The kernel's anchor search (bit words of the mask row, find-first /
+    find-last set) gives the plain version's next-/prev-anchor tables on
+    random masks: empty and all-true rows, densities between, S not a
+    multiple of 32 and past the 128 columns the kernel keeps in registers,
+    lanes of length 0, below k, k and beyond, from every start column."""
+    k = 11
+    rng = np.random.default_rng(S)
+    B = 12
+    dens = np.array([0.0, 1.0, 0.03, 0.3, 0.7, 0.0, 1.0, 0.1, 0.5, 0.9, 0.02, 0.4])
+    anch = rng.random((2, B, S)) < dens[None, :, None]
+    L = S + k - 1
+    lens = np.array([0, k - 3, k, L, L - 1, 0, k - 1, L, k + S // 2, L, k + 1, L])
+    z = torch.zeros((B, S), dtype=torch.int64)
+    _, _, anc2 = anchor_tables(z, z, z, z, t_(anch[0]), t_(anch[1]))
+    anc2 = anc2.numpy()
+    checked = 0
+    for r in range(2 * B):
+        is_rc, rr = r >= B, r % B
+        mask = MaskModel(anch[int(is_rc), rr])
+        ln = int(lens[rr])
+        for nxt in range(-1, S + 2):
+            want = next_anchor_pos_tables(anc2[r], is_rc, ln, k, nxt)
+            got = next_anchor_pos(mask, is_rc, ln, k, nxt)
+            assert got == want, (r, nxt)
+            checked += want < S
+    assert checked > 0
 
 
 @pytest.mark.parametrize("steps", [24, 3])
@@ -265,9 +349,11 @@ def _meta_inputs(world):
 
 
 @pytest.mark.parametrize("case, err", [
-    ("dtype_lane", TypeError), ("dtype_table", TypeError), ("shape_rows", ValueError),
-    ("shape_dense", ValueError), ("non_contiguous", ValueError),
-    ("mixed_devices", ValueError), ("no_kernel_for_device", ValueError),
+    ("dtype_lane", TypeError), ("dtype_table", TypeError), ("dtype_mask", TypeError),
+    ("shape_rows", ValueError), ("shape_dense", ValueError), ("shape_mask", ValueError),
+    ("shape_table_odd_row", ValueError), ("shape_table_wide_row", ValueError),
+    ("non_contiguous", ValueError), ("mixed_devices", ValueError),
+    ("no_kernel_for_device", ValueError),
 ])
 def test_walk_wrapper_refuses(world, case, err):
     """Off the CPU the wrapper never takes the plain version: it checks
@@ -281,14 +367,23 @@ def test_walk_wrapper_refuses(world, case, err):
         didx = didx._replace(sa_cmp=didx.sa_cmp.to(torch.int64))
     elif case == "shape_rows":
         w = w._replace(lens2=w.lens2[:-1])
+    elif case == "dtype_mask":
+        w = w._replace(anch_f=w.anch_f.to(torch.uint8))
     elif case == "shape_dense":
-        w = w._replace(anc2=w.anc2[:, :-1].contiguous())
+        w = w._replace(bf=w.bf[:, :-1].contiguous())
+    elif case == "shape_mask":
+        w = w._replace(anch_rF=w.anch_rF[:-1])
+    elif case == "shape_table_odd_row":  # 4-byte rows: the kernel loads 8-byte pairs
+        didx = didx._replace(sa_cmp=didx.sa_cmp[:, :-1].contiguous())
+    elif case == "shape_table_wide_row":  # more fused words than the kernel's registers
+        n = didx.sa_cmp.shape[0]
+        didx = didx._replace(sa_cmp=torch.empty((n, 14), dtype=torch.int32, device="meta"))
     elif case == "non_contiguous":
         R, L = w.preads.shape
         w = w._replace(preads=torch.empty((L, R), dtype=torch.int64, device="meta").T)
         assert not w.preads.is_contiguous()
     elif case == "mixed_devices":
-        w = w._replace(db2=cpu_w.db2)
+        w = w._replace(bf=cpu_w.bf)
     kernels.reset_launches()
     with pytest.raises(err):
         anchor_walk(didx, *w, **params)
