@@ -11,19 +11,26 @@ seed, maps 262,144 single-end 76 bp reads through QuasiMapper.map_se_async /
 fetch (one batch in flight), and checks the result: map rate, reads mapped
 to their true locus, both kernels' launches on the main path, and the
 card's wire buffer equal to the CPU's on the first batch; it times the walk
-with a warm and a cold L2 and lists one program's scan kernels by name. Then
-it drives the port's command line in process (rapmap_tpu_torch.cli.main) on
-the same world, FASTQ in and SAM out: at its default flags (batches of 4,096, one program a
-batch), chunked with a parser thread, with a starved expansion budget against
-an ample one on a repetitive world (the host-oracle fallback), and on the card
-against the CPU (SAM files equal byte for byte apart from @PG). Every phase
-prints one JSON line; the last line is
+with a warm and a cold L2 and lists one program's scan kernels by name. It
+maps 131,072 pairs of 2 x 76 bp from 200-500 bp fragments of the same world
+through map_pe_async / fetch (the walk and the sort twice a chunk, once per
+mate) and checks the concordant share, the pairs concordant at their true
+locus, the launches and the card's wire equal to the CPU's on two chunks,
+and profiles one paired-end batch. Then it drives the port's command line in
+process (rapmap_tpu_torch.cli.main) on the same world, FASTQ in and SAM out,
+single-end and paired-end: at its default flags (batches of 4,096, one
+program a batch), chunked with a parser thread, with a starved expansion
+budget against an ample one on a repetitive world (the host-oracle
+fallback), and on the card against the CPU (SAM files equal byte for byte
+apart from @PG; for pairs also under --noOrphans --maxFragLen --pairOrder).
+Every phase prints one JSON line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It exits non-zero, printing no result, without a CUDA card or without the
 rest of the repository beside it.
 
---cpu-rehearsal (with --txps/--reads small) runs the same phases on the CPU
-with the plain versions, to check the script's control flow off the card.
+--cpu-rehearsal (with --txps/--reads/--pairs small) runs the same phases on
+the CPU with the plain versions, to check the script's control flow off the
+card.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate (NVIDIA data sheet)
 CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM non-tensor rate (data sheet, fp32)
 READ_LEN = 76
 BATCHES = 8  # per run; each batch is 4 chunks
+PE_BATCHES = 4  # paired-end batches, of 4 chunks each
 K = 31
 # the __global__ functions of csrc/*.cu, as the profiler names them
 HAND_KERNELS = ("cluster_sort_kernel", "tile_sort_kernel", "tile_merge_kernel",
@@ -238,6 +246,51 @@ def sample_reads(idx, rng, n_reads: int, read_len: int, err_rate: float):
     return codes, (t, pos, strand)
 
 
+def sample_pairs(idx, rng, n_pairs: int, read_len: int, err_rate: float,
+                 frag_lo: int = 200, frag_hi: int = 500):
+    """Read pairs of one mate length from fragments of frag_lo..frag_hi bp
+    (uniform) at uniform loci of the index's transcripts, substitutions at
+    err_rate: the left mate is the fragment's start, the right mate the
+    reverse complement of its end, and for half the pairs the two mates are
+    swapped -> (codes1, codes2 (n, read_len) int8, (transcript, mate-1
+    position, mate-2 position, mate-1 strand))."""
+    tl = np.asarray(idx.txp_lens, dtype=np.int64)
+    frag = rng.integers(frag_lo, frag_hi + 1, n_pairs)
+    t = rng.choice(len(tl), size=n_pairs, p=tl / tl.sum())
+    t = np.where(tl[t] >= frag, t, int(np.argmax(tl)))
+    pos = (rng.random(n_pairs) * (tl[t] - frag + 1)).astype(np.int64)
+    start = np.asarray(idx.txp_offsets, dtype=np.int64)[t] + pos
+    text = np.asarray(idx.text)
+    cols = np.arange(read_len)[None, :]
+    left = text[start[:, None] + cols].astype(np.int8)
+    right = text[(start + frag - read_len)[:, None] + cols].astype(np.int8)
+    for c in (left, right):
+        err = rng.random(c.shape) < err_rate
+        c[err] = rng.integers(1, 5, int(err.sum()))
+    right = (5 - right)[:, ::-1]
+    swap = rng.random(n_pairs) < 0.5
+    c1 = np.where(swap[:, None], right, left)
+    c2 = np.where(swap[:, None], left, right)
+    p_left, p_right = pos, pos + frag - read_len
+    truth = (t, np.where(swap, p_right, p_left), np.where(swap, p_left, p_right),
+             swap.astype(np.int64))
+    return np.ascontiguousarray(c1), np.ascontiguousarray(c2), truth
+
+
+def write_fastq_pairs(path1: str, path2: str, c1, c2, truth) -> tuple[str, str]:
+    """Pairs as two FASTQ files, each pair named by its true locus:
+    p<i>:<transcript>:<mate-1 position>:<mate-2 position>:<mate-1 strand>."""
+    names = [f"p{i}:{truth[0][i]}:{truth[1][i]}:{truth[2][i]}:{truth[3][i]}"
+             for i in range(len(c1))]
+    for path, codes in ((path1, c1), (path2, c2)):
+        seqs = np.frombuffer(b"NACGTN", dtype=np.uint8)[codes]
+        with open(path, "w") as f:
+            for name, row in zip(names, seqs):
+                seq = row.tobytes().decode()
+                f.write(f"@{name}\n{seq}\n+\n{'I' * len(seq)}\n")
+    return path1, path2
+
+
 def build_world(seed: int, n_txps: int, n_reads: int, workdir: str):
     """Random transcriptome (500-3,500 bp transcripts), the port's quasi
     index (k=31, canonical CHD; saved as <workdir>/idx for the command line),
@@ -311,6 +364,25 @@ def sam_true_locus_share(path: str, n_reads: int) -> float:
             good += (rname == f"t{t}" and int(pos) - 1 == int(p)
                      and bool(flag & 0x10) == (strand == "1"))
     return good / n_reads
+
+
+def sam_pe_true_locus_share(path: str, n_pairs: int) -> float:
+    """Share of the pairs (named by write_fastq_pairs with their truth) whose
+    PRIMARY mate-1 record is a proper pair at the true transcript with both
+    true positions."""
+    good = 0
+    with open(path) as f:
+        for ln in f:
+            if ln[0] == "@":
+                continue
+            name, flag, rname, pos, _, _, _, pnext = ln.split("\t", 8)[:8]
+            flag = int(flag)
+            if flag & 0x104 or not flag & 0x40 or not flag & 0x2:
+                continue
+            _, t, p1, p2, _ = name.split(":")
+            good += (rname == f"t{t}" and int(pos) - 1 == int(p1)
+                     and int(pnext) - 1 == int(p2))
+    return good / n_pairs
 
 
 class StageLog(logging.Handler):
@@ -688,6 +760,74 @@ def true_locus_share(res, truth, lo: int, hi: int) -> float:
     return float(np.bincount(rid[m], minlength=hi - lo).astype(bool).mean())
 
 
+def pair_shares(res, truth, lo: int, hi: int) -> tuple[float, float]:
+    """(share of pairs [lo, hi) with a concordant record, share with a
+    concordant record at their true transcript and both true positions)."""
+    t, p1, p2, _ = (a[lo:hi] for a in truth)
+    rid = np.repeat(np.arange(hi - lo), res.counts)
+    rec = res.recs[: len(rid)]
+    conc = (rec[:, 3] == 1) & (rec[:, 6] == 1)
+    true = conc & (rec[:, 0] == t[rid]) & (rec[:, 1] == p1[rid]) & (rec[:, 4] == p2[rid])
+    per = np.bincount(rid[conc], minlength=hi - lo).astype(bool)
+    per_true = np.bincount(rid[true], minlength=hi - lo).astype(bool)
+    return float(per.mean()), float(per_true.mean())
+
+
+def profile_pe_batch(mapper, c1, c2, lens, C: int, cuda: bool) -> dict:
+    """Where one paired-end batch's time goes: the device's busy share, its
+    launches per chunk and top kernels (torch.profiler), and for one chunk
+    the synchronized host time of the two mates' scans, of their two collate
+    cores, and of the direct pair merge around them (`collate_records_pe`
+    less the cores: `pairs_ms`), with the device time and launches of each
+    (`*_device`)."""
+    import torch
+
+    from rapmap_tpu_torch.ops.collate import _collate_core
+    from rapmap_tpu_torch.ops.mmp import scan_dispatch
+    from rapmap_tpu_torch.ops.pairs import collate_records_pe
+    from rapmap_tpu_torch.ops.wire import rec_spec_pe
+
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    batch = profile_one_batch(lambda: mapper.fetch(mapper.map_pe_async(c1, lens, c2, lens)),
+                              max(1, len(c1) // C), cuda, 10)
+    dev, cfg, didx, st = mapper.device, mapper.cfg, mapper.didx, mapper.st
+    a, b = (torch.from_numpy(x[:C]).to(dev) for x in (c1, c2))
+    ln = torch.from_numpy(lens[:C].astype(np.int64)).to(dev)
+    spec = rec_spec_pe(st, cfg)
+    capc = cfg.rec_slots * C
+
+    def scans():
+        return scan_dispatch(didx, st, a, ln, cfg), scan_dispatch(didx, st, b, ln, cfg)
+
+    h1, h2 = scans()
+
+    def cores():
+        _collate_core(didx, st, h1, ln, cfg)
+        _collate_core(didx, st, h2, ln, cfg)
+
+    def merge():
+        collate_records_pe(didx, st, h1, ln, h2, ln, cfg, capc, rec_spec=spec)
+
+    stage = {}
+    for _ in range(2):  # second pass is the one kept (warm)
+        for name, fn in (("scan_ms", scans), ("cores_ms", cores), ("collate_pe_ms", merge)):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            stage[name] = (time.perf_counter() - t0) * 1e3
+    stage["pairs_ms"] = stage["collate_pe_ms"] - stage["cores_ms"]
+    device = {}
+    if cuda:
+        for name, fn in (("scan", scans), ("cores", cores), ("collate_pe", merge)):
+            got = device_kernels(fn)
+            device[name] = dict(ms=sum(v[0] for v in got.values()),
+                                launches=sum(v[1] for v in got.values()))
+        device["pairs"] = {k: device["collate_pe"][k] - device["cores"][k] for k in ("ms", "launches")}
+    return dict(batch_pairs=len(c1), **batch, chunk_stages=stage,
+                chunk_device=device or "not measured")
+
+
 def scan_kernels(mapper, r, ln, cuda: bool) -> dict:
     """The device kernels of one program's scan (dense phase, then anchor
     walk) by name, under torch.profiler, and those of the anchor tables that
@@ -715,6 +855,42 @@ def scan_kernels(mapper, r, ln, cuda: bool) -> dict:
     return dict(scan=run(scan), anchor_tables=run(lambda: anchor_tables(*w[4:])))
 
 
+def profile_one_batch(run, n_programs: int, cuda: bool, top_n: int) -> dict:
+    """One batch, run() mapping and fetching it, under torch.profiler: its
+    wall clock (ending in a synchronize), the device's busy time and idle
+    share, its launches (a program's share too), its top kernels and the
+    hand kernels among them."""
+    import torch
+
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    wall = []
+
+    def batch():
+        t0 = time.perf_counter()
+        run()
+        sync()
+        wall.append((time.perf_counter() - t0) * 1e3)
+
+    sync()
+    if cuda:
+        by_name = device_kernels(batch)
+    else:
+        batch()
+        by_name = {}
+    busy_ms = sum(v[0] for v in by_name.values())
+    kern = sum(v[1] for v in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top_n]
+    own = [(n, v) for n, v in by_name.items() if any(f"::{k}" in n for k in HAND_KERNELS)]
+    return dict(
+        batch_wall_ms=wall[0],
+        device_busy_ms=busy_ms if kern else "not measured",
+        device_idle_share=1.0 - busy_ms / wall[0] if kern else "not measured",
+        programs=n_programs, kernel_launches=kern, launches_per_chunk=kern / n_programs,
+        top_kernels=[dict(name=n, ms=v[0], count=v[1]) for n, v in top],
+        hand_kernels=[dict(name=n, ms=v[0], count=v[1]) for n, v in own],
+    )
+
+
 def profile_batch(mapper, codes, lens, C: int, cuda: bool) -> dict:
     """Where one batch's time goes: the device's busy share and its top
     kernels (torch.profiler), the device kernels of one program's scan by
@@ -730,26 +906,8 @@ def profile_batch(mapper, codes, lens, C: int, cuda: bool) -> dict:
     from rapmap_tpu_torch.ops.wire import pack_in_se, rec_spec_se
 
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-    wall = []
-
-    def batch():
-        t0 = time.perf_counter()
-        mapper.fetch(mapper.map_se_async(codes, lens))
-        sync()
-        wall.append((time.perf_counter() - t0) * 1e3)
-
-    sync()
-    if cuda:
-        by_name = device_kernels(batch)
-    else:
-        batch()
-        by_name = {}
-    wall_ms = wall[0]
-    busy_ms = sum(v[0] for v in by_name.values())
-    kern = sum(v[1] for v in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    own = [(n, v) for n, v in by_name.items() if any(f"::{k}" in n for k in HAND_KERNELS)]
-
+    batch = profile_one_batch(lambda: mapper.fetch(mapper.map_se_async(codes, lens)),
+                              max(1, len(codes) // C), cuda, 8)
     dev = mapper.device
     chunked = bool(mapper._chunk_of(len(codes)))
     r = torch.from_numpy(codes[:C]).to(dev)
@@ -790,16 +948,7 @@ def profile_batch(mapper, codes, lens, C: int, cuda: bool) -> dict:
         sync()
         stage = dict(scan_ms=(t1 - t0) * 1e3, dense_ms=(tw - t0) * 1e3,
                      walk_ms=(t1 - tw) * 1e3, collate_ms=(time.perf_counter() - t1) * 1e3)
-    return dict(
-        batch_wall_ms=wall_ms,
-        device_busy_ms=busy_ms if kern else "not measured",
-        device_idle_share=1.0 - busy_ms / wall_ms if kern else "not measured",
-        programs=max(1, len(codes) // C), kernel_launches=kern,
-        launches_per_chunk=kern / max(1, len(codes) // C),
-        top_kernels=[dict(name=n, ms=v[0], count=v[1]) for n, v in top],
-        hand_kernels=[dict(name=n, ms=v[0], count=v[1]) for n, v in own],
-        scan_device=scan_device, chunk_stages=stage, wire_host=wire,
-    )
+    return dict(**batch, scan_device=scan_device, chunk_stages=stage, wire_host=wire)
 
 
 def main() -> int:
@@ -807,6 +956,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--txps", type=int, default=10_000)
     ap.add_argument("--reads", type=int, default=262_144)
+    ap.add_argument("--pairs", type=int, default=131_072)
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="run every phase on the CPU with the plain versions")
     args = ap.parse_args()
@@ -934,12 +1084,76 @@ def main() -> int:
     emit("profile_unchunked", batch=cli_bs,
          **profile_batch(mapper, codes[:cli_bs], lens[:cli_bs], C, cuda))
 
-    # ---- the card's wire buffer equals the CPU's on the first batch --------
+    # ---- paired-end library path: map_pe_async / fetch, one batch in flight --
+    # 2 x 76 bp pairs from 200-500 bp fragments of the same world, the chunk
+    # and voting pool of the single-end path: the walk and the sort kernel
+    # each run twice a chunk, once per mate
+    n_pairs = args.pairs
+    pc1, pc2, ptruth = sample_pairs(idx, np.random.default_rng(args.seed + 5), n_pairs,
+                                    READ_LEN, 0.01)
+    plens = np.full(n_pairs, READ_LEN, np.int32)
+    PB = n_pairs // PE_BATCHES
+    if PB // 4 != C:
+        raise RuntimeError("the paired-end batches must have the single-end chunk")
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    pe_results = []
+    t0 = time.time()
+    pending = mapper.map_pe_async(pc1[:PB], plens[:PB], pc2[:PB], plens[:PB])
+    for b in range(1, PE_BATCHES + 1):
+        rows = slice(b * PB, (b + 1) * PB)
+        nxt = (mapper.map_pe_async(pc1[rows], plens[rows], pc2[rows], plens[rows])
+               if b < PE_BATCHES else None)
+        pe_results.append(mapper.fetch(pending))
+        pending = nxt
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    pe_launches = dict(kernels.LAUNCHES)
+    pe_chunks = n_pairs // C
+    pctr = {k: sum(r.counters[k] for r in pe_results) for k in pe_results[0].counters}
+    shares = [pair_shares(r, ptruth, i * PB, (i + 1) * PB) for i, r in enumerate(pe_results)]
+    conc_share = float(np.mean([x[0] for x in shares]))
+    true_share = float(np.mean([x[1] for x in shares]))
+    emit("pe_path", pairs=n_pairs, batches=PE_BATCHES, batch=PB, chunks=pe_chunks,
+         seconds=wall, pairs_per_s=n_pairs / wall, reads_per_s=2 * n_pairs / wall,
+         concordant_share=conc_share, concordant_at_true_locus_share=true_share,
+         map_rate=pctr["reads_mapped"] / pctr["reads_total"], counters=pctr,
+         launches=pe_launches,
+         max_memory_allocated=torch.cuda.max_memory_allocated() if cuda else "not measured")
+    if cuda and min(pe_launches["bitonic_sort_pairs"], pe_launches["anchor_walk"]) < 2 * pe_chunks:
+        raise RuntimeError(f"pe_path: kernel launches {pe_launches} for {pe_chunks} chunks "
+                           "of two mates")
+    if conc_share < 0.9 or true_share < 0.95:
+        raise RuntimeError(f"pe_path: concordant share {conc_share:.4f} below 0.9 or "
+                           f"{true_share:.4f} of the pairs concordant at their true locus")
+    for r in pe_results:
+        if r.recs.shape[1] != 7 or len(r.recs) != r.total or r.overflowed:
+            raise RuntimeError("malformed paired-end wire result")
+    n_pe_mapped = pctr["reads_mapped"]
+    del pe_results
+    # the command line's paired-end inputs: every pair with its true locus in
+    # its name, and the head of them for the card-against-CPU runs
+    n_head_pe = min(4096, n_pairs)
+    pe_fq = write_fastq_pairs(os.path.join(work, "pe_1.fq"), os.path.join(work, "pe_2.fq"),
+                              pc1, pc2, ptruth)
+    head_pe_fq = write_fastq_pairs(os.path.join(work, "head_pe_1.fq"),
+                                   os.path.join(work, "head_pe_2.fq"), pc1[:n_head_pe],
+                                   pc2[:n_head_pe], [x[:n_head_pe] for x in ptruth])
+
+    emit("profile_pe", **profile_pe_batch(mapper, pc1[:PB], pc2[:PB], plens[:PB], C, cuda))
+
+    # ---- the card's wire buffers equal the CPU's: the single-end path's first
+    # batch, the paired-end path's first two chunks ---------------------------
     if cuda:
         again = mapper.map_se_async(codes[:B], lens[:B])
+        again_pe = mapper.map_pe_async(pc1[: 2 * C], plens[: 2 * C], pc2[: 2 * C],
+                                       plens[: 2 * C])
         again.done.synchronize()
-        card = again.wire.clone()
-        del mapper, again
+        again_pe.done.synchronize()
+        card, card_pe = again.wire.clone(), again_pe.wire.clone()
+        del mapper, again, again_pe
         torch.cuda.empty_cache()
         t0 = time.time()
         cpu_mapper = QuasiMapper(idx, cfg, device="cpu")
@@ -948,7 +1162,14 @@ def main() -> int:
         emit("card_equals_cpu", batch=B, equal=same, cpu_s=time.time() - t0)
         if not same:
             raise RuntimeError("card wire buffer differs from the CPU's")
-        del cpu_mapper, host, card
+        t0 = time.time()
+        host_pe = cpu_mapper.map_pe_async(pc1[: 2 * C], plens[: 2 * C], pc2[: 2 * C],
+                                          plens[: 2 * C])
+        same = bool(torch.equal(card_pe, host_pe.wire)) and host_pe.C == C
+        emit("pe_card_equals_cpu", pairs=2 * C, chunks=2, equal=same, cpu_s=time.time() - t0)
+        if not same:
+            raise RuntimeError("the card's paired-end wire buffer differs from the CPU's")
+        del cpu_mapper, host, card, host_pe, card_pe
 
     # ---- the command line, in process: FASTQ in, SAM out ---------------------
     force_cpu = not cuda  # a rehearsal runs every command on the CPU
@@ -1030,9 +1251,94 @@ def main() -> int:
             raise RuntimeError("cli_card_equals_cpu: the card's SAM differs from the CPU's, "
                                "or the CPU run launched a kernel")
 
+    # ---- the paired-end command line ---------------------------------------
+    pe_default = run_cli(
+        "cli_pe_default", ["-i", idx_dir, "-1", pe_fq[0], "-2", pe_fq[1], "-o", sam("pa.sam"),
+                           *default_bs], work, force_cpu)
+    pe_batches = -(-n_pairs // cli_bs)
+    share = sam_pe_true_locus_share(sam("pa.sam"), n_pairs)
+    emit("cli_pe_default_checks", batches=pe_batches,
+         primary_proper_pair_at_true_locus_share=share, reads_mapped_pe_path=n_pe_mapped)
+    if pe_default["counters"]["reads_total"] != n_pairs:
+        raise RuntimeError("cli_pe_default: reads_total differs from the pairs written")
+    if pe_default["counters"]["reads_mapped"] != n_pe_mapped or share < 0.95:
+        raise RuntimeError("cli_pe_default: pairs mapped unequal to the library path's, or "
+                           f"{share:.4f} of the primary pairs at their true locus")
+    if cuda and pe_default["launches"]["anchor_walk"] != 2 * pe_batches:
+        raise RuntimeError(f"cli_pe_default: walk launches {pe_default['launches']} "
+                           f"for {pe_batches} batches of two mates")
+
+    pe_chunked = run_cli(
+        "cli_pe_chunked", ["-i", idx_dir, "-1", pe_fq[0], "-2", pe_fq[1], "-o", sam("pb.sam"),
+                           "--batchSize", str(PB), "--chunkSize", str(C), "-t", "2"],
+        work, force_cpu)
+    same = sam_body(sam("pa.sam")) == sam_body(sam("pb.sam"))
+    emit("cli_pe_chunked_checks", chunks=pe_chunks, sam_equals_cli_pe_default=same)
+    if not same:
+        raise RuntimeError("cli_pe_chunked: SAM differs from cli_pe_default's")
+    if cuda and pe_chunked["launches"]["anchor_walk"] != 2 * pe_chunks:
+        raise RuntimeError(f"cli_pe_chunked: walk launches {pe_chunked['launches']} "
+                           f"for {pe_chunks} chunks of two mates")
+
+    # the card's paired-end SAM equals the CPU's, plain and with the pair options
+    if cuda:
+        checks = []
+        for variant, extra in (("plain", []),
+                               ("pair_options", ["--noOrphans", "--maxFragLen", "600",
+                                                 "--pairOrder"])):
+            head = {}
+            for name, on_cpu in (("card", False), ("cpu", True)):
+                head[name] = run_cli(
+                    f"cli_pe_head_{variant}_{name}",
+                    ["-i", idx_dir, "-1", head_pe_fq[0], "-2", head_pe_fq[1],
+                     "-o", sam(f"head_pe_{variant}_{name}.sam"), *extra], work, on_cpu)
+            same = (sam_body(sam(f"head_pe_{variant}_card.sam"))
+                    == sam_body(sam(f"head_pe_{variant}_cpu.sam")))
+            checks.append(dict(variant=variant, argv_extra=extra, equal=same,
+                               card_walk_launches=head["card"]["launches"]["anchor_walk"],
+                               cpu_launches=head["cpu"]["launches"]))
+        emit("cli_pe_card_equals_cpu", pairs=n_head_pe, checks=checks)
+        if not all(c["equal"] and c["card_walk_launches"] >= 2
+                   and not c["cpu_launches"]["anchor_walk"] for c in checks):
+            raise RuntimeError("cli_pe_card_equals_cpu: the card's SAM differs from the CPU's, "
+                               "the card skipped the walk kernel, or the CPU launched it")
+
+    # the host-oracle fallback on pairs: a starved expansion pool against an
+    # ample one on the repetitive world (1,024 pairs of 2 x 100 bp: the record
+    # buffer, rec_slots x batch, holds 16 records a pair)
+    n_rep_pe = cli_bs // 4
+    rc1, rc2, _ = sample_pairs(load_index(rep_dir), np.random.default_rng(args.seed + 6),
+                               n_rep_pe, 100, 0.02, 200, 400)
+    rep_pe_fq = write_fastq_pairs(os.path.join(work, "repetitive_1.fq"),
+                                  os.path.join(work, "repetitive_2.fq"), rc1, rc2,
+                                  [np.zeros(n_rep_pe, np.int64)] * 4)
+    rep_pe = {}
+    for name, budget in (("starved", 1), ("ample", 64)):
+        rep_pe[name] = run_cli(
+            f"cli_pe_fallback_{name}",
+            ["-i", rep_dir, "-1", rep_pe_fq[0], "-2", rep_pe_fq[1],
+             "-o", sam(f"rep_pe_{name}.sam"), *default_bs, "--expandBudget", str(budget)],
+            work, force_cpu)
+    same = sam_body(sam("rep_pe_starved.sam")) == sam_body(sam("rep_pe_ample.sam"))
+    n_fb = rep_pe["starved"]["counters"].get("host_fallback", 0)
+    emit("cli_pe_fallback", pairs=n_rep_pe, host_fallback=n_fb, sam_equal=same,
+         records=rep_pe["ample"]["counters"]["records"])
+    if n_fb <= 0 or rep_pe["ample"]["counters"].get("host_fallback", 0) or not same:
+        raise RuntimeError("cli_pe_fallback: no fallback with the starved budget, fallback "
+                           "with the ample one, or the two SAM files differ")
+    if cuda and min(r["launches"]["anchor_walk"] for r in rep_pe.values()) < 2:
+        raise RuntimeError("cli_pe_fallback: the walk kernel was not launched for both mates")
+
     cli_launches = {"cli_default": cli_default["launches"], "cli_chunked": cli_chunked["launches"],
                     "cli_fallback_starved": rep["starved"]["launches"],
                     "cli_fallback_ample": rep["ample"]["launches"]}
+    pe_path_launches = {"pe_path": pe_launches, "cli_pe_default": pe_default["launches"],
+                        "cli_pe_chunked": pe_chunked["launches"],
+                        "cli_pe_fallback_starved": rep_pe["starved"]["launches"],
+                        "cli_pe_fallback_ample": rep_pe["ample"]["launches"]}
+
+    def on_pe(kernel):
+        return {path: n[kernel] for path, n in pe_path_launches.items()}
 
     def on_cli(kernel):
         return {path: n[kernel] for path, n in cli_launches.items()}
@@ -1042,7 +1348,8 @@ def main() -> int:
         "source": "rapmap_tpu_torch/csrc/sort2.cu",
         "replaces": "rapmap_tpu/ops/pallas/sort2.py:153",
         "launches": launches["bitonic_sort_pairs"],
-        "launches_on_cli_paths": on_cli("bitonic_sort_pairs"), "max_abs_err": sort_err,
+        "launches_on_cli_paths": on_cli("bitonic_sort_pairs"),
+        "launches_on_pe_paths": on_pe("bitonic_sort_pairs"), "max_abs_err": sort_err,
         "matches_plain": sort_ok, "ms": sort_t["ms"], "wrapper_ms": sort_t["wrapper_ms"],
         "plain_ms": sort_t["plain_ms"], "bound_ms": sort_t["bound_ms"],
         "bound_by": sort_t["bound_by"], "library_ms": sort_t["library_ms"],
@@ -1052,7 +1359,8 @@ def main() -> int:
         "source": "rapmap_tpu_torch/csrc/walk.cu",
         "replaces": "rapmap_tpu/ops/mmp.py:190",
         "launches": launches["anchor_walk"],
-        "launches_on_cli_paths": on_cli("anchor_walk"), "max_abs_err": walk_err,
+        "launches_on_cli_paths": on_cli("anchor_walk"),
+        "launches_on_pe_paths": on_pe("anchor_walk"), "max_abs_err": walk_err,
         "matches_plain": walk_ok, "ms": walk_t["ms"], "cold_ms": walk_t["cold_ms"],
         "wrapper_ms": walk_t["wrapper_ms"], "plain_ms": walk_t["plain_ms"],
         "bound_ms": walk_t["bound_ms"], "bound_by": walk_t["bound_by"], "library_ms": None,

@@ -1,12 +1,12 @@
 """tqm command-line interface of the PyTorch/CUDA port: quasiindex | quasimap.
 
 Port of rapmap_tpu.cli: the same subcommands, flag names and defaults, so a
-parity harness can drive either tool with the same argv. Single-end
-`quasimap` on an index with the canonical CHD runs end to end (FASTQ in, SAM
-out); what is not ported yet (paired-end, pseudo-mapping, --mappingScore, the
-host-staged engine, --worldSize > 1, the quasi_map / quasi_core artifacts,
-indexes without the canonical CHD) is refused with one log line and exit
-code 1.
+parity harness can drive either tool with the same argv. `quasimap` of
+single-end (-r) and paired-end (-1/-2) reads on an index with the canonical
+CHD runs end to end (FASTQ in, SAM out); what is not ported yet
+(pseudo-mapping, --mappingScore, the host-staged engine, --worldSize > 1, the
+quasi_map / quasi_core artifacts, indexes without the canonical CHD) is
+refused with one log line and exit code 1.
 
 The mapping runs on the CUDA card. TQM_FORCE_CPU=1 runs every kernel's plain
 PyTorch version on the CPU instead; without it and without a card the command
@@ -255,13 +255,11 @@ def run_map(args) -> int:
 
     if args.worldSize > 1:
         return _refuse("--worldSize > 1", "the data-parallel and multi-process slice")
-    if args.mates1 or args.mates2:
-        return _refuse("paired-end mapping (-1/-2)", "the paired-end slice")
     if args.mappingScore:
         return _refuse("--mappingScore", "the mapping-score slice")
     if args.engine == "staged":
         return _refuse("--engine staged", "the host-staged slice")
-    if not args.reads:
+    if not (args.reads or (args.mates1 and args.mates2)):
         log.error("provide -r for single-end or -1/-2 for paired-end reads")
         return 1
 
@@ -366,6 +364,45 @@ def run_map(args) -> int:
                         formatter=sam_fmt,
                     )
 
+        def drain_pe(pending):
+            (b1, b2), fut = pending
+            with timers.stage("fetch"):
+                recsd = mapper.fetch(fut)
+            if use_fallback:
+                with timers.stage("fallback"):
+                    recsd = fb.remap_pe(
+                        recsd, b1.codes, b1.lens, b2.codes, b2.lens, b1.n,
+                        mapper.host_index, mapper.cfg, oracle_mod,
+                    )
+            acc(recsd.counters)
+            if recsd.overflowed:
+                log.warning("record buffer overflow in a batch; tail records dropped")
+            if out is not None:
+                with timers.stage("sam"):
+                    sam.write_pe_records_dense(
+                        out, b1.names[: b1.n], b1.seqs, b1.quals, b2.seqs, b2.quals,
+                        recsd.recs, recsd.counts, idx.txp_names, write_unmapped,
+                        formatter=sam_fmt,
+                    )
+
+        if args.reads:
+            it = fastx.batched_reads(args.reads, args.batchSize, args.maxReadLen)
+            drain = drain_se
+
+            def dispatch(batch):
+                return mapper.map_se_async(batch.codes, batch.lens, n_valid=batch.n)
+        else:
+            it = fastx.batched_read_pairs(
+                args.mates1, args.mates2, args.batchSize, args.maxReadLen
+            )
+            drain = drain_pe
+
+            def dispatch(pair):
+                b1, b2 = pair
+                return mapper.map_pe_async(
+                    b1.codes, b1.lens, b2.codes, b2.lens, n_valid=b1.n
+                )
+
         from collections import deque
 
         q: deque = deque()
@@ -388,7 +425,6 @@ def run_map(args) -> int:
                 save_progress(done[0], out)
 
         with device_trace(args.traceDir):
-            it = fastx.batched_reads(args.reads, args.batchSize, args.maxReadLen)
             if args.numThreads >= 2:
                 it = fastx.prefetch(it, depth=max(2, args.pipelineDepth))
             bi = 0
@@ -399,14 +435,14 @@ def run_map(args) -> int:
                     break
                 if bi >= skip_batches:
                     with timers.stage("dispatch"):
-                        fut = mapper.map_se_async(batch.codes, batch.lens, n_valid=batch.n)
+                        fut = dispatch(batch)
                     q.append((batch, fut))
                     if len(q) >= depth:
-                        drain_se(q.popleft())
+                        drain(q.popleft())
                         drained()
                 bi += 1
             while q:
-                drain_se(q.popleft())
+                drain(q.popleft())
                 drained()
         if args.profile:
             timers.log(log)

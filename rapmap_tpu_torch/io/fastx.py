@@ -3,8 +3,6 @@
 Copy of rapmap_tpu.io.fastx. Python implementation of the kseq/FastxParser
 role (SURVEY.md §2.1 #15); a C++ fast path lives in rapmap_tpu_torch/native
 and is used when built. Gzip transparently supported by magic-byte sniffing.
-`batched_read_pairs` is carried for the paired-end engine, which is not
-ported yet.
 """
 
 from __future__ import annotations

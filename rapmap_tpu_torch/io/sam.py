@@ -2,9 +2,7 @@
 
 Copy of rapmap_tpu.io.sam. Host-side rendering of compact device outputs
 (RapMapUtils::writeAlignmentsToStream rebuild, SURVEY.md §2.1 #8). Record
-content rules live in SEMANTICS.md; the device never formats text. The
-paired-end writers are carried for the paired-end engine, which is not
-ported yet.
+content rules live in SEMANTICS.md; the device never formats text.
 """
 
 from __future__ import annotations

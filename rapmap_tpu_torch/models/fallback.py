@@ -1,14 +1,14 @@
 """Host-side oracle remap of budget-degraded reads.
 
-Port of rapmap_tpu.models.fallback (single-end). Static device budgets
+Port of rapmap_tpu.models.fallback. Static device budgets
 (expansion pool, hit buffers, record caps) can truncate results for
 pathological reads — heavy multimappers on repetitive transcriptomes. Instead
 of silently degrading, the command line remaps EXACTLY the reads whose wire
 flags carry FLAG_DEGRADED with the numpy oracle (the executable spec,
 SEMANTICS.md) and splices the corrected records into the dense batch output. Budgets
 auto-size from index stats so this stays rare; correctness never depends on
-the budget. `remap_pe` and the alignment-score branch of the record score
-come with the paired-end and mapping-score engines.
+the budget. The alignment-score fields of the records come with the
+mapping-score engine.
 """
 
 from __future__ import annotations
@@ -63,6 +63,29 @@ def remap_se(recsd: WireResult, codes, lens, n: int, idx, cfg, oracle) -> WireRe
         new_rows[int(i)] = np.array(
             [[m.txp, m.pos, 0 if m.fwd else 1, m.score] for m in ms], np.int32
         ).reshape(-1, 4)
+        mapped_after[j] = bool(ms)
+    recsd = _splice(recsd, n, new_rows)
+    _update_counters(recsd, n, bad, mapped_after)
+    return recsd
+
+
+def remap_pe(recsd: WireResult, c1, l1, c2, l2, n: int, idx, cfg, oracle) -> WireResult:
+    """Re-resolve FLAG_DEGRADED pairs with oracle.map_pair; rows are
+    (t, p1, s1, has1, p2, s2, has2), a missing mate's fields 0."""
+    flags = np.asarray(recsd.flags)
+    bad = np.flatnonzero((flags[:n] & FLAG_DEGRADED) != 0)
+    if bad.size == 0:
+        return recsd
+    new_rows: dict[int, np.ndarray] = {}
+    mapped_after = np.zeros(len(bad), bool)
+    for j, i in enumerate(bad):
+        ms, _ = oracle.map_pair(idx, np.asarray(c1[i][: l1[i]]), np.asarray(c2[i][: l2[i]]), cfg)
+        new_rows[int(i)] = np.array(
+            [[m.txp,
+              m.pos1 if m.pos1 is not None else 0, 0 if m.fwd1 else 1, int(m.pos1 is not None),
+              m.pos2 if m.pos2 is not None else 0, 0 if m.fwd2 else 1, int(m.pos2 is not None)]
+             for m in ms], np.int32
+        ).reshape(-1, 7)
         mapped_after[j] = bool(ms)
     recsd = _splice(recsd, n, new_rows)
     _update_counters(recsd, n, bad, mapped_after)

@@ -1,20 +1,21 @@
-"""QuasiMapper — the end-to-end single-end mapping engine on one device.
+"""QuasiMapper — the end-to-end quasi-mapping engine on one device.
 
-Port of rapmap_tpu.models.quasi's single-end paths:
+Port of rapmap_tpu.models.quasi (single-end and paired-end):
   wire_in -> reads -> MMP scan (ops.mmp) -> collation (ops.collate)
-  -> wire_out (ops.wire)
-either as one program over the whole batch (`map_batch_se_wire`: the slotted
-MapOut of `map_batch_se`, compacted by ops.compact) or, when the batch is a
-multiple of two or more cfg.chunk, one chunk at a time with the direct
-compaction (`map_batch_se_wire_chunked`). `map_se` is the library call that
-returns the MapOut itself.
+  [-> pair merge (ops.pairs)] -> wire_out (ops.wire)
+either as one program over the whole batch (`map_batch_se_wire`,
+`map_batch_pe_wire`: the slotted MapOut / PairOut of `map_batch_se` /
+`map_batch_pe`, compacted by ops.compact) or, when the batch is a multiple
+of two or more cfg.chunk, one chunk at a time with the direct compaction
+(`map_batch_se_wire_chunked`, `map_batch_pe_wire_chunked`). `map_se` and
+`map_pe` are the library calls that return the slotted layouts themselves.
 
-`map_se_async` enqueues the batch on the device's current stream and starts
-a non-blocking copy of the result into pinned host memory; `fetch` waits for
-that copy alone, so a caller can hold batches in flight while it prepares the
-next. Every call pins fresh buffers, and a fetched result's records may be a
-view of its buffer: nothing is reused while a result is alive. Paired-end
-and the mapping score are not ported yet.
+`map_se_async` / `map_pe_async` enqueue the batch on the device's current
+stream and start a non-blocking copy of the result into pinned host memory;
+`fetch` waits for that copy alone, so a caller can hold batches in flight
+while it prepares the next. Every call pins fresh buffers, and a fetched
+result's records may be a view of its buffer: nothing is reused while a
+result is alive. The mapping score is not ported yet.
 """
 
 from __future__ import annotations
@@ -28,12 +29,15 @@ import torch
 from rapmap_tpu_torch.config import MapConfig, auto_expand_budget, sampled_width
 from rapmap_tpu_torch.index.format import QuasiIndex
 from rapmap_tpu_torch.ops.collate import MapOut, collate_batch, collate_records_se
-from rapmap_tpu_torch.ops.compact import compact_se
+from rapmap_tpu_torch.ops.compact import compact_pe, compact_se
 from rapmap_tpu_torch.ops.device_index import DeviceQuasiIndex, EngineStatic, upload_index
 from rapmap_tpu_torch.ops.mmp import scan_dispatch
+from rapmap_tpu_torch.ops.pairs import (
+    PairOut, collate_records_pe, merge_pairs_batch, pe_direct_eligible,
+)
 from rapmap_tpu_torch.ops.wire import (
-    HDR, encode_read_flags, pack_counts_flags, pack_in_se, pack_out, rec_spec_se,
-    unpack_in_se, unpack_out,
+    HDR, encode_read_flags, pack_counts_flags, pack_in_pe, pack_in_se, pack_out,
+    rec_spec_pe, rec_spec_se, unpack_in_pe, unpack_in_se, unpack_out,
 )
 
 
@@ -70,6 +74,41 @@ def map_batch_se(
     return out, ctr
 
 
+def map_batch_pe(
+    didx: DeviceQuasiIndex,
+    st: EngineStatic,
+    reads1: torch.Tensor,
+    lens1: torch.Tensor,
+    reads2: torch.Tensor,
+    lens2: torch.Tensor,
+    n_valid: torch.Tensor,
+    cfg: MapConfig,
+) -> tuple[MapOut, MapOut, PairOut, Counters]:
+    out1, _ = map_batch_se(didx, st, reads1, lens1, n_valid, cfg)
+    out2, _ = map_batch_se(didx, st, reads2, lens2, n_valid, cfg)
+    pairs = merge_pairs_batch(out1, out2, cfg)
+    real = torch.arange(reads1.shape[0], device=reads1.device) < n_valid
+    ctr = Counters(
+        reads_total=n_valid,
+        reads_mapped=(pairs.any_record & real).sum(),
+        too_ambiguous=(pairs.too_ambiguous & real).sum(),
+        over_budget=((out1.over_budget | out2.over_budget) & real).sum(),
+        records=((pairs.t != -1) & real[:, None]).sum(),
+        out_truncated=(
+            (out1.out_truncated | out2.out_truncated | pairs.out_truncated) & real
+        ).sum(),
+    )
+    return out1, out2, pairs, ctr
+
+
+def _pe_flags(out1: MapOut, out2: MapOut, pairs: PairOut) -> torch.Tensor:
+    return encode_read_flags(
+        out1.over_budget | out2.over_budget,
+        out1.out_truncated | out2.out_truncated | pairs.out_truncated,
+        pairs.too_ambiguous, pairs.any_record,
+    )
+
+
 def map_batch_se_wire(
     didx: DeviceQuasiIndex, st: EngineStatic, wire_in: torch.Tensor,
     cfg: MapConfig, cap: int, B: int, L: int,
@@ -82,7 +121,19 @@ def map_batch_se_wire(
     return pack_out(compact_se(out, cap), ctr, flags)
 
 
-def _se_counters(flags, n_valid, C: int) -> Counters:
+def map_batch_pe_wire(
+    didx: DeviceQuasiIndex, st: EngineStatic, wire_in: torch.Tensor,
+    cfg: MapConfig, cap: int, B: int, L: int,
+) -> torch.Tensor:
+    """Single-buffer in/out PE mapping step, one program over the whole
+    batch -> int32 wire_out (7 fields a record) on the wire's device."""
+    r1, l1, r2, l2, n_valid = unpack_in_pe(wire_in, B, L)
+    out1, out2, pairs, ctr = map_batch_pe(didx, st, r1, l1, r2, l2, n_valid, cfg)
+    return pack_out(compact_pe(pairs, cap), ctr, _pe_flags(out1, out2, pairs))
+
+
+def _chunk_counters(flags, n_valid, C: int) -> Counters:
+    """A chunk's counters from its MapFlags (SE, and PE's direct merge)."""
     real = torch.arange(C, device=flags.mapped.device) < n_valid
     return Counters(
         reads_total=n_valid,
@@ -98,6 +149,31 @@ def _packed_cf(cfg: MapConfig, C: int) -> bool:
     return C % 8 == 0 and cfg.rec_slots * C < (1 << 16)
 
 
+def _chunk_block(recsd, ctr: Counters, fbits: torch.Tensor, packed_cf: bool) -> torch.Tensor:
+    """One chunk's [header | counts | flags | records] block of a chunked
+    wire_out; with packed_cf, counts ride uint16 pairs and flags nibbles."""
+    hdr = torch.stack([
+        recsd.total, recsd.overflowed.to(torch.int64),
+        ctr.reads_total, ctr.reads_mapped, ctr.too_ambiguous,
+        ctr.over_budget, ctr.records, ctr.out_truncated,
+    ]).to(torch.int32)
+    if packed_cf:
+        cw, fw = pack_counts_flags(recsd.counts, fbits)
+    else:
+        cw, fw = recsd.counts.to(torch.int32), fbits
+    return torch.cat([hdr, cw, fw, recsd.recs.reshape(-1)])
+
+
+def _join_chunks(blocks: list[torch.Tensor]) -> torch.Tensor:
+    """Chunk blocks -> one wire_out: the headers summed (overflowed: the
+    max), then every block's body in chunk order."""
+    outs = torch.stack(blocks)
+    hdrs = outs[:, :HDR]
+    hdr = hdrs.sum(dim=0, dtype=torch.int32)
+    hdr[1] = hdrs[:, 1].max()
+    return torch.cat([hdr, outs[:, HDR:].reshape(-1)])
+
+
 def map_batch_se_wire_chunked(
     didx: DeviceQuasiIndex, st: EngineStatic, wire_in: torch.Tensor,
     cfg: MapConfig, capc: int, B: int, L: int, C: int,
@@ -110,42 +186,72 @@ def map_batch_se_wire_chunked(
     spec = rec_spec_se(st, cfg)
     packed_cf = _packed_cf(cfg, C)
     reads, lens, n_valid = unpack_in_se(wire_in, B, L)
-    outs = []
+    blocks = []
     for c in range(B // C):
         r, ln = reads[c * C : (c + 1) * C], lens[c * C : (c + 1) * C]
         nv = (n_valid - c * C).clamp(0, C)
         hits = scan_dispatch(didx, st, r, ln, cfg)
         se, flags = collate_records_se(didx, st, hits, ln, cfg, capc, rec_spec=spec)
-        ctr = _se_counters(flags, nv, C)
         fbits = encode_read_flags(
             flags.over_budget, flags.out_truncated, flags.too_ambiguous, flags.mapped
         )
-        hdr = torch.stack([
-            se.total, se.overflowed.to(torch.int64),
-            ctr.reads_total, ctr.reads_mapped, ctr.too_ambiguous,
-            ctr.over_budget, ctr.records, ctr.out_truncated,
-        ]).to(torch.int32)
-        if packed_cf:
-            cw, fw = pack_counts_flags(se.counts, fbits)
+        blocks.append(_chunk_block(se, _chunk_counters(flags, nv, C), fbits, packed_cf))
+    return _join_chunks(blocks)
+
+
+def map_batch_pe_wire_chunked(
+    didx: DeviceQuasiIndex, st: EngineStatic, wire_in: torch.Tensor,
+    cfg: MapConfig, capc: int, B: int, L: int, C: int,
+) -> torch.Tensor:
+    """PE wire step over fixed (C)-pair chunks, laid out as the SE one. A
+    chunk merges the two mates' collate cores directly
+    (ops.pairs.collate_records_pe) when `pe_direct_eligible`, else through
+    the slotted (C, MAX_OUT) layout of `map_batch_pe` and `compact_pe`."""
+    if B % C:
+        raise ValueError("batch must be a multiple of the chunk size")
+    spec = rec_spec_pe(st, cfg)
+    packed_cf = _packed_cf(cfg, C)
+    direct = pe_direct_eligible(st, cfg, C)
+    r1, l1, r2, l2, n_valid = unpack_in_pe(wire_in, B, L)
+    blocks = []
+    for c in range(B // C):
+        rows = slice(c * C, (c + 1) * C)
+        a, la, b, lb = r1[rows], l1[rows], r2[rows], l2[rows]
+        nv = (n_valid - c * C).clamp(0, C)
+        if direct:
+            hits1 = scan_dispatch(didx, st, a, la, cfg)
+            hits2 = scan_dispatch(didx, st, b, lb, cfg)
+            pe, fl, _ = collate_records_pe(
+                didx, st, hits1, la, hits2, lb, cfg, capc, rec_spec=spec
+            )
+            ctr = _chunk_counters(fl, nv, C)
+            fbits = encode_read_flags(
+                fl.over_budget, fl.out_truncated, fl.too_ambiguous, fl.mapped
+            )
         else:
-            cw, fw = se.counts.to(torch.int32), fbits
-        outs.append(torch.cat([hdr, cw, fw, se.recs.reshape(-1)]))
-    outs = torch.stack(outs)
-    hdrs = outs[:, :HDR]
-    hdr = hdrs.sum(dim=0, dtype=torch.int32)
-    hdr[1] = hdrs[:, 1].max()
-    return torch.cat([hdr, outs[:, HDR:].reshape(-1)])
+            out1, out2, pairs, ctr = map_batch_pe(didx, st, a, la, b, lb, nv, cfg)
+            pe = compact_pe(pairs, capc, rec_spec=spec)
+            fbits = _pe_flags(out1, out2, pairs)
+        blocks.append(_chunk_block(pe, ctr, fbits, packed_cf))
+    return _join_chunks(blocks)
 
 
-class SEResult(NamedTuple):
-    """Handle of one batch in flight (map_se_async -> fetch)."""
+class MapHandle(NamedTuple):
+    """Handle of one batch in flight (map_se_async / map_pe_async -> fetch)."""
 
+    kind: str                        # "se" | "pe"
     B: int
     wire: torch.Tensor               # int32 wire_out (pinned host memory on CUDA)
     done: torch.cuda.Event | None    # recorded after the copy; None on the CPU
     C: int                           # chunk size, 0 = one program over the batch
     capc: int
     spec: object
+
+
+def _host(x: torch.Tensor) -> np.ndarray:
+    """A result tensor as numpy: bool stays bool, integers become int32."""
+    x = x.cpu().numpy()
+    return x if x.dtype == np.bool_ else x.astype(np.int32)
 
 
 class QuasiMapper:
@@ -188,21 +294,31 @@ class QuasiMapper:
         self.txp_names = idx.txp_names
         self.txp_lens = np.asarray(idx.txp_lens)
 
+    def _codes(self, codes) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(codes, dtype=np.int8)).to(self.device)
+
+    def _lens(self, lens) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(lens, dtype=np.int64)).to(self.device)
+
     def map_se(self, codes: np.ndarray, lens: np.ndarray, n_valid: int | None = None):
         """-> (MapOut, Counters) as numpy (int32 fields, bool flags)."""
         out, ctr = map_batch_se(
-            self.didx, self.st,
-            torch.from_numpy(np.ascontiguousarray(codes, dtype=np.int8)).to(self.device),
-            torch.from_numpy(np.ascontiguousarray(lens, dtype=np.int64)).to(self.device),
+            self.didx, self.st, self._codes(codes), self._lens(lens),
             torch.tensor(n_valid if n_valid is not None else len(lens), device=self.device),
             self.cfg,
         )
+        return MapOut(*map(_host, out)), Counters(*map(_host, ctr))
 
-        def host(x):
-            x = x.cpu().numpy()
-            return x if x.dtype == np.bool_ else x.astype(np.int32)
-
-        return MapOut(*map(host, out)), Counters(*map(host, ctr))
+    def map_pe(self, codes1, lens1, codes2, lens2, n_valid: int | None = None):
+        """-> (MapOut left, MapOut right, PairOut, Counters) as numpy."""
+        o1, o2, pairs, ctr = map_batch_pe(
+            self.didx, self.st, self._codes(codes1), self._lens(lens1),
+            self._codes(codes2), self._lens(lens2),
+            torch.tensor(n_valid if n_valid is not None else len(lens1), device=self.device),
+            self.cfg,
+        )
+        return (MapOut(*map(_host, o1)), MapOut(*map(_host, o2)),
+                PairOut(*map(_host, pairs)), Counters(*map(_host, ctr)))
 
     def _cap(self, B: int) -> int:
         return self.cfg.rec_slots * B
@@ -211,24 +327,23 @@ class QuasiMapper:
         C = self.cfg.chunk
         return C if (C and C < B and B % C == 0) else 0
 
-    def map_se_async(self, codes, lens, n_valid: int | None = None) -> SEResult:
-        B, L = codes.shape
+    def _dispatch(self, kind: str, win: np.ndarray, B: int, L: int) -> MapHandle:
+        """Upload one packed wire_in, enqueue its program (chunked when the
+        batch allows) and the copy of its wire_out to pinned host memory."""
         C = self._chunk_of(B)
-        nv = n_valid if n_valid is not None else B
-        win = torch.from_numpy(pack_in_se(np.asarray(codes), np.asarray(lens), nv))
+        win = torch.from_numpy(win)
         on_cuda = self.device.type == "cuda"
         if on_cuda:
             win = win.pin_memory().to(self.device, non_blocking=True)
         if C:
-            capc, spec = self._cap(C), rec_spec_se(self.st, self.cfg)
-            out = map_batch_se_wire_chunked(
-                self.didx, self.st, win, self.cfg, capc, B, L, C
-            )
+            capc = self._cap(C)
+            spec = (rec_spec_se if kind == "se" else rec_spec_pe)(self.st, self.cfg)
+            fn = map_batch_se_wire_chunked if kind == "se" else map_batch_pe_wire_chunked
+            out = fn(self.didx, self.st, win, self.cfg, capc, B, L, C)
         else:
             capc, spec = 0, None
-            out = map_batch_se_wire(
-                self.didx, self.st, win, self.cfg, self._cap(B), B, L
-            )
+            fn = map_batch_se_wire if kind == "se" else map_batch_pe_wire
+            out = fn(self.didx, self.st, win, self.cfg, self._cap(B), B, L)
         done = None
         if on_cuda:
             host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
@@ -236,14 +351,26 @@ class QuasiMapper:
             done = torch.cuda.Event()
             done.record()
             out = host
-        return SEResult(B, out, done, C, capc, spec)
+        return MapHandle(kind, B, out, done, C, capc, spec)
 
-    def fetch(self, result: SEResult):
-        """-> WireResult; recs fields (t, pos, strand, score)."""
+    def map_se_async(self, codes, lens, n_valid: int | None = None) -> MapHandle:
+        B, L = codes.shape
+        nv = n_valid if n_valid is not None else B
+        return self._dispatch("se", pack_in_se(np.asarray(codes), np.asarray(lens), nv), B, L)
+
+    def map_pe_async(self, c1, l1, c2, l2, n_valid: int | None = None) -> MapHandle:
+        B, L = c1.shape
+        nv = n_valid if n_valid is not None else B
+        win = pack_in_pe(np.asarray(c1), np.asarray(l1), np.asarray(c2), np.asarray(l2), nv)
+        return self._dispatch("pe", win, B, L)
+
+    def fetch(self, result: MapHandle):
+        """-> WireResult; recs fields SE (t, pos, strand, score), PE (t, p1,
+        s1, has1, p2, s2, has2)."""
         if result.done is not None:
             result.done.synchronize()
         return unpack_out(
-            result.wire.numpy(), result.B, 4, chunk=result.C, capc=result.capc,
-            rec_spec=result.spec,
+            result.wire.numpy(), result.B, 4 if result.kind == "se" else 7,
+            chunk=result.C, capc=result.capc, rec_spec=result.spec,
             packed_cf=bool(result.C) and _packed_cf(self.cfg, result.C),
         )

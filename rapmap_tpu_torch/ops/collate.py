@@ -1,7 +1,8 @@
 """Hit collation: SA intervals -> per-transcript mappings (HitManager rebuild).
 
-Port of rapmap_tpu.ops.collate (single-end: the direct-compaction path of
-the chunked wire and the slotted MapOut layout of the unchunked one).
+Port of rapmap_tpu.ops.collate: the direct-compaction path of the chunked
+single-end wire and the slotted MapOut layout of the unchunked one; the
+paired-end merge (ops.pairs) joins two mates' collate cores.
 SEMANTICS.md §4 with a GLOBAL slot pool: hits from all reads expand into one
 (CAPG,) pool sized cfg.expand_budget slots per read on average.
 

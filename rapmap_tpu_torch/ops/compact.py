@@ -1,10 +1,10 @@
 """Device-side record compaction: pack sparse per-read mapping slots into a
 dense record buffer before the device->host transfer.
 
-Port of rapmap_tpu.ops.compact (single-end). The (B, MAX_OUT) MapOut layout
-is mostly empty (-1) slots; one cumsum + scatter packs the valid records
+Port of rapmap_tpu.ops.compact. The (B, MAX_OUT) MapOut and PairOut layouts
+are mostly empty (-1) slots; one cumsum + scatter packs the valid records
 row-major, so the host SAM writer walks a dense array. `rid_from_counts` and
-`compact_pe` come with the mapping-score and paired-end engines."""
+the score fields come with the mapping-score engine."""
 
 from __future__ import annotations
 
@@ -19,6 +19,14 @@ class SERecords(NamedTuple):
     counts: torch.Tensor     # (B,) records per read
     total: torch.Tensor      # scalar
     overflowed: torch.Tensor  # scalar bool — cap exceeded, tail dropped
+
+
+class PERecords(NamedTuple):
+    recs: torch.Tensor       # (cap, W) int32: t, p1, s1, has1, p2, s2, has2,
+    #                          or 2 packed words per wire.RecSpec
+    counts: torch.Tensor
+    total: torch.Tensor
+    overflowed: torch.Tensor
 
 
 def _compact(fields: list[torch.Tensor], valid: torch.Tensor, cap: int):
@@ -44,3 +52,18 @@ def compact_se(out, cap: int) -> SERecords:
         [out.t, out.pos, out.strand, out.score], out.t != -1, cap
     )
     return SERecords(recs, counts, total, ovf)
+
+
+def compact_pe(po, cap: int, rec_spec=None) -> PERecords:
+    """pairs.PairOut -> PERecords; with rec_spec the rows pack into 2 words."""
+    fields = [po.t, po.p1, po.s1, po.has1.to(torch.int32), po.p2, po.s2,
+              po.has2.to(torch.int32)]
+    if rec_spec is not None:
+        from rapmap_tpu_torch.ops.wire import pack_rec_fields
+
+        # t = -1 on empty slots would wreck the unsigned packing; the rows
+        # are dropped by the valid mask anyway, so clamp them to 0 first
+        fields[0] = fields[0].clamp(min=0)
+        fields = list(pack_rec_fields(rec_spec, fields))
+    recs, counts, total, ovf = _compact(fields, po.t != -1, cap)
+    return PERecords(recs, counts, total, ovf)

@@ -1,21 +1,25 @@
-"""Single-buffer wire format for host<->device transfers (single-end).
+"""Single-buffer wire format for host<->device transfers.
 
 Port of rapmap_tpu.ops.wire: the host halves are copies, the device halves
 are PyTorch. The format is unchanged — it is the port's parity surface:
 
 wire_in  (uint8): per read block, 2-bit packed bases [ceil(L/4) B] +
                   non-ACGT mask bits [ceil(L/8) B]; then lens uint16 LE [2B]
-                  | n_valid int32 [4B].
+                  | n_valid int32 [4B]. Paired-end: both mates' blocks, then
+                  both mates' lens, then n_valid.
 wire_out (int32): [0] total records | [1] overflowed | [2:8] counters
                   (reads_total, reads_mapped, too_ambiguous, over_budget,
                   records, out_truncated) | [8:8+B] per-read record counts
                   | [8+B:8+2B] per-read outcome flag bits (FLAG_*)
-                  | [8+2B:] records row-major, 4 fields each (pack_out).
+                  | [8+2B:] records row-major, F fields each (pack_out):
+                  SE (t, pos, strand, score), PE (t, p1, s1, has1, p2, s2,
+                  has2).
                   The CHUNKED path holds one block per chunk of
                   [counts | flags | records] after the header: counts ride
                   uint16 pairs, flags 8-per-word nibbles (when the chunk
                   allows), and records pack into 2 words whenever the
-                  index's static stats bound the fields (rec_spec_se).
+                  index's static stats bound the fields (rec_spec_se,
+                  rec_spec_pe).
 
 The per-read flags let the host apply a targeted oracle remap to exactly the
 reads whose device results were degraded by a static budget.
@@ -95,6 +99,18 @@ def pack_in_se(codes: np.ndarray, lens: np.ndarray, n_valid: int) -> np.ndarray:
     ])
 
 
+def _lens_dev(wire: torch.Tensor, o: int, B: int) -> torch.Tensor:
+    """Device: B uint16 LE lengths at byte offset o -> (B,) int64."""
+    lb = wire[o : o + 2 * B].reshape(B, 2).to(torch.int64)
+    return lb[:, 0] | (lb[:, 1] << 8)
+
+
+def _n_valid_dev(wire: torch.Tensor, o: int) -> torch.Tensor:
+    """Device: the int32 LE n_valid at byte offset o -> scalar int64."""
+    nb = wire[o : o + 4].to(torch.int64)
+    return nb[0] | (nb[1] << 8) | (nb[2] << 16) | (nb[3] << 24)
+
+
 def unpack_in_se(wire: torch.Tensor, B: int, L: int):
     """Device: uint8 wire_in -> (codes (B, L) int8, lens (B,) int64,
     n_valid scalar int64 tensor)."""
@@ -103,21 +119,45 @@ def unpack_in_se(wire: torch.Tensor, B: int, L: int):
     b2 = wire[o : o + B * nb2].reshape(B, nb2); o += B * nb2
     bm = wire[o : o + B * nbm].reshape(B, nbm); o += B * nbm
     codes = _unpack_codes_dev(b2, bm, L)
-    lb = wire[o : o + 2 * B].reshape(B, 2).to(torch.int64); o += 2 * B
-    lens = lb[:, 0] | (lb[:, 1] << 8)
-    nb = wire[o : o + 4].to(torch.int64)
-    n_valid = nb[0] | (nb[1] << 8) | (nb[2] << 16) | (nb[3] << 24)
-    return codes, lens, n_valid
+    lens = _lens_dev(wire, o, B); o += 2 * B
+    return codes, lens, _n_valid_dev(wire, o)
+
+
+def pack_in_pe(c1, l1, c2, l2, n_valid: int) -> np.ndarray:
+    b21, bm1 = _pack_codes_np(np.asarray(c1, dtype=np.int8))
+    b22, bm2 = _pack_codes_np(np.asarray(c2, dtype=np.int8))
+    return np.concatenate([
+        b21.reshape(-1), bm1.reshape(-1), b22.reshape(-1), bm2.reshape(-1),
+        np.ascontiguousarray(l1, dtype=np.uint16).view(np.uint8),
+        np.ascontiguousarray(l2, dtype=np.uint16).view(np.uint8),
+        np.array([n_valid], dtype=np.int32).view(np.uint8),
+    ])
+
+
+def unpack_in_pe(wire: torch.Tensor, B: int, L: int):
+    """Device: uint8 PE wire_in -> (codes1, lens1, codes2, lens2, n_valid),
+    each mate as unpack_in_se's."""
+    nb2, nbm = _in_sizes(L)
+    o = 0
+    b21 = wire[o : o + B * nb2].reshape(B, nb2); o += B * nb2
+    bm1 = wire[o : o + B * nbm].reshape(B, nbm); o += B * nbm
+    b22 = wire[o : o + B * nb2].reshape(B, nb2); o += B * nb2
+    bm2 = wire[o : o + B * nbm].reshape(B, nbm); o += B * nbm
+    c1 = _unpack_codes_dev(b21, bm1, L)
+    c2 = _unpack_codes_dev(b22, bm2, L)
+    l1 = _lens_dev(wire, o, B); o += 2 * B
+    l2 = _lens_dev(wire, o, B); o += 2 * B
+    return c1, l1, c2, l2, _n_valid_dev(wire, o)
 
 
 class RecSpec(NamedTuple):
     """Static bit layout packing one mapping record into 2 int32 words.
 
-    SE rows (t, pos, strand, score) pack MSB-first in field order, positions
-    biased by `bias` so they are non-negative (pos >= -(L-1) > -pad_tail).
-    None -> unpacked int32."""
+    SE rows (t, pos, strand, score) and PE rows (t, p1, s1, has1, p2, s2,
+    has2) pack MSB-first in field order, positions biased by `bias` so they
+    are non-negative (pos >= -(L-1) > -pad_tail). None -> unpacked int32."""
 
-    kind: str            # "se"
+    kind: str            # "se" | "pe"
     bits: tuple          # per-field bit widths, same order as the row fields
     bias: int
 
@@ -136,13 +176,31 @@ def rec_spec_se(st, cfg) -> RecSpec | None:
     return RecSpec("se", (tb, pb, 1, scb), bias)
 
 
+def rec_spec_pe(st, cfg) -> RecSpec | None:
+    if st is None or getattr(st, "n_txps", 0) <= 0:
+        return None
+    if cfg.mapping_score:
+        raise NotImplementedError("mapping_score (--mappingScore) is not ported yet")
+    tb = (st.n_txps + 1).bit_length()
+    bias = st.pad_tail
+    pb = (st.max_tpos + bias + 1).bit_length()
+    if tb + 2 * pb + 4 > 64:
+        return None
+    return RecSpec("pe", (tb, pb, 1, 1, pb, 1, 1), bias)
+
+
 def pack_rec_fields(spec: RecSpec, fields: list[torch.Tensor]):
-    """Device: SE field list -> (hi, lo) int32 words per the spec; the
-    position field gets the bias added."""
+    """Device: field list -> (hi, lo) int32 words per the spec. Position
+    fields (index 1 of se; 1 and 4 of pe) get the bias added; pe positions
+    are zeroed when their has flag is 0 so the bias never underflows."""
     from rapmap_tpu_torch.ops.collate import _pack2
 
     fs = list(fields)
-    fs[1] = fs[1] + spec.bias
+    if spec.kind == "se":
+        fs[1] = fs[1] + spec.bias
+    else:
+        fs[1] = torch.where(fs[3] != 0, fs[1] + spec.bias, 0)
+        fs[4] = torch.where(fs[6] != 0, fs[4] + spec.bias, 0)
     hi, lo = _pack2(list(zip(fs, spec.bits)))
     return as_i32(hi), as_i32(lo)
 
@@ -157,7 +215,11 @@ def unpack_rec_rows(spec: RecSpec, rows: np.ndarray) -> np.ndarray:
     for i, nb in enumerate(spec.bits):
         off -= nb
         out[:, i] = ((v >> off) & ((1 << nb) - 1)).astype(np.int32)
-    out[:, 1] -= spec.bias
+    if spec.kind == "se":
+        out[:, 1] -= spec.bias
+    else:
+        out[:, 1] = np.where(out[:, 3] != 0, out[:, 1] - spec.bias, 0)
+        out[:, 4] = np.where(out[:, 6] != 0, out[:, 4] - spec.bias, 0)
     return out
 
 
@@ -186,7 +248,7 @@ def unpack_counts_flags(cw: np.ndarray, fw: np.ndarray, C: int):
 
 
 def pack_out(recsd, ctr, flags: torch.Tensor) -> torch.Tensor:
-    """SERecords + Counters + per-read flags -> one int32 vector."""
+    """SERecords/PERecords + Counters + per-read flags -> one int32 vector."""
     hdr = torch.stack([
         recsd.total, recsd.overflowed.to(torch.int64),
         ctr.reads_total, ctr.reads_mapped, ctr.too_ambiguous,

@@ -226,7 +226,8 @@ def _retyped_index(tmp, itype):
 
 
 REFUSALS = {
-    "paired_end": (["quasimap", "-i", "IDX", "-1", "FQ", "-2", "FQ"], "paired-end"),
+    # paired-end mapping is ported: half a pair is what is refused now
+    "paired_end": (["quasimap", "-i", "IDX", "-1", "FQ"], "-1/-2 for paired-end"),
     "pseudomap": (["pseudomap", "-i", "IDX", "-r", "FQ"], "pseudomap"),
     "pseudoindex": (["pseudoindex", "-t", "FA", "-i", "OUT"], "pseudoindex"),
     "mapping_score": (["quasimap", "-i", "IDX", "-r", "FQ", "--mappingScore"], "--mappingScore"),

@@ -1,6 +1,7 @@
 """rapmap_tpu_torch stands alone: with jax and rapmap_tpu refused at import,
-every module imports, a toy index builds and maps on the CPU, and the command
-line (`rapmap_tpu_torch.cli`) indexes and maps FASTQ to SAM; a mapper asked
+every module imports, a toy index builds and maps single-end reads and pairs
+on the CPU, and the command line (`rapmap_tpu_torch.cli`) indexes and maps
+FASTQ to SAM, single-end and paired-end; a mapper asked
 for the default device without a CUDA card raises instead of running on the
 CPU, and the command line returns non-zero; chip_smoke.py without the package
 beside it exits non-zero."""
@@ -56,6 +57,8 @@ SCRIPT = textwrap.dedent("""
     cfg = MapConfig(k=11, chunk=8)
     res = QuasiMapper(idx, cfg, device="cpu")
     out = res.fetch(res.map_se_async(codes, lens))
+    # pairs: each read with its own reverse complement as the right mate
+    pe = res.fetch(res.map_pe_async(codes, lens, (5 - codes[:, ::-1]).copy(), lens))
 
     # the command line, in process: quasiindex, then quasimap FASTQ -> SAM
     import os
@@ -71,6 +74,10 @@ SCRIPT = textwrap.dedent("""
     rc_map = cli.main(["quasimap", "-i", idir, "-r", fq, "-o", sam, "--batchSize", "8"])
     with open(sam) as f:
         sam_mapped = sum(1 for ln in f if ln[0] != "@" and not int(ln.split("\\t")[1]) & 0x104)
+    rc_pe = cli.main(["quasimap", "-i", idir, "-1", fq, "-2", fq, "-o", sam + ".pe",
+                      "--batchSize", "8", "--chunkSize", "4"])
+    with open(sam + ".pe") as f:
+        pe_records = sum(1 for ln in f if ln[0] != "@" and not int(ln.split("\\t")[1]) & 0x4)
 
     torch.cuda.is_available = lambda: False
     try:
@@ -82,6 +89,8 @@ SCRIPT = textwrap.dedent("""
     rc_no_card = cli.main(["quasimap", "-i", idir, "-r", fq, "-o", sam + ".2"])
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "rapmap_tpu"))
     print(json.dumps(dict(modules=mods, mapped=out.counters["reads_mapped"],
+                          pe_mapped=pe.counters["reads_mapped"], pe_kind=pe.recs.shape[1],
+                          rc_pe=rc_pe, pe_records=pe_records,
                           raised=raised, loaded=loaded, rc_index=rc_index, rc_map=rc_map,
                           sam_mapped=sam_mapped, rc_no_card=rc_no_card,
                           second_sam=os.path.exists(sam + ".2"))))
@@ -104,9 +113,11 @@ def test_port_imports_and_maps_without_jax(tmp_path):
     assert res["mapped"] == 16
     assert res["raised"], "QuasiMapper(device=None) ran without a CUDA card"
     for m in ("cli", "io.fastx", "io.sam", "oracle.quasimap", "models.fallback",
-              "utils.timers", "ops.compact"):
+              "utils.timers", "ops.compact", "ops.pairs"):
         assert f"rapmap_tpu_torch.{m}" in res["modules"]
     assert (res["rc_index"], res["rc_map"], res["sam_mapped"]) == (0, 0, 16)
+    assert (res["pe_mapped"], res["pe_kind"]) == (16, 7)
+    assert res["rc_pe"] == 0 and res["pe_records"] > 0
     assert res["rc_no_card"] != 0 and not res["second_sam"]
 
 
