@@ -5,8 +5,8 @@
 
 Builds the port's native host library and every CUDA kernel from the
 sources in this checkout, holds each kernel (the voting sort of
-csrc/sort2.cu, the anchor walk of csrc/walk.cu) against its plain PyTorch
-version on the card, builds a 20 Mbp random transcriptome world from the
+csrc/sort2.cu, the anchor walk of csrc/walk.cu in its three forms) against
+its plain PyTorch version on the card, builds a 20 Mbp random transcriptome world from the
 seed, maps 262,144 single-end 76 bp reads through QuasiMapper.map_se_async /
 fetch (one batch in flight), and checks the result: map rate, reads mapped
 to their true locus, both kernels' launches on the main path, and the
@@ -23,6 +23,15 @@ program a batch), chunked with a parser thread, with a starved expansion
 budget against an ample one on a repetitive world (the host-oracle
 fallback), and on the card against the CPU (SAM files equal byte for byte
 apart from @PG; for pairs also under --noOrphans --maxFragLen --pairOrder).
+The same world with its CHD section dropped (what a with_chd=False build
+writes) takes the binary-search probe, the full upload and the walk kernel's
+forward-lanes mode (anchor_walk_lanes), and the charwise extension
+(packed_extension=False) the walk's charwise build (anchor_walk_charwise):
+both are held against their plain versions; the no-CHD library path
+(nochd_path, nochd_pe_path), the charwise path on both index kinds
+(charwise_path) and the command line on the no-CHD index (cli_nochd_default,
+cli_pe_nochd_default) must give what the canonical-CHD packed path gives in
+the same run, and profile_nochd splits a no-CHD chunk's probe out.
 Every phase prints one JSON line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It exits non-zero, printing no result, without a CUDA card or without the
@@ -54,7 +63,8 @@ PE_BATCHES = 4  # paired-end batches, of 4 chunks each
 K = 31
 # the __global__ functions of csrc/*.cu, as the profiler names them
 HAND_KERNELS = ("cluster_sort_kernel", "tile_sort_kernel", "tile_merge_kernel",
-                "global_step_kernel", "anchor_walk_kernel", "extend_packed_kernel")
+                "global_step_kernel", "anchor_walk_kernel", "extend_packed_kernel",
+                "extend_charwise_kernel")
 
 
 def emit(phase: str, **kw) -> None:
@@ -472,51 +482,103 @@ def extend_packed_kernel(didx, w, b0, e0, pos, active, k: int, steps: int):
     return b, e, mlen
 
 
+def extend_charwise_kernel(didx, codes, lens, b0, e0, pos, active, k: int, steps: int):
+    """csrc/walk.cu's tqm_extend_charwise: the charwise extension's device
+    function once per lane -> (b, e, mlen), the signature of ops.mmp._extend
+    (lane r reads row r of codes). Only this script calls it, to tell a fault
+    in the charwise extension from one in the walk around it."""
+    import torch
+
+    from rapmap_tpu_torch import kernels
+
+    R, L = codes.shape
+    dev = codes.device
+    b, e, mlen = (torch.empty(R, dtype=torch.int64, device=dev) for _ in range(3))
+    act = active.to(torch.uint8).contiguous()
+    fn = kernels.library("walk").tqm_extend_charwise
+    fn.restype = ctypes.c_int
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    fn.argtypes = [vp] * 7 + [i64, vp, i64, i64] + [i32] * 3 + [vp] * 4
+    with torch.cuda.device(dev):
+        rc = fn(
+            codes.data_ptr(), lens.data_ptr(), b0.data_ptr(), e0.data_ptr(), pos.data_ptr(),
+            act.data_ptr(), didx.sa.data_ptr(), didx.sa.shape[0], didx.text.data_ptr(),
+            didx.text.shape[0], R, L, k, steps, b.data_ptr(), e.data_ptr(), mlen.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"tqm_extend_charwise launch failed: CUDA error {rc}")
+    return b, e, mlen
+
+
 WALK_INPUTS = ("preads", "next_bad", "lens2", "col_off2", "bf", "ef", "br", "er", "anch_f",
                "anch_rF", "sa_cmp", "text2q")
+CHAR_WALK_INPUTS = ("lens2", "bf", "ef", "br", "er", "anch_f", "anch_rF", "codes", "sa", "text")
 
 
-def walk_on_0xff(didx, w, k: int, H: int, ext_steps: int, count: bool = False):
+def didx_bytes(didx) -> int:
+    """Device bytes of an uploaded index (the tensors the upload kept)."""
+    return sum(t.numel() * t.element_size() for t in didx if t is not None)
+
+
+def walk_on_0xff(didx, w, k: int, H: int, ext_steps: int, count: bool = False,
+                 paired: bool = True, codes=None):
     """csrc/walk.cu's entries called straight, on outputs that start as 0xFF
     bytes, so that a byte the kernel leaves unwritten shows in a comparison
     with the plain version (the wrapper allocates them unfilled, and a fresh
-    allocation may hold zeros already). count=False: tqm_anchor_walk, the
-    main path's kernel -> (ScanHits, None, None). count=True:
-    tqm_anchor_walk_traffic, the walk compiled with its loads counted, which
-    marks every 32-byte sector of every input tensor that it uses in a bitmap
-    -> (ScanHits, {input: distinct sectors read}, sa_cmp rows compared), for
-    the walk's byte bound. Only this script calls them."""
+    allocation may hold zeros already). paired=False: explicit lanes, B = R.
+    codes (R, L) int8: the charwise extension (tqm_anchor_walk_charwise).
+    count=False: the main path's kernel -> (ScanHits, None, None).
+    count=True: the walk compiled with its loads counted
+    (tqm_anchor_walk_traffic / tqm_anchor_walk_charwise_traffic), which marks
+    every 32-byte sector of every input tensor that it uses in a bitmap ->
+    (ScanHits, {input: distinct sectors read}, sa_cmp rows compared or, for
+    the charwise walk, search trips), for the walk's byte bound. Only this
+    script calls them."""
     import torch
 
     from rapmap_tpu_torch import kernels
     from rapmap_tpu_torch.ops.extend_packed import ext_words
     from rapmap_tpu_torch.ops.mmp import ScanHits
 
-    tensors = [*w, didx.sa_cmp, didx.text2q]
-    R, L = w.preads.shape
+    R = w.lens2.shape[0]
+    L = (w.preads if codes is None else codes).shape[1]
+    B = R // 2 if paired else R
     S = w.bf.shape[1]
-    dev = w.preads.device
+    dev = w.lens2.device
     buf = torch.full((R, H, 4), -1, dtype=torch.int64, device=dev)
     n = torch.full((R,), -1, dtype=torch.int64, device=dev)
     trunc = torch.full((R,), 0xFF, dtype=torch.uint8, device=dev)
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    argtypes = [vp] * 11 + [i64, i32, vp, i64, i64, i64] + [i32] * 6 + [vp] * 3
-    args = [*(t.data_ptr() for t in w), didx.sa_cmp.data_ptr(), didx.sa_cmp.shape[0],
-            didx.sa_cmp.shape[1] - 3, didx.text2q.data_ptr(), didx.text2q.shape[0],
-            R, R // 2, L, S, k, H, ext_steps, ext_words(L, k),
-            buf.data_ptr(), n.data_ptr(), trunc.data_ptr()]
     lib = kernels.library("walk")
+    if codes is None:
+        names, tensors = WALK_INPUTS, [*w, didx.sa_cmp, didx.text2q]
+        argtypes = [vp] * 11 + [i64, i32, vp, i64, i64, i64] + [i32] * 6 + [vp] * 3
+        args = [*(t.data_ptr() for t in w), didx.sa_cmp.data_ptr(), didx.sa_cmp.shape[0],
+                didx.sa_cmp.shape[1] - 3, didx.text2q.data_ptr(), didx.text2q.shape[0],
+                R, B, L, S, k, H, ext_steps, ext_words(L, k)]
+        name = "tqm_anchor_walk"
+    else:
+        names = CHAR_WALK_INPUTS
+        tensors = [w.lens2, w.bf, w.ef, w.br, w.er, w.anch_f, w.anch_rF, codes, didx.sa,
+                   didx.text]
+        argtypes = [vp] * 9 + [i64, vp, i64, i64, i64] + [i32] * 5 + [vp] * 3
+        args = [codes.data_ptr(), *(t.data_ptr() for t in tensors[:7]), didx.sa.data_ptr(),
+                didx.sa.shape[0], didx.text.data_ptr(), didx.text.shape[0],
+                R, B, L, S, k, H, ext_steps]
+        name = "tqm_anchor_walk_charwise"
+    args += [buf.data_ptr(), n.data_ptr(), trunc.data_ptr()]
     if count:
         # one sector more than the bytes fill: a tensor need not start on a sector
         words = [((t.numel() * t.element_size() + 31) // 32 + 1 + 31) // 32 for t in tensors]
         off = np.concatenate([[0], np.cumsum(words)]).astype(np.int64)
         bits = torch.zeros(int(off[-1]), dtype=torch.int32, device=dev)
         rows = torch.zeros(1, dtype=torch.int64, device=dev)
-        fn = lib.tqm_anchor_walk_traffic
+        fn = getattr(lib, name + "_traffic")
         argtypes += [vp, ctypes.POINTER(i64), vp]
         args += [bits.data_ptr(), (i64 * len(words))(*off[:-1].tolist()), rows.data_ptr()]
     else:
-        fn = lib.tqm_anchor_walk
+        fn = getattr(lib, name)
     fn.restype = ctypes.c_int
     fn.argtypes = argtypes + [vp]
     with torch.cuda.device(dev):
@@ -530,8 +592,8 @@ def walk_on_0xff(didx, w, k: int, H: int, ext_steps: int, count: bool = False):
         return hits, None, None
     marks = bits.cpu().numpy().view(np.uint8)
     sectors = {
-        name: int(np.unpackbits(marks[4 * off[g] : 4 * off[g + 1]]).sum())
-        for g, name in enumerate(WALK_INPUTS)
+        nm: int(np.unpackbits(marks[4 * off[g] : 4 * off[g + 1]]).sum())
+        for g, nm in enumerate(names)
     }
     return hits, sectors, int(rows.cpu()[0])
 
@@ -612,7 +674,7 @@ def phase_walk_kernel(dev, timer, mapper, idx, codes, lens, C: int, seed: int, w
     c3, _ = sample_reads(idx, rng, n_small, 150, 0.01)
     # (iv) a repetitive world, two hit slots: lanes overflow and truncate
     ridx = repetitive_index(rng, work)
-    rdidx, rst = upload_index(ridx, dev)
+    rdidx, rst = upload_index(ridx, dev, lean=True)
     c4, _ = sample_reads(ridx, rng, n_small, 120, 0.02)
     l4 = np.full(n_small, 120, np.int32)
     # (vii) 144-160 bp reads through the command line's reader: the 160-column
@@ -750,6 +812,266 @@ def phase_walk_kernel(dev, timer, mapper, idx, codes, lens, C: int, seed: int, w
     return ok, max_err, timing
 
 
+def without_chd(idx):
+    """The index with its CHD section dropped: what build_quasi_index(...,
+    with_chd=False) writes for the same FASTA (same SA, k-mer table, text)."""
+    import dataclasses
+
+    meta = {k: v for k, v in idx.meta.items() if k != "chd"}
+    return dataclasses.replace(idx, chd_dir=None, chd_perm=None, chd_cls=None, meta=meta)
+
+
+def hits_err(a, b) -> dict:
+    """Largest absolute difference of each ScanHits field."""
+    import torch
+
+    from rapmap_tpu_torch.ops.mmp import ScanHits
+
+    def diff(x, y):
+        return int((x.to(torch.int64) - y.to(torch.int64)).abs().max()) if x.numel() else 0
+    return {f: diff(getattr(a, f), getattr(b, f)) for f in ScanHits._fields}
+
+
+def walk_set_record(name, didx, w, kw, got, errs, extra) -> dict:
+    """One input set's line in a walk kernel_vs_plain phase."""
+    import torch
+
+    from rapmap_tpu_torch.ops.extend_packed import ext_words
+
+    R, L = w.lens2.shape[0], (w.preads if kw["codes"] is None else kw["codes"]).shape[1]
+    hit = torch.arange(got.q.shape[1], device=got.q.device)[None, :] < got.n[:, None]
+    return dict(
+        set=name, lanes=R, paired=kw["paired"], read_len=L, columns=w.bf.shape[1],
+        words=ext_words(L, kw["k"]), hit_slots=kw["H"], hits=int(got.n.sum()),
+        truncated_lanes=int(got.truncated.sum()),
+        widest_interval=int(torch.where(hit, got.e - got.b, 0).max()),
+        longest_mmp=int(got.l.max()), field_err=errs, equal_plain=not any(errs.values()),
+        **extra,
+    )
+
+
+def walk_timing(didx, w, kw, plain, timer, cuda: bool) -> dict:
+    """A walk's launch at a main-path shape: device ms with a warm L2 (`ms`)
+    and with the L2 flushed before each launch (`cold_ms`), CUDA events
+    around the calls (`wrapper_ms`), the plain version's ms, and the byte
+    bound counted by the kernel's counting build (every 32-byte input sector
+    the walk uses, once, plus the outputs written once); no single PyTorch
+    call computes the walk (`library_ms` null)."""
+    from rapmap_tpu_torch.ops.mmp import anchor_walk
+
+    prm = {x: kw[x] for x in ("k", "H", "ext_steps")}
+    run = lambda: anchor_walk(didx, *w, **kw)  # noqa: E731
+    wrapper_ms = timer(run, reps=50)
+    ms, ms_by = device_ms(run, 50, cuda)
+    cold_event_ms, cold_ms = walk_cold_ms(run, 50, cuda)
+    plain_ms = timer(lambda: plain(didx, *w, **prm, codes=kw["codes"]), reps=2, warm=1)
+    hits = run()
+    out_bytes = sum(t.numel() * t.element_size() for t in hits)
+    if cuda:
+        counted, sectors, rows = walk_on_0xff(didx, w, **prm, count=True, paired=kw["paired"],
+                                              codes=kw["codes"])
+        if any(hits_err(counted, hits).values()):
+            raise RuntimeError("the counting build of the walk disagrees with the kernel")
+        nbytes = 32 * sum(sectors.values()) + out_bytes
+        # at least index arithmetic and one compare a row or a search trip
+        ops = 32 * rows if kw["codes"] is None else 8 * rows
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        bound = dict(bound_ms=bound_ms, bound_by="bytes" if t_bytes >= t_ops else "operations",
+                     bytes=nbytes, output_bytes=out_bytes, input_sectors_read=sectors,
+                     counted_rows_or_trips=rows, share_of_bound=bound_ms / ms,
+                     share_of_bound_cold=bound_ms / cold_ms)
+    else:
+        bound = dict(bound_ms="not measured", bound_by="bytes")
+    return dict(lanes=w.lens2.shape[0], ms=ms, cold_ms=cold_ms, cold_event_ms=cold_event_ms,
+                wrapper_ms=wrapper_ms, device_ms_by_kernel=ms_by, plain_ms=plain_ms,
+                library_ms=None, **bound)
+
+
+def phase_lanes_walk_kernel(dev, timer, nmapper, idx, codes, lens, C: int, seed: int,
+                            work: str):
+    """anchor_walk with paired=False (the kernel's forward-lanes mode, the
+    probe path of indexes without the canonical CHD) against
+    anchor_walk_lanes_plain, all six ScanHits fields, through the wrapper and
+    through the entry on outputs that start as 0xFF bytes, on the explicit
+    [fwd; revcomp] lanes of: one chunk of the no-CHD world, the Ns/mixed
+    length set, 150 bp reads, and the repetitive world without its CHD at 2
+    and 16 hit slots; then its timing and bound on the chunk."""
+    import torch
+
+    from rapmap_tpu_torch.config import MapConfig
+    from rapmap_tpu_torch.index.format import load_index
+    from rapmap_tpu_torch.ops.device_index import upload_index
+    from rapmap_tpu_torch.ops.mmp import anchor_walk, anchor_walk_lanes_plain, scan_inputs
+
+    cuda = dev.type == "cuda"
+    rng = np.random.default_rng(seed + 7)
+    n_small = min(C, 4096)
+    c2 = codes[C : 2 * C].copy()
+    c2[rng.random(c2.shape) < 0.02] = 5
+    l2 = rng.integers(20, READ_LEN + 1, C).astype(np.int32)
+    l2[::7], l2[1::7], l2[2::7] = K, K - 3, READ_LEN
+    c2[np.arange(READ_LEN)[None, :] >= l2[:, None]] = 5
+    c3, _ = sample_reads(idx, rng, n_small, 150, 0.01)
+    ridx = without_chd(load_index(os.path.join(work, "repetitive_idx")))
+    rdidx, rst = upload_index(ridx, dev)
+    n_rep = max(n_small, 512)  # enough lanes that some overflow 2 slots at any size
+    c4, _ = sample_reads(ridx, rng, n_rep, 120, 0.02)
+    l4 = np.full(n_rep, 120, np.int32)
+    sets = [
+        ("nochd_chunk", nmapper.didx, nmapper.st, nmapper.cfg, codes[:C], lens[:C]),
+        ("ns_mixed_lengths", nmapper.didx, nmapper.st, nmapper.cfg, c2, l2),
+        ("reads_150bp", nmapper.didx, nmapper.st, nmapper.cfg, c3,
+         np.full(n_small, 150, np.int32)),
+        ("repetitive_2_slots", rdidx, rst, MapConfig(k=K, max_hits_per_strand=2), c4, l4),
+        ("repetitive_16_slots", rdidx, rst, MapConfig(k=K), c4, l4),
+    ]
+    checks, max_err, main = [], 0, None
+    for name, didx, st, cfg, cds, lns in sets:
+        w, kw = scan_inputs(didx, st, torch.from_numpy(cds).to(dev),
+                            torch.from_numpy(lns.astype(np.int64)).to(dev), cfg)
+        if kw["paired"] or kw["codes"] is not None:
+            raise RuntimeError(f"{name}: expected the packed forward-lanes walk")
+        prm = {x: kw[x] for x in ("k", "H", "ext_steps")}
+        want = anchor_walk_lanes_plain(didx, *w, **prm)
+        got = anchor_walk(didx, *w, **kw)
+        errs = hits_err(got, want)
+        if cuda:
+            raw, _, _ = walk_on_0xff(didx, w, **prm, paired=False)
+            errs = {f: max(v, hits_err(raw, want)[f]) for f, v in errs.items()}
+        checks.append(walk_set_record(name, didx, w, kw, got, errs, {}))
+        max_err = max(max_err, *errs.values())
+        if name == "nochd_chunk":
+            main = (didx, w, kw)
+    by = {c["set"]: c for c in checks}
+    covered = (by["reads_150bp"]["longest_mmp"] > K + 48
+               and by["repetitive_2_slots"]["truncated_lanes"] > 0
+               and by["repetitive_16_slots"]["widest_interval"] > 1
+               and by["nochd_chunk"]["lanes"] == 2 * C)
+    ok = covered and all(c["equal_plain"] for c in checks)
+    didx, w, kw = main
+    timing = walk_timing(didx, w, kw, anchor_walk_lanes_plain, timer, cuda)
+    emit("kernel_vs_plain", kernel="anchor_walk_lanes", ok=ok, max_abs_err=max_err,
+         covered=covered, checks=checks, timing=timing)
+    del rdidx
+    return ok, max_err, timing
+
+
+def phase_charwise_kernel(dev, timer, cmapper, nmapper, idx, codes, lens, C: int, seed: int):
+    """anchor_walk with the charwise extension (kernel anchor_walk_charwise)
+    against the plain walks with the plain `_extend`, all six ScanHits
+    fields, through the wrapper and on 0xFF-filled outputs: strand-paired
+    lanes on the CHD index (`cmapper`, full upload) and explicit lanes on the
+    no-CHD index (`nmapper`), each on one chunk and on 150 bp reads, and each
+    also equal to the packed walk of the same reads; tqm_extend_charwise
+    alone against `_extend` at every lane's first anchor and on the whole
+    suffix array at random positions; then each mode's timing and bound on
+    the chunk."""
+    import dataclasses
+
+    import torch
+
+    from rapmap_tpu_torch.ops.mmp import (
+        _extend, anchor_walk, anchor_walk_lanes_plain, anchor_walk_plain, scan_inputs,
+    )
+
+    cuda = dev.type == "cuda"
+    rng = np.random.default_rng(seed + 8)
+    n_small = min(C, 4096)
+    c3, _ = sample_reads(idx, rng, n_small, 150, 0.01)
+    l3 = np.full(n_small, 150, np.int32)
+    sets = [("paired_chunk", cmapper, codes[:C], lens[:C]), ("paired_150bp", cmapper, c3, l3),
+            ("lanes_chunk", nmapper, codes[:C], lens[:C]), ("lanes_150bp", nmapper, c3, l3)]
+    checks, max_err, mains = [], 0, {}
+    for name, m, cds, lns in sets:
+        didx, st = m.didx, m.st
+        cfg = dataclasses.replace(m.cfg, packed_extension=False)
+        r = torch.from_numpy(cds).to(dev)
+        ln = torch.from_numpy(lns.astype(np.int64)).to(dev)
+        w, kw = scan_inputs(didx, st, r, ln, cfg)
+        if kw["codes"] is None or kw["paired"] != name.startswith("paired"):
+            raise RuntimeError(f"{name}: expected the charwise walk")
+        prm = {x: kw[x] for x in ("k", "H", "ext_steps")}
+        plain = anchor_walk_plain if kw["paired"] else anchor_walk_lanes_plain
+        want = plain(didx, *w, **prm, codes=kw["codes"])
+        got = anchor_walk(didx, *w, **kw)
+        errs = hits_err(got, want)
+        pw, pkw = scan_inputs(didx, st, r, ln, dataclasses.replace(cfg, packed_extension=True))
+        packed_errs = hits_err(anchor_walk(didx, *pw, **pkw), want)
+        ext_errs = []
+        if cuda:
+            raw, _, _ = walk_on_0xff(didx, w, **prm, paired=kw["paired"], codes=kw["codes"])
+            errs = {f: max(v, hits_err(raw, want)[f]) for f, v in errs.items()}
+            # the extension alone: at each lane's first anchor, and on the whole
+            # suffix array at random positions
+            R = w.lens2.shape[0]
+            S, k, n_sa = w.bf.shape[1], prm["k"], didx.sa.shape[0]
+            first = got.q[:, 0].contiguous()
+            if kw["paired"]:
+                col = torch.where(torch.arange(R, device=dev) >= R // 2, w.lens2 - k - first,
+                                  first)
+                db, de = torch.cat([w.bf, w.br]), torch.cat([w.ef, w.er])
+            else:
+                col, db, de = first, w.bf, w.ef
+            col = col.clamp(0, S - 1)[:, None]
+            b0 = torch.gather(db, 1, col)[:, 0].contiguous()
+            e0 = torch.gather(de, 1, col)[:, 0].contiguous()
+            rpos = torch.from_numpy(rng.integers(0, S, R)).to(dev)
+            ract = torch.from_numpy(rng.random(R) < 0.9).to(dev)
+            for b_, e_, p_, a_, steps in (
+                (b0, e0, first, got.n > 0, prm["ext_steps"]),
+                (torch.zeros_like(b0), torch.full_like(e0, n_sa), rpos, ract,
+                 n_sa.bit_length() + 1),
+            ):
+                pl = _extend(didx, kw["codes"], w.lens2, b_, e_, p_, a_, k, steps)
+                kn = extend_charwise_kernel(didx, kw["codes"], w.lens2, b_, e_, p_, a_, k,
+                                            steps)
+                ext_errs.append(max(int((x - y).abs().max()) for x, y in zip(kn, pl)))
+        checks.append(walk_set_record(
+            name, didx, w, kw, got, errs,
+            dict(packed_walk_err=packed_errs, equal_packed=not any(packed_errs.values()),
+                 extend_err=ext_errs, extend_equal_plain=not any(ext_errs))))
+        max_err = max(max_err, *errs.values(), *packed_errs.values(), *ext_errs)
+        if name.endswith("chunk"):
+            mains[name] = (didx, w, kw, plain)
+    covered = all(c["hits"] > 0 for c in checks) and all(
+        c["longest_mmp"] > K + 48 for c in checks if c["read_len"] == 150)
+    ok = covered and all(c["equal_plain"] and c["equal_packed"] and c["extend_equal_plain"]
+                         for c in checks)
+    timing = {name: walk_timing(didx, w, kw, plain, timer, cuda)
+              for name, (didx, w, kw, plain) in mains.items()}
+    emit("kernel_vs_plain", kernel="anchor_walk_charwise", ok=ok, max_abs_err=max_err,
+         covered=covered, checks=checks, timing=timing)
+    return ok, max_err, timing
+
+
+def library_path(m, codes, lens, B: int, batches: int, cuda: bool):
+    """`batches` batches of B reads through m.map_se_async / m.fetch, one
+    batch in flight, ending in a synchronize -> (results, seconds)."""
+    import torch
+
+    results = []
+    t0 = time.time()
+    pending = m.map_se_async(codes[:B], lens[:B])
+    for b in range(1, batches + 1):
+        nxt = (m.map_se_async(codes[b * B : (b + 1) * B], lens[b * B : (b + 1) * B])
+               if b < batches else None)
+        results.append(m.fetch(pending))
+        pending = nxt
+    if cuda:
+        torch.cuda.synchronize()
+    return results, time.time() - t0
+
+
+def same_result(a, b) -> bool:
+    """Two fetched WireResults are equal: records, counts, flags, totals and
+    counters."""
+    return (np.array_equal(a.recs, b.recs) and np.array_equal(a.counts, b.counts)
+            and np.array_equal(a.flags, b.flags) and a.total == b.total
+            and a.overflowed == b.overflowed and a.counters == b.counters)
+
+
 def true_locus_share(res, truth, lo: int, hi: int) -> float:
     """Share of reads [lo, hi) with a record at their sampled
     (transcript, position, strand)."""
@@ -828,16 +1150,36 @@ def profile_pe_batch(mapper, c1, c2, lens, C: int, cuda: bool) -> dict:
                 chunk_device=device or "not measured")
 
 
+def probe_fn(mapper, r, ln):
+    """The dense phase's k-mer probe alone, on the keys it probes: one
+    canonical-CHD probe per forward window, or, without the canonical CHD,
+    kmer_lookup (binary search) over every window of the [fwd; revcomp]
+    lanes -> a function that runs it."""
+    from rapmap_tpu_torch.ops import encode as denc
+    from rapmap_tpu_torch.ops.extend_packed import pack_reads
+    from rapmap_tpu_torch.ops.lookup import kmer_lookup, kmer_lookup_2str
+    from rapmap_tpu_torch.ops.mmp import lane_codes
+
+    st = mapper.st
+    rows = r if st.chd_canonical else lane_codes(r, ln)
+    L = rows.shape[1]
+    hi, lo, _ = denc.kmer_keys_from_packed(pack_reads(rows), denc.next_bad_batch(rows, L),
+                                           st.k, L - st.k + 1)
+    fn = kmer_lookup_2str if st.chd_canonical else kmer_lookup
+    return lambda: fn(mapper.didx, st, hi, lo)
+
+
 def scan_kernels(mapper, r, ln, cuda: bool) -> dict:
     """The device kernels of one program's scan (dense phase, then anchor
-    walk) by name, under torch.profiler, and those of the anchor tables that
-    the dense phase no longer builds (`anchor_tables`, which only the plain
-    walk runs), on the same inputs: what left the main path."""
+    walk) by name, under torch.profiler, those of its k-mer probe alone, and
+    those of the anchor tables that the dense phase no longer builds
+    (`anchor_tables`, `next_anchor_table`, which only the plain walks run),
+    on the same inputs: what left the main path."""
     if not cuda:
-        return dict(scan="not measured", anchor_tables="not measured")
+        return dict(scan="not measured", lookup="not measured", anchor_tables="not measured")
     import torch
 
-    from rapmap_tpu_torch.ops.mmp import anchor_tables, anchor_walk, dense_phase, walk_params
+    from rapmap_tpu_torch.ops.mmp import anchor_tables, anchor_walk, next_anchor_table, scan_inputs
 
     def run(fn):
         fn()  # warm: the allocator and the kernels' libraries
@@ -848,11 +1190,14 @@ def scan_kernels(mapper, r, ln, cuda: bool) -> dict:
                     kernels=[dict(name=n, ms=v[0], count=v[1]) for n, v in by_name])
 
     def scan():
-        w = dense_phase(mapper.didx, mapper.st, r, ln, mapper.cfg)
-        anchor_walk(mapper.didx, *w, **walk_params(mapper.st, mapper.cfg))
+        w, kw = scan_inputs(mapper.didx, mapper.st, r, ln, mapper.cfg)
+        anchor_walk(mapper.didx, *w, **kw)
 
-    w = dense_phase(mapper.didx, mapper.st, r, ln, mapper.cfg)
-    return dict(scan=run(scan), anchor_tables=run(lambda: anchor_tables(*w[4:])))
+    w, kw = scan_inputs(mapper.didx, mapper.st, r, ln, mapper.cfg)
+    tables = ((lambda: anchor_tables(*w[4:])) if kw["paired"]
+              else (lambda: next_anchor_table(w.anch_f)))
+    return dict(scan=run(scan), lookup=run(probe_fn(mapper, r, ln)),
+                anchor_tables=run(tables))
 
 
 def profile_one_batch(run, n_programs: int, cuda: bool, top_n: int) -> dict:
@@ -893,16 +1238,18 @@ def profile_one_batch(run, n_programs: int, cuda: bool, top_n: int) -> dict:
 
 def profile_batch(mapper, codes, lens, C: int, cuda: bool) -> dict:
     """Where one batch's time goes: the device's busy share and its top
-    kernels (torch.profiler), the device kernels of one program's scan by
-    name, and the synchronized host time of one chunk's scan (dense phase,
-    then anchor walk) and collate stages, and of the wire's host halves for
+    kernels (torch.profiler), the device kernels of one program's scan and
+    of its k-mer probe by name, and the synchronized host time of one
+    chunk's scan (dense phase, then anchor walk), of its probe alone
+    (`lookup_ms`, part of `dense_ms`, timed on its own) and collate stages,
+    and of the wire's host halves for
     the batch. A batch below two chunks runs as one program over the whole
     batch, as the command line's default batches do."""
     import torch
 
     from rapmap_tpu_torch.ops.collate import collate_batch, collate_records_se
     from rapmap_tpu_torch.ops.compact import compact_se
-    from rapmap_tpu_torch.ops.mmp import anchor_walk, dense_phase, walk_params
+    from rapmap_tpu_torch.ops.mmp import anchor_walk, scan_inputs
     from rapmap_tpu_torch.ops.wire import pack_in_se, rec_spec_se
 
     sync = torch.cuda.synchronize if cuda else (lambda: None)
@@ -913,6 +1260,7 @@ def profile_batch(mapper, codes, lens, C: int, cuda: bool) -> dict:
     r = torch.from_numpy(codes[:C]).to(dev)
     ln = torch.from_numpy(lens[:C].astype(np.int64)).to(dev)
     scan_device = scan_kernels(mapper, r, ln, cuda)
+    probe = probe_fn(mapper, r, ln)
     spec = rec_spec_se(mapper.st, mapper.cfg)
     stage, wire = {}, {}
     res = mapper.map_se_async(codes, lens)
@@ -933,10 +1281,14 @@ def profile_batch(mapper, codes, lens, C: int, cuda: bool) -> dict:
                     wire_in_bytes=win.numel(), wire_out_bytes=4 * res.wire.numel())
         sync()
         t0 = time.perf_counter()
-        w = dense_phase(mapper.didx, mapper.st, r, ln, mapper.cfg)
+        probe()
+        sync()
+        lookup_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        w, kw = scan_inputs(mapper.didx, mapper.st, r, ln, mapper.cfg)
         sync()
         tw = time.perf_counter()
-        hits = anchor_walk(mapper.didx, *w, **walk_params(mapper.st, mapper.cfg))
+        hits = anchor_walk(mapper.didx, *w, **kw)
         sync()
         t1 = time.perf_counter()
         if chunked:
@@ -946,12 +1298,13 @@ def profile_batch(mapper, codes, lens, C: int, cuda: bool) -> dict:
             compact_se(collate_batch(mapper.didx, mapper.st, hits, ln, mapper.cfg),
                        mapper.cfg.rec_slots * len(ln))
         sync()
-        stage = dict(scan_ms=(t1 - t0) * 1e3, dense_ms=(tw - t0) * 1e3,
+        stage = dict(scan_ms=(t1 - t0) * 1e3, dense_ms=(tw - t0) * 1e3, lookup_ms=lookup_ms,
                      walk_ms=(t1 - tw) * 1e3, collate_ms=(time.perf_counter() - t1) * 1e3)
     return dict(**batch, scan_device=scan_device, chunk_stages=stage, wire_host=wire)
 
 
 def main() -> int:
+    t_start = time.time()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--txps", type=int, default=10_000)
@@ -1012,7 +1365,7 @@ def main() -> int:
     emit("world", txps=args.txps, text_bases=int(idx.n_text), sa=len(idx.sa),
          kmers=len(idx.kmer_b), chd=idx.meta.get("chd"), reads=args.reads,
          read_len=READ_LEN, index_build_s=build_s, upload_s=upload_s,
-         device_index_bytes=sum(t.numel() * t.element_size() for t in mapper.didx),
+         device_index_bytes=didx_bytes(mapper.didx),
          max_memory_allocated=torch.cuda.max_memory_allocated() if cuda else "not measured",
          chunk=C, voting_pool=cfg.expand_budget * C)
 
@@ -1042,23 +1395,65 @@ def main() -> int:
         raise RuntimeError("anchor_walk kernel disagrees with its plain version, or "
                            "an input set missed what it is there to exercise")
 
+    # ---- the same world without its CHD: the binary-search probe path -------
+    # (what build_quasi_index(with_chd=False) writes for the same FASTA: same
+    # SA, k-mer table and reads, so every mapping must be the same), saved for
+    # the command line; and the CHD index's full upload for the charwise path
+    import dataclasses
+
+    from rapmap_tpu_torch.index.format import save_index
+    from rapmap_tpu_torch.ops.device_index import device_bytes_estimate
+
+    nidx = without_chd(idx)
+    nochd_dir = os.path.join(work, "nochd_idx")
+    t0 = time.time()
+    save_index(nidx, nochd_dir)
+    save_s = time.time() - t0
+    cfg_c = dataclasses.replace(cfg, packed_extension=False)
+    uploads = {}
+    for name, ix, c in (("nochd", nidx, cfg), ("nochd_charwise", nidx, cfg_c),
+                        ("chd_charwise", idx, cfg_c)):
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.time()
+        m = QuasiMapper(ix, c, device=dev)
+        if cuda:
+            torch.cuda.synchronize()
+        uploads[name] = (m, time.time() - t0)
+    nmapper, nmapper_c, cmapper = (uploads[n][0] for n in ("nochd", "nochd_charwise",
+                                                            "chd_charwise"))
+    up = {name: dict(upload_s=t, device_index_bytes=didx_bytes(m.didx),
+                     estimate_bytes=device_bytes_estimate(m.host_index,
+                                                          lean=m.didx.sa_ext is None),
+                     tensors={f: didx_bytes([getattr(m.didx, f)]) for f in m.didx._fields
+                              if getattr(m.didx, f) is not None})
+          for name, (m, t) in uploads.items()}
+    emit("nochd_world", save_s=save_s, lookup_steps=nmapper.st.lookup_steps,
+         prefix_bases=nmapper.st.prefix_bases, use_chd=nmapper.st.use_chd, uploads=up,
+         max_memory_allocated=torch.cuda.max_memory_allocated() if cuda else "not measured")
+    if nmapper.st.use_chd or any(u["device_index_bytes"] > u["estimate_bytes"]
+                                 for u in up.values()):
+        raise RuntimeError("nochd_world: the index kept a CHD, or an upload exceeds its "
+                           "device_bytes_estimate")
+    del uploads
+
+    lanes_ok, lanes_err, lanes_t = phase_lanes_walk_kernel(
+        dev, timer, nmapper, idx, codes, lens, C, args.seed, work)
+    if not lanes_ok:
+        raise RuntimeError("anchor_walk_lanes kernel disagrees with its plain version, or "
+                           "an input set missed what it is there to exercise")
+    char_ok, char_err, char_t = phase_charwise_kernel(
+        dev, timer, cmapper, nmapper, idx, codes, lens, C, args.seed)
+    if not char_ok:
+        raise RuntimeError("anchor_walk_charwise kernel disagrees with its plain version or "
+                           "the packed walk, or an input set missed what it is there to "
+                           "exercise")
+
     # ---- main path: map_se_async / fetch, one batch in flight --------------
     if cuda:  # the peak of the index and the main path, not of the checks above
         torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    results = []
-    t0 = time.time()
-    pending = mapper.map_se_async(codes[:B], lens[:B])
-    for b in range(1, BATCHES + 1):
-        nxt = (
-            mapper.map_se_async(codes[b * B : (b + 1) * B], lens[b * B : (b + 1) * B])
-            if b < BATCHES else None
-        )
-        results.append(mapper.fetch(pending))
-        pending = nxt
-    if cuda:
-        torch.cuda.synchronize()
-    wall = time.time() - t0
+    results, wall = library_path(mapper, codes, lens, B, BATCHES, cuda)
     launches = dict(kernels.LAUNCHES)
     n_chunks = args.reads // C
     ctr = {k: sum(r.counters[k] for r in results) for k in results[0].counters}
@@ -1078,11 +1473,59 @@ def main() -> int:
     for r in results:
         if r.recs.shape[1] != 4 or len(r.recs) != r.total or r.overflowed:
             raise RuntimeError("malformed wire result")
+    main_reads_per_s = args.reads / wall
+
+    # ---- the same reads on the index without its CHD --------------------------
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    n_results, wall = library_path(nmapper, codes, lens, B, BATCHES, cuda)
+    nochd_launches = dict(kernels.LAUNCHES)
+    same = [same_result(a, b) for a, b in zip(n_results, results)]
+    emit("nochd_path", reads=args.reads, batches=BATCHES, batch=B, chunks=n_chunks,
+         seconds=wall, reads_per_s=args.reads / wall,
+         reads_per_s_over_main_path=args.reads / wall / main_reads_per_s,
+         equal_main_path_batches=same, launches=nochd_launches,
+         max_memory_allocated=torch.cuda.max_memory_allocated() if cuda else "not measured")
+    # the canonical-CHD path again, now that the process is as warm as it was
+    # for the no-CHD run (the first path pays first-use costs: pinned buffers)
+    again, again_s = library_path(mapper, codes, lens, B, BATCHES, cuda)
+    emit("main_path_repeat", reads=args.reads, seconds=again_s, reads_per_s=args.reads / again_s,
+         nochd_path_over_repeat=again_s / wall,
+         equal_main_path_batches=[same_result(a, b) for a, b in zip(again, results)])
+    if not all(same):
+        raise RuntimeError("nochd_path: a batch differs from main_path's on the same reads")
+    del again
+    if cuda and (min(nochd_launches["anchor_walk_lanes"],
+                     nochd_launches["bitonic_sort_pairs"]) < n_chunks
+                 or nochd_launches["anchor_walk"]):
+        raise RuntimeError(f"nochd_path: kernel launches {nochd_launches} for {n_chunks} chunks")
+    del n_results
+
+    # ---- the charwise extension (packed_extension=False), both index kinds ----
+    kernels.reset_launches()
+    charwise = {}
+    for name, m in (("chd", cmapper), ("nochd", nmapper_c)):
+        t0 = time.time()
+        got = m.fetch(m.map_se_async(codes[:B], lens[:B]))
+        if cuda:
+            torch.cuda.synchronize()
+        charwise[name] = dict(seconds=time.time() - t0, equal_packed=same_result(got, results[0]),
+                              scan="paired" if m.st.chd_canonical else "explicit lanes")
+    charwise_launches = dict(kernels.LAUNCHES)
+    emit("charwise_path", reads=B, chunks_each=B // C, runs=charwise, launches=charwise_launches)
+    if not all(c["equal_packed"] for c in charwise.values()):
+        raise RuntimeError("charwise_path: a charwise result differs from the packed one")
+    if cuda and (charwise_launches["anchor_walk_charwise"] < 2 * (B // C)
+                 or charwise_launches["anchor_walk"] or charwise_launches["anchor_walk_lanes"]):
+        raise RuntimeError(f"charwise_path: kernel launches {charwise_launches}")
+    del cmapper, nmapper_c
 
     emit("profile", **profile_batch(mapper, codes[:B], lens[:B], C, cuda))
     # one batch of the command line's default size: one program over the batch
     emit("profile_unchunked", batch=cli_bs,
          **profile_batch(mapper, codes[:cli_bs], lens[:cli_bs], C, cuda))
+    emit("profile_nochd", **profile_batch(nmapper, codes[:B], lens[:B], C, cuda))
 
     # ---- paired-end library path: map_pe_async / fetch, one batch in flight --
     # 2 x 76 bp pairs from 200-500 bp fragments of the same world, the chunk
@@ -1132,7 +1575,27 @@ def main() -> int:
         if r.recs.shape[1] != 7 or len(r.recs) != r.total or r.overflowed:
             raise RuntimeError("malformed paired-end wire result")
     n_pe_mapped = pctr["reads_mapped"]
+    pe_first = pe_results[0]
     del pe_results
+
+    # one paired-end batch on the index without its CHD
+    kernels.reset_launches()
+    t0 = time.time()
+    got = nmapper.fetch(nmapper.map_pe_async(pc1[:PB], plens[:PB], pc2[:PB], plens[:PB]))
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    nochd_pe_launches = dict(kernels.LAUNCHES)
+    same = same_result(got, pe_first)
+    emit("nochd_pe_path", pairs=PB, chunks=PB // C, seconds=wall, pairs_per_s=PB / wall,
+         equal_pe_path_first_batch=same, launches=nochd_pe_launches)
+    if not same:
+        raise RuntimeError("nochd_pe_path: the batch differs from pe_path's first batch")
+    if cuda and min(nochd_pe_launches["anchor_walk_lanes"],
+                    nochd_pe_launches["bitonic_sort_pairs"]) < 2 * (PB // C):
+        raise RuntimeError(f"nochd_pe_path: kernel launches {nochd_pe_launches} for "
+                           f"{PB // C} chunks of two mates")
+    del got, pe_first
     # the command line's paired-end inputs: every pair with its true locus in
     # its name, and the head of them for the card-against-CPU runs
     n_head_pe = min(4096, n_pairs)
@@ -1153,7 +1616,7 @@ def main() -> int:
         again.done.synchronize()
         again_pe.done.synchronize()
         card, card_pe = again.wire.clone(), again_pe.wire.clone()
-        del mapper, again, again_pe
+        del mapper, nmapper, again, again_pe
         torch.cuda.empty_cache()
         t0 = time.time()
         cpu_mapper = QuasiMapper(idx, cfg, device="cpu")
@@ -1175,7 +1638,9 @@ def main() -> int:
     force_cpu = not cuda  # a rehearsal runs every command on the CPU
     idx_dir = os.path.join(work, "idx")
     n_main_mapped = ctr["reads_mapped"]
-    del results, idx
+    if not cuda:
+        del nmapper
+    del results, idx, nidx
 
     def sam(name):
         return os.path.join(work, name)
@@ -1196,6 +1661,18 @@ def main() -> int:
         raise RuntimeError(f"cli_default: {share:.4f} of the primary records at the true locus")
     if cuda and cli_default["launches"]["anchor_walk"] != n_batches:
         raise RuntimeError(f"cli_default: walk launches {cli_default['launches']} "
+                           f"for {n_batches} batches")
+
+    cli_nochd = run_cli(
+        "cli_nochd_default", ["-i", nochd_dir, "-r", reads_fq, "-o", sam("n.sam"), *default_bs],
+        work, force_cpu)
+    same = sam_body(sam("a.sam")) == sam_body(sam("n.sam"))
+    emit("cli_nochd_default_checks", batches=n_batches, sam_equals_cli_default=same)
+    if not same:
+        raise RuntimeError("cli_nochd_default: SAM differs from cli_default's")
+    if cuda and (cli_nochd["launches"]["anchor_walk_lanes"] != n_batches
+                 or cli_nochd["launches"]["anchor_walk"]):
+        raise RuntimeError(f"cli_nochd_default: walk launches {cli_nochd['launches']} "
                            f"for {n_batches} batches")
 
     cli_chunked = run_cli(
@@ -1266,6 +1743,18 @@ def main() -> int:
                            f"{share:.4f} of the primary pairs at their true locus")
     if cuda and pe_default["launches"]["anchor_walk"] != 2 * pe_batches:
         raise RuntimeError(f"cli_pe_default: walk launches {pe_default['launches']} "
+                           f"for {pe_batches} batches of two mates")
+
+    pe_nochd = run_cli(
+        "cli_pe_nochd_default", ["-i", nochd_dir, "-1", pe_fq[0], "-2", pe_fq[1],
+                                 "-o", sam("pn.sam"), *default_bs], work, force_cpu)
+    same = sam_body(sam("pa.sam")) == sam_body(sam("pn.sam"))
+    emit("cli_pe_nochd_default_checks", batches=pe_batches, sam_equals_cli_pe_default=same)
+    if not same:
+        raise RuntimeError("cli_pe_nochd_default: SAM differs from cli_pe_default's")
+    if cuda and (pe_nochd["launches"]["anchor_walk_lanes"] != 2 * pe_batches
+                 or pe_nochd["launches"]["anchor_walk"]):
+        raise RuntimeError(f"cli_pe_nochd_default: walk launches {pe_nochd['launches']} "
                            f"for {pe_batches} batches of two mates")
 
     pe_chunked = run_cli(
@@ -1343,6 +1832,7 @@ def main() -> int:
     def on_cli(kernel):
         return {path: n[kernel] for path, n in cli_launches.items()}
 
+    emit("run", seconds=time.time() - t_start)
     print(json.dumps({"kernels": [{
         "name": "bitonic_sort_pairs", "route": "cuda",
         "source": "rapmap_tpu_torch/csrc/sort2.cu",
@@ -1364,6 +1854,35 @@ def main() -> int:
         "matches_plain": walk_ok, "ms": walk_t["ms"], "cold_ms": walk_t["cold_ms"],
         "wrapper_ms": walk_t["wrapper_ms"], "plain_ms": walk_t["plain_ms"],
         "bound_ms": walk_t["bound_ms"], "bound_by": walk_t["bound_by"], "library_ms": None,
+    }, {
+        "name": "anchor_walk_lanes", "route": "cuda",
+        "source": "rapmap_tpu_torch/csrc/walk.cu",
+        "replaces": "rapmap_tpu/ops/mmp.py:419",
+        "launches": nochd_launches["anchor_walk_lanes"],
+        "launches_on_other_paths": {
+            "nochd_pe_path": nochd_pe_launches["anchor_walk_lanes"],
+            "cli_nochd_default": cli_nochd["launches"]["anchor_walk_lanes"],
+            "cli_pe_nochd_default": pe_nochd["launches"]["anchor_walk_lanes"]},
+        "launches_on_cli_paths": on_cli("anchor_walk_lanes"),
+        "launches_on_pe_paths": on_pe("anchor_walk_lanes"), "max_abs_err": lanes_err,
+        "matches_plain": lanes_ok, "ms": lanes_t["ms"], "cold_ms": lanes_t["cold_ms"],
+        "wrapper_ms": lanes_t["wrapper_ms"], "plain_ms": lanes_t["plain_ms"],
+        "bound_ms": lanes_t["bound_ms"], "bound_by": lanes_t["bound_by"], "library_ms": None,
+    }, {
+        "name": "anchor_walk_charwise", "route": "cuda",
+        "source": "rapmap_tpu_torch/csrc/walk.cu",
+        "replaces": "rapmap_tpu/ops/mmp.py:74",
+        "launches": charwise_launches["anchor_walk_charwise"],
+        "launches_on_cli_paths": on_cli("anchor_walk_charwise"),
+        "launches_on_pe_paths": on_pe("anchor_walk_charwise"), "max_abs_err": char_err,
+        "matches_plain": char_ok, "ms": char_t["paired_chunk"]["ms"],
+        "cold_ms": char_t["paired_chunk"]["cold_ms"],
+        "wrapper_ms": char_t["paired_chunk"]["wrapper_ms"],
+        "plain_ms": char_t["paired_chunk"]["plain_ms"],
+        "bound_ms": char_t["paired_chunk"]["bound_ms"],
+        "bound_by": char_t["paired_chunk"]["bound_by"], "library_ms": None,
+        "lanes_mode": {x: char_t["lanes_chunk"][x] for x in
+                       ("ms", "cold_ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")},
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

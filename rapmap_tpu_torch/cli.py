@@ -2,11 +2,11 @@
 
 Port of rapmap_tpu.cli: the same subcommands, flag names and defaults, so a
 parity harness can drive either tool with the same argv. `quasimap` of
-single-end (-r) and paired-end (-1/-2) reads on an index with the canonical
-CHD runs end to end (FASTQ in, SAM out); what is not ported yet
-(pseudo-mapping, --mappingScore, the host-staged engine, --worldSize > 1, the
-quasi_map / quasi_core artifacts, indexes without the canonical CHD) is
-refused with one log line and exit code 1.
+single-end (-r) and paired-end (-1/-2) reads on a quasi index, with or without
+the canonical CHD, runs end to end (FASTQ in, SAM out); what is not ported
+yet (pseudo-mapping, --mappingScore, the host-staged engine, --worldSize > 1,
+the quasi_map / quasi_core artifacts) is refused with one log line and exit
+code 1.
 
 The mapping runs on the CUDA card. TQM_FORCE_CPU=1 runs every kernel's plain
 PyTorch version on the CPU instead; without it and without a card the command
@@ -275,10 +275,6 @@ def run_map(args) -> int:
         return 1
     idx = load_index(args.index)
     cfg = _cfg_from_args(args, idx.k)
-    chd = idx.meta.get("chd") if idx.chd_dir is not None else None
-    if not (chd and chd.get("canonical")):
-        return _refuse("an index without the canonical CHD perfect hash",
-                       "the binary-search probe slice")
     if _choose_quasi_engine(args, idx, device) == "staged":
         return _refuse("the host-staged engine", "the host-staged slice")
 

@@ -1,17 +1,30 @@
-// The anchor walk of the strand-paired MMP scan, with the packed-word
-// extension (suffix compare, bound search, equal range) as device functions:
-// one thread per (read, strand) lane, each looping to its own convergence.
+// The anchor walk of the MMP scan, with the extension inside it as device
+// functions: one thread per lane, each looping to its own convergence.
 //
-// Replaces no Pallas kernel. The reference runs this as XLA lax.while_loops
-// (rapmap_tpu/ops/mmp.py:190-248 calling rapmap_tpu/ops/extend_packed.py:
-// 154-286 every trip), which XLA compiles into one program, after building
-// next- and previous-anchor tables with cumulative min/max scans
-// (rapmap_tpu/ops/mmp.py:161-170). Eager PyTorch has no counterpart: the
-// plain versions (ops/mmp.py anchor_walk_plain, ops/extend_packed.py
-// extend_packed) build those tables and then issue thousands of small
-// launches per chunk, every trip for every lane whether or not it is active.
+// Replaces no Pallas kernel. The reference runs this as XLA lax.while_loops,
+// which XLA compiles into one program: the strand-paired walk
+// (rapmap_tpu/ops/mmp.py:190-248, after next- and previous-anchor tables
+// built with cumulative min/max scans, :161-170) and the walk over explicit
+// lanes of the binary-search probe path (scan_batch, :367-457, while_loop
+// :419-456), each calling an extension every trip: the packed word compare
+// (rapmap_tpu/ops/extend_packed.py:154-286) or, with packed_extension off,
+// the charwise one (_extend :74-97, a while_loop over _col_lower_bound
+// :49-71). Eager PyTorch has no counterpart: the plain versions
+// (ops/mmp.py anchor_walk_plain, anchor_walk_lanes_plain, _extend;
+// ops/extend_packed.py extend_packed) build the tables and then issue
+// thousands of small launches per chunk, every trip for every lane whether
+// or not it is active, and the charwise loop syncs with the host each depth.
 // Here a lane's searches stop at lo == hi and its walk at pos >= S, so no
 // masked trip runs and nothing syncs with the host.
+//
+// Lane kinds: with R = 2B, lanes [0, B) are forward and [B, 2B) are rc lanes
+// walked in mirrored forward columns (the canonical-CHD scan); with R = B
+// every lane is a forward lane over its own (R, S) rows (the explicit
+// [fwd; revcomp] lanes of scan_batch). Extensions: the kernel is built once
+// per extension (template parameter kChar): packed words (extend_lane) or
+// the charwise per-depth narrowing over the lanes' int8 codes and the flat
+// sa/text arrays (extend_charwise). The packed instantiation is the code the
+// kernel had before the charwise one was added (if constexpr).
 //
 // What bounds it on the card. The byte bound is the hit buffer written once
 // (R x H x 32 bytes, three quarters of the bytes at H = 16) plus the 32-byte
@@ -90,7 +103,18 @@ struct Index {
 // The input tensors, as the traffic count names them.
 enum Region {
   kPreads, kNextBad, kLens, kColOff, kBf, kEf, kBr, kEr, kAnchF, kAnchR, kSaCmp, kText2q,
+  kCodes, kSa, kText,  // the charwise extension's
   kRegions
+};
+
+// The charwise extension's inputs: the lanes' left-aligned int8 codes and the
+// flat suffix array and text.
+struct CharIndex {
+  const int8_t* codes;  // (R, L)
+  const int32_t* sa;    // (n_sa,)
+  int64_t n_sa;
+  const int8_t* text;   // (n_text,)
+  int64_t n_text;
 };
 
 // What a launch read, for the byte bound of a run: one bitmap per input
@@ -119,6 +143,9 @@ __device__ __forceinline__ int64_t ldg(const int64_t* p) {
   return __ldg(reinterpret_cast<const long long*>(p));
 }
 __device__ __forceinline__ int32_t ldg(const int32_t* p) { return __ldg(p); }
+__device__ __forceinline__ int8_t ldg(const int8_t* p) {
+  return static_cast<int8_t>(__ldg(reinterpret_cast<const signed char*>(p)));
+}
 
 // A counted load of one element, through the read-only path.
 template <bool kCount, typename T>
@@ -216,6 +243,55 @@ struct AnchorMask {
     return -1;
   }
 };
+
+// ---- the charwise extension ---------------------------------------------------
+
+// Lower bound of char c in the depth-d text column over SA[lo, hi): at most
+// `steps` trips, as the plain version's static bound (a lane that stops at
+// lo == hi has the lo the masked trips keep). Gathers clamp as
+// ops/gather.py's do.
+template <bool kCount>
+__device__ int64_t col_lower_bound(const CharIndex& cx, int64_t lo, int64_t hi, int64_t d,
+                                   int c, int steps, const Traffic& tr) {
+  for (int t = 0; t < steps && lo < hi; ++t) {
+    if constexpr (kCount) atomicAdd(tr.rows, 1ull);
+    const int64_t mid = (lo + hi) >> 1;
+    const int64_t g = load<kCount>(tr, kSa, cx.sa + clamp64(mid, 0, cx.n_sa - 1));
+    const int v = load<kCount>(tr, kText, cx.text + clamp64(g + d, 0, cx.n_text - 1));
+    if (v < c) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// ops/mmp.py _extend for one lane: from depth k, narrow [b, e) one char at a
+// time (two lower bounds, for c and c + 1) until a mismatch, the read's end
+// or a code outside 1..4; mlen is the final depth. row: the lane's codes.
+template <bool kCount>
+__device__ void extend_charwise(const CharIndex& cx, const int8_t* row, int64_t len,
+                                int64_t b0, int64_t e0, int64_t pos, bool active, int k,
+                                int steps, int L, int64_t& b, int64_t& e, int64_t& mlen,
+                                const Traffic& tr) {
+  b = b0;
+  e = e0;
+  int64_t d = k;
+  while (active) {
+    const int64_t ic = pos + d;
+    if (ic >= len) break;
+    const int c = load<kCount>(tr, kCodes, row + clamp64(ic, 0, L - 1));
+    if (c < 1 || c > 4) break;
+    const int64_t lb = col_lower_bound<kCount>(cx, b, e, d, c, steps, tr);
+    const int64_t ub = col_lower_bound<kCount>(cx, b, e, d, c + 1, steps, tr);
+    if (lb >= ub) break;
+    b = lb;
+    e = ub;
+    d += 1;
+  }
+  mlen = d;
+}
 
 // ---- the packed extension ----------------------------------------------------
 
@@ -433,15 +509,17 @@ __device__ __forceinline__ void put_slot(int64_t* slot, int64_t a, int64_t b, in
 }
 
 // Lane r < B is forward and reads row r of bf/ef/anch_f; lane r >= B is rc
-// and reads row r - B of br/er/anch_r, in forward columns.
-template <bool kCount>
+// and reads row r - B of br/er/anch_r, in forward columns (none when B = R).
+// kChar: the charwise extension over cx (preads, next_bad, col_off2 and ix
+// unused); else the packed one (cx unused).
+template <bool kCount, bool kChar>
 __global__ void __launch_bounds__(kMaxLanes) anchor_walk_kernel(
     const int64_t* __restrict__ preads, const int64_t* __restrict__ next_bad,
     const int64_t* __restrict__ lens2, const int64_t* __restrict__ col_off2,
     const int64_t* __restrict__ bf, const int64_t* __restrict__ ef,
     const int64_t* __restrict__ br, const int64_t* __restrict__ er,
     const uint8_t* __restrict__ anch_f, const uint8_t* __restrict__ anch_r, Index ix,
-    int64_t R, int64_t B, int L, int S, int k, int H, int steps, int W, bool staged,
+    CharIndex cx, int64_t R, int64_t B, int L, int S, int k, int H, int steps, int W, bool staged,
     int64_t* __restrict__ buf, int64_t* __restrict__ n_out, uint8_t* __restrict__ trunc_out,
     Traffic tr) {
   // staged: the block's lanes x H slots x [pos, mlen, b, e], laid out as in buf
@@ -452,7 +530,7 @@ __global__ void __launch_bounds__(kMaxLanes) anchor_walk_kernel(
   const bool is_rc = r >= B;
   const int64_t rr = is_rc ? r - B : r;
   const int64_t len = load<kCount>(tr, kLens, lens2 + r);
-  const int64_t col_off = load<kCount>(tr, kColOff, col_off2 + r);
+  const int64_t col_off = kChar ? 0 : load<kCount>(tr, kColOff, col_off2 + r);
   AnchorMask<kCount> mask;
   mask.init((is_rc ? anch_r : anch_f) + rr * S, S, is_rc ? kAnchR : kAnchF);
   // Each warp zeroes, stages and writes out its own lanes' part of buf, so
@@ -471,8 +549,6 @@ __global__ void __launch_bounds__(kMaxLanes) anchor_walk_kernel(
   }
 
   if (live) {
-    const int64_t* words = preads + r * L;
-    const int64_t* nbad = next_bad + r * L;
     const int64_t* db = (is_rc ? br : bf) + rr * S;
     const int64_t* de = (is_rc ? er : ef) + rr * S;
     const Region gb = is_rc ? kBr : kBf;
@@ -500,9 +576,15 @@ __global__ void __launch_bounds__(kMaxLanes) anchor_walk_kernel(
       const int64_t posc = clamp64(pos, 0, S - 1);
       const int64_t col = clamp64(is_rc ? len - k - posc : posc, 0, S - 1);
       int64_t b, e, mlen;
-      extend_lane<kCount>(ix, words, nbad, len, col_off, load<kCount>(tr, gb, db + col),
-                          load<kCount>(tr, ge, de + col), posc, true, k, steps, L, W, b, e,
-                          mlen, tr);
+      if constexpr (kChar) {
+        extend_charwise<kCount>(cx, cx.codes + r * L, len, load<kCount>(tr, gb, db + col),
+                                load<kCount>(tr, ge, de + col), posc, true, k, steps, L, b,
+                                e, mlen, tr);
+      } else {
+        extend_lane<kCount>(ix, preads + r * L, next_bad + r * L, len, col_off,
+                            load<kCount>(tr, gb, db + col), load<kCount>(tr, ge, de + col),
+                            posc, true, k, steps, L, W, b, e, mlen, tr);
+      }
       put_slot(out + 4 * n, posc, mlen, b, e);
       n += 1;
       const int64_t adv = mlen - k + 1;
@@ -539,6 +621,22 @@ __global__ void extend_packed_kernel(
   mlen_out[r] = mlen;
 }
 
+__global__ void extend_charwise_kernel(
+    const int64_t* __restrict__ lens, const int64_t* __restrict__ b0,
+    const int64_t* __restrict__ e0, const int64_t* __restrict__ pos,
+    const uint8_t* __restrict__ active, CharIndex cx, int64_t R, int L, int k, int steps,
+    int64_t* __restrict__ b_out, int64_t* __restrict__ e_out, int64_t* __restrict__ mlen_out) {
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  const Traffic tr{};
+  int64_t b, e, mlen;
+  extend_charwise<false>(cx, cx.codes + r * L, lens[r], b0[r], e0[r], pos[r], active[r] != 0,
+                         k, steps, L, b, e, mlen, tr);
+  b_out[r] = b;
+  e_out[r] = e;
+  mlen_out[r] = mlen;
+}
+
 // What the compare takes: sa_cmp rows of whole 8-byte pairs on 8-byte
 // boundaries, with at most kRegWords fused words.
 bool index_ok(const void* sa_cmp, int64_t n_sa, int F, int64_t nw) {
@@ -551,15 +649,27 @@ Index make_index(const void* sa_cmp, int64_t n_sa, int F, const void* text2q, in
                static_cast<const int32_t*>(text2q), nw};
 }
 
-template <bool kCount>
+bool char_index_ok(const void* codes, const void* sa, int64_t n_sa, const void* text,
+                   int64_t n_text) {
+  return codes != nullptr && sa != nullptr && text != nullptr && n_sa > 0 && n_text > 0;
+}
+
+CharIndex make_char_index(const void* codes, const void* sa, int64_t n_sa, const void* text,
+                          int64_t n_text) {
+  return CharIndex{static_cast<const int8_t*>(codes), static_cast<const int32_t*>(sa), n_sa,
+                   static_cast<const int8_t*>(text), n_text};
+}
+
+// The launch of either extension's walk; the inputs of the other extension
+// are not read (ix or cx default, null lane pointers).
+template <bool kCount, bool kChar>
 int launch_walk(const void* preads, const void* next_bad, const void* lens2,
                 const void* col_off2, const void* bf, const void* ef, const void* br,
-                const void* er, const void* anch_f, const void* anch_r, const void* sa_cmp,
-                int64_t n_sa, int F, const void* text2q, int64_t nw, int64_t R, int64_t B,
-                int L, int S, int k, int H, int steps, int W, void* buf, void* n_out,
-                void* trunc_out, const Traffic& tr, void* stream) {
-  if (R <= 0 || B <= 0 || R > 2 * B || !index_ok(sa_cmp, n_sa, F, nw) || L <= 0 || S <= 0 ||
-      H <= 0 || W < 1)
+                const void* er, const void* anch_f, const void* anch_r, const Index& ix,
+                const CharIndex& cx, int64_t R, int64_t B, int L, int S, int k, int H,
+                int steps, int W, void* buf, void* n_out, void* trunc_out, const Traffic& tr,
+                void* stream) {
+  if (R <= 0 || B <= 0 || R > 2 * B || L <= 0 || S <= 0 || H <= 0 || W < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0;
   int cap = 0;
@@ -575,48 +685,65 @@ int launch_walk(const void* preads, const void* next_bad, const void* lens2,
                            : kMaxLanes;
   const size_t smem = staged ? static_cast<size_t>(lanes * lane_bytes) : 0;
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(anchor_walk_kernel<kCount>,
+    err = cudaFuncSetAttribute(anchor_walk_kernel<kCount, kChar>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const unsigned blocks = static_cast<unsigned>((R + lanes - 1) / lanes);
-  anchor_walk_kernel<kCount><<<blocks, lanes, smem, static_cast<cudaStream_t>(stream)>>>(
+  anchor_walk_kernel<kCount, kChar><<<blocks, lanes, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(preads), static_cast<const int64_t*>(next_bad),
       static_cast<const int64_t*>(lens2), static_cast<const int64_t*>(col_off2),
       static_cast<const int64_t*>(bf), static_cast<const int64_t*>(ef),
       static_cast<const int64_t*>(br), static_cast<const int64_t*>(er),
-      static_cast<const uint8_t*>(anch_f), static_cast<const uint8_t*>(anch_r),
-      make_index(sa_cmp, n_sa, F, text2q, nw), R, B, L, S, k, H, steps, W, staged,
-      static_cast<int64_t*>(buf), static_cast<int64_t*>(n_out),
+      static_cast<const uint8_t*>(anch_f), static_cast<const uint8_t*>(anch_r), ix, cx, R, B, L,
+      S, k, H, steps, W, staged, static_cast<int64_t*>(buf), static_cast<int64_t*>(n_out),
       static_cast<uint8_t*>(trunc_out), tr);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The traffic bitmaps of the named regions: region g gets word_off[i] of
+// `bits` where regions[i] == g (the other regions are not read).
+Traffic make_traffic(const void* const* tensors, const Region* regions, int n, void* bits,
+                     const int64_t* word_off, void* rows) {
+  Traffic tr{};
+  for (int i = 0; i < n; ++i) {
+    tr.base[regions[i]] = reinterpret_cast<uintptr_t>(tensors[i]) >> 5;
+    tr.bits[regions[i]] = static_cast<uint32_t*>(bits) + word_off[i];
+  }
+  tr.rows = static_cast<unsigned long long*>(rows);
+  return tr;
+}
+
 }  // namespace
 
-// The anchor walk over R = 2B lanes (rows [0, B) forward, [B, 2B) rc).
-// bf, ef, br, er (B, S) int64 and anch_f, anch_r (B, S) bool: the dense
-// phase's intervals and anchor masks of both strands, in forward columns.
-// Writes every byte of buf (R, H, 4) int64 [pos, mlen, b, e] (unused slots
-// 0), n_out (R,) int64 and trunc_out (R,) bytes: none needs a fill.
+// The anchor walk with the packed extension. Strand-paired lanes: R = 2B
+// (rows [0, B) forward, [B, 2B) rc) with bf, ef, br, er (B, S) int64 and
+// anch_f, anch_r (B, S) bool, the dense phase's intervals and anchor masks of
+// both strands in forward columns. Explicit lanes: B = R, every lane forward
+// over its row of bf, ef, anch_f (R, S); br, er, anch_r unused. Writes every
+// byte of buf (R, H, 4) int64 [pos, mlen, b, e] (unused slots 0), n_out (R,)
+// int64 and trunc_out (R,) bytes: none needs a fill.
 extern "C" int tqm_anchor_walk(
     const void* preads, const void* next_bad, const void* lens2, const void* col_off2,
     const void* bf, const void* ef, const void* br, const void* er, const void* anch_f,
     const void* anch_r, const void* sa_cmp, int64_t n_sa, int F, const void* text2q, int64_t nw,
     int64_t R, int64_t B, int L, int S, int k, int H, int steps, int W, void* buf, void* n_out,
     void* trunc_out, void* stream) {
-  return launch_walk<false>(preads, next_bad, lens2, col_off2, bf, ef, br, er, anch_f, anch_r,
-                            sa_cmp, n_sa, F, text2q, nw, R, B, L, S, k, H, steps, W, buf, n_out,
-                            trunc_out, Traffic{}, stream);
+  if (!index_ok(sa_cmp, n_sa, F, nw)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_walk<false, false>(preads, next_bad, lens2, col_off2, bf, ef, br, er, anch_f,
+                                   anch_r, make_index(sa_cmp, n_sa, F, text2q, nw), CharIndex{},
+                                   R, B, L, S, k, H, steps, W, buf, n_out, trunc_out, Traffic{},
+                                   stream);
 }
 
 // The same walk, counting what it reads: for measuring the byte bound of a
 // run, never on the main path. `bits` is a zeroed device array of 32-bit
-// words holding one bitmap per input tensor, in the order of Region; the
-// bitmap of tensor g starts at word word_off[g] (a host array) and gets a bit
-// set for every 32-byte sector of g that the launch read, sector 0 being the
-// one the tensor's first byte lies in. `rows` is one zeroed device uint64 that
+// words holding one bitmap per input tensor, in the order of the entry's
+// arguments (preads ... anch_r, sa_cmp, text2q); the bitmap of the i-th starts
+// at word word_off[i] (a host array) and gets a bit set for every 32-byte
+// sector of that tensor that the launch read, sector 0 being the one the
+// tensor's first byte lies in. `rows` is one zeroed device uint64 that
 // receives the number of sa_cmp rows compared.
 extern "C" int tqm_anchor_walk_traffic(
     const void* preads, const void* next_bad, const void* lens2, const void* col_off2,
@@ -624,17 +751,55 @@ extern "C" int tqm_anchor_walk_traffic(
     const void* anch_r, const void* sa_cmp, int64_t n_sa, int F, const void* text2q, int64_t nw,
     int64_t R, int64_t B, int L, int S, int k, int H, int steps, int W, void* buf, void* n_out,
     void* trunc_out, void* bits, const int64_t* word_off, void* rows, void* stream) {
-  const void* tensors[kRegions] = {preads, next_bad, lens2,  col_off2, bf,     ef,
-                                   br,     er,       anch_f, anch_r,   sa_cmp, text2q};
-  Traffic tr;
-  for (int g = 0; g < kRegions; ++g) {
-    tr.base[g] = reinterpret_cast<uintptr_t>(tensors[g]) >> 5;
-    tr.bits[g] = static_cast<uint32_t*>(bits) + word_off[g];
-  }
-  tr.rows = static_cast<unsigned long long*>(rows);
-  return launch_walk<true>(preads, next_bad, lens2, col_off2, bf, ef, br, er, anch_f, anch_r,
-                           sa_cmp, n_sa, F, text2q, nw, R, B, L, S, k, H, steps, W, buf, n_out,
-                           trunc_out, tr, stream);
+  if (!index_ok(sa_cmp, n_sa, F, nw)) return static_cast<int>(cudaErrorInvalidValue);
+  const void* tensors[] = {preads, next_bad, lens2,  col_off2, bf,     ef,
+                           br,     er,       anch_f, anch_r,   sa_cmp, text2q};
+  const Region regions[] = {kPreads, kNextBad, kLens,  kColOff, kBf,    kEf,
+                            kBr,     kEr,      kAnchF, kAnchR,  kSaCmp, kText2q};
+  return launch_walk<true, false>(preads, next_bad, lens2, col_off2, bf, ef, br, er, anch_f,
+                                  anch_r, make_index(sa_cmp, n_sa, F, text2q, nw), CharIndex{},
+                                  R, B, L, S, k, H, steps, W, buf, n_out, trunc_out,
+                                  make_traffic(tensors, regions, 12, bits, word_off, rows),
+                                  stream);
+}
+
+// The anchor walk with the charwise extension (ops/mmp.py _extend), lanes as
+// in tqm_anchor_walk: codes (R, L) int8 holds every lane's codes left-aligned
+// (for paired lanes the explicit [fwd; revcomp] rows: an rc lane's anchors
+// are mirrored as in tqm_anchor_walk, its extension reads its own row); sa
+// (n_sa,) int32 and text (n_text,) int8 are the flat suffix array and text.
+// Writes every output byte as tqm_anchor_walk does.
+extern "C" int tqm_anchor_walk_charwise(
+    const void* codes, const void* lens2, const void* bf, const void* ef, const void* br,
+    const void* er, const void* anch_f, const void* anch_r, const void* sa, int64_t n_sa,
+    const void* text, int64_t n_text, int64_t R, int64_t B, int L, int S, int k, int H,
+    int steps, void* buf, void* n_out, void* trunc_out, void* stream) {
+  if (!char_index_ok(codes, sa, n_sa, text, n_text))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_walk<false, true>(nullptr, nullptr, lens2, nullptr, bf, ef, br, er, anch_f,
+                                  anch_r, Index{}, make_char_index(codes, sa, n_sa, text, n_text),
+                                  R, B, L, S, k, H, steps, 1, buf, n_out, trunc_out, Traffic{},
+                                  stream);
+}
+
+// The charwise walk counting what it reads, as tqm_anchor_walk_traffic; the
+// bitmaps follow the order lens2, bf, ef, br, er, anch_f, anch_r, codes, sa,
+// text, and `rows` receives the number of search trips (one sa and one text
+// gather each).
+extern "C" int tqm_anchor_walk_charwise_traffic(
+    const void* codes, const void* lens2, const void* bf, const void* ef, const void* br,
+    const void* er, const void* anch_f, const void* anch_r, const void* sa, int64_t n_sa,
+    const void* text, int64_t n_text, int64_t R, int64_t B, int L, int S, int k, int H,
+    int steps, void* buf, void* n_out, void* trunc_out, void* bits, const int64_t* word_off,
+    void* rows, void* stream) {
+  if (!char_index_ok(codes, sa, n_sa, text, n_text))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* tensors[] = {lens2, bf, ef, br, er, anch_f, anch_r, codes, sa, text};
+  const Region regions[] = {kLens, kBf, kEf, kBr, kEr, kAnchF, kAnchR, kCodes, kSa, kText};
+  return launch_walk<true, true>(nullptr, nullptr, lens2, nullptr, bf, ef, br, er, anch_f,
+                                 anch_r, Index{}, make_char_index(codes, sa, n_sa, text, n_text),
+                                 R, B, L, S, k, H, steps, 1, buf, n_out, trunc_out,
+                                 make_traffic(tensors, regions, 10, bits, word_off, rows), stream);
 }
 
 // The extension alone, once per lane on given (b0, e0, pos, active): the
@@ -656,5 +821,25 @@ extern "C" int tqm_extend_packed(
       static_cast<const int64_t*>(pos), static_cast<const uint8_t*>(active),
       make_index(sa_cmp, n_sa, F, text2q, nw), R, L, k, steps, W, static_cast<int64_t*>(b_out),
       static_cast<int64_t*>(e_out), static_cast<int64_t*>(mlen_out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The charwise extension alone, once per lane on given (b0, e0, pos, active):
+// the signature of ops/mmp.py _extend (codes (R, L) int8, lane r reading row
+// r), so that a fault in the charwise walk can be located.
+extern "C" int tqm_extend_charwise(
+    const void* codes, const void* lens, const void* b0, const void* e0, const void* pos,
+    const void* active, const void* sa, int64_t n_sa, const void* text, int64_t n_text,
+    int64_t R, int L, int k, int steps, void* b_out, void* e_out, void* mlen_out,
+    void* stream) {
+  if (R <= 0 || L <= 0 || !char_index_ok(codes, sa, n_sa, text, n_text))
+    return static_cast<int>(cudaErrorInvalidValue);
+  extend_charwise_kernel<<<static_cast<unsigned>((R + kMaxLanes - 1) / kMaxLanes), kMaxLanes, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(lens), static_cast<const int64_t*>(b0),
+      static_cast<const int64_t*>(e0), static_cast<const int64_t*>(pos),
+      static_cast<const uint8_t*>(active), make_char_index(codes, sa, n_sa, text, n_text), R, L,
+      k, steps, static_cast<int64_t*>(b_out), static_cast<int64_t*>(e_out),
+      static_cast<int64_t*>(mlen_out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,6 @@
-"""Host-side CHD perfect-hash construction over the k-mer table (copy of
-rapmap_tpu.index.chd's build side).
+"""Host-side CHD perfect-hash construction over the k-mer table, its numpy
+query model and the upgrade of an index without one (copy of
+rapmap_tpu.index.chd).
 
 Replaces the reference's BooPHF minimal perfect hash role
 (upstream:include/BooPHF.hpp, SURVEY.md §2.2): the sorted k-mer table stays
@@ -71,6 +72,55 @@ def build_chd(khi: np.ndarray, klo: np.ndarray, seed0: int = 1):
         log.warning("CHD placement failed for seed %d; reseeding", seed)
     log.warning("CHD build gave up after 8 seeds; falling back to binary search")
     return None
+
+
+def attach_chd(idx, save_dir: str | None = None) -> bool:
+    """Build + attach a canonical-class CHD section to an existing index
+    (upgrades pre-CHD and legacy per-strand-CHD indexes). Returns True when a
+    canonical CHD is present afterwards. The caller must have loaded the
+    index with mmap=False if save_dir rewrites in place."""
+    if getattr(idx, "chd_dir", None) is not None and idx.meta.get("chd", {}).get(
+        "canonical"
+    ):
+        return True
+    chd = build_canonical_chd(
+        np.asarray(idx.kmer_hi, np.uint32),
+        np.asarray(idx.kmer_lo, np.uint32),
+        idx.k,
+        seed0=idx.seed + 1,
+    )
+    if chd is None:
+        return False
+    idx.chd_dir, idx.chd_perm, idx.chd_cls = chd["dir"], chd["perm"], chd["cls"]
+    idx.meta["chd"] = {k: chd[k] for k in ("seed", "m_bits", "t_bits", "p_bits", "canonical")}
+    if save_dir:
+        from rapmap_tpu_torch.index.format import save_index
+
+        save_index(idx, save_dir)
+    return True
+
+
+def chd_query_np(khi, klo, dirv, perm, seed: int, m_bits: int, t_bits: int,
+                 p_bits: int = 0):
+    """Numpy model of the device probe: -> row index or -1 (pre-verify).
+
+    The caller must still compare the row's (hi, lo) against the key: alien
+    keys return an arbitrary slot whose row simply fails the compare.
+    """
+    hi = np.asarray(khi, dtype=np.uint32)
+    lo = np.asarray(klo, dtype=np.uint32)
+    sa = np.uint32((seed * 0x9E3779B9 + 1) & 0xFFFFFFFF)
+    sb = np.uint32((seed * 0x85EBCA6B + 2) & 0xFFFFFFFF)
+    g = mix32_np(hi ^ mix32_np(lo ^ sa)) & np.uint32((1 << m_bits) - 1)
+    hb = mix32_np(hi ^ mix32_np(lo ^ sb))
+    d = dirv[g].astype(np.uint32)
+    s = mix32_np(hb + d)
+    if p_bits:
+        stripe = (g >> np.uint32(m_bits - p_bits)) << np.uint32(t_bits - p_bits)
+        slot = stripe | (s & np.uint32((1 << (t_bits - p_bits)) - 1))
+    else:
+        slot = s & np.uint32((1 << t_bits) - 1)
+    return perm[slot]
 
 
 # ---------------------------------------------------------------------------

@@ -30,7 +30,12 @@ NVCC_FLAGS = [
 ]
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES: dict[str, int] = {"bitonic_sort_pairs": 0, "anchor_walk": 0}
+LAUNCHES: dict[str, int] = {
+    "bitonic_sort_pairs": 0,
+    "anchor_walk": 0,           # csrc/walk.cu, packed extension, strand-paired lanes
+    "anchor_walk_lanes": 0,     # csrc/walk.cu, packed extension, explicit lanes
+    "anchor_walk_charwise": 0,  # csrc/walk.cu, charwise extension, either lane kind
+}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -274,10 +274,6 @@ class QuasiMapper:
             cfg = MapConfig(k=idx.k)
         if cfg.k != idx.k:
             raise ValueError(f"config k={cfg.k} != index k={idx.k}")
-        if not cfg.packed_extension:
-            raise NotImplementedError(
-                "the charwise extension path (packed_extension=False) is not ported"
-            )
         if cfg.mapping_score:
             raise NotImplementedError("mapping_score (--mappingScore) is not ported yet")
         if cfg.expand_budget == 0:
@@ -289,7 +285,11 @@ class QuasiMapper:
                 expand_pairs=cfg.expand_pairs or sampled_width(widths) >= 2.0,
             )
         self.cfg = cfg
-        self.didx, self.st = upload_index(idx, self.device, meta_pairs=cfg.expand_pairs)
+        # lean upload drops the arrays the CHD + packed-extension path never
+        # gathers; the binary-search probe and the charwise extension need them
+        lean = cfg.packed_extension and getattr(idx, "chd_dir", None) is not None
+        self.didx, self.st = upload_index(idx, self.device, lean=lean,
+                                          meta_pairs=cfg.expand_pairs)
         self.host_index = idx  # oracle fallback for budget-degraded reads
         self.txp_names = idx.txp_names
         self.txp_lens = np.asarray(idx.txp_lens)

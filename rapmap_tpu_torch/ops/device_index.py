@@ -1,15 +1,23 @@
 """Device-resident quasi index: flat tensors on the card + static engine facts.
 
-Port of rapmap_tpu.ops.device_index's lean upload (the CHD + packed-extension
-hot path). Every hot probe reads one multi-column row:
+Port of rapmap_tpu.ops.device_index. Every hot probe reads one multi-column
+row:
 
-  chd_rows  (2^t, 6) [chi, clo, b_fwd, e_fwd, b_rc, e_rc]  one per k-mer class probe
-  sa_cmp    (n, 6)   [wi, sub, tleft, w0, w1, w2]          one per extension compare
-  sa_meta   (n, 2|4) [sa_txp, sa_tpos (, next pair)]       one per expansion slot
-  text2q    (nw, 4)  packed words w..w+3                   long-read compare tails
+  chd_rows  (2^t, 6|4) [chi, clo, b_fwd, e_fwd, b_rc, e_rc] canonical class
+            rows, or [hi, lo, b, e] legacy per-strand rows   one per CHD probe
+  kmer_rows (K, 4)   [hi, lo, b, e]                          one per search trip
+  lut_rows  (4^p, 2) [lut[v], lut[v+1]]                      one per prefix bucket
+  sa_cmp    (n, 6)   [wi, sub, tleft, w0, w1, w2]            one per extension compare
+  sa_ext    (n, 3)   [wi, sub, tleft]                        (full upload only)
+  sa_meta   (n, 2|4) [sa_txp, sa_tpos (, next pair)]         one per expansion slot
+  text2q    (nw, 4)  packed words w..w+3                     long-read compare tails
+  text, sa  the flat int8 text and int32 SA of the charwise extension
 
-Words keep the reference's int32 bit patterns (ops.bits widens them on
-gather). All derived at upload from the on-disk arrays (disk format unchanged).
+The lean upload (what the canonical-CHD + packed-extension path gathers)
+drops sa_ext, kmer_rows, lut_rows, text and sa; the full upload keeps them,
+except text and sa for an int64 (big) SA. Words keep the reference's int32
+bit patterns (ops.bits widens them on gather). All derived at upload from
+the on-disk arrays (disk format unchanged).
 """
 
 from __future__ import annotations
@@ -24,13 +32,21 @@ from rapmap_tpu_torch.index.format import QuasiIndex
 
 
 class DeviceQuasiIndex(NamedTuple):
-    """Tensors the mapping path gathers from (all int32, on one device)."""
+    """Tensors the mapping path gathers from (int32 but `text`, int8, all on
+    one device); None where the upload drops them."""
 
     text2q: torch.Tensor    # (nw, 4): packed words i..i+3
     sa_meta: torch.Tensor   # (n, 2) [sa_txp, sa_tpos] or (n, 4) pair rows
     sa_cmp: torch.Tensor    # (n, 3 + SA_CMP_WORDS)
-    chd_dir: torch.Tensor   # (2^m_bits,)
-    chd_rows: torch.Tensor  # (2^t_bits, 6) canonical class rows
+    chd_dir: torch.Tensor | None = None   # (2^m_bits,); None: no CHD
+    chd_rows: torch.Tensor | None = None  # (2^t_bits, 6) canonical or (2^t_bits, 4) legacy
+    # full upload only (None under lean upload):
+    sa_ext: torch.Tensor | None = None    # (n, 3) [(SA+k) >> 4, (SA+k) & 15, tend - (SA+k)]
+    kmer_rows: torch.Tensor | None = None  # (K, 4) [hi, lo, b, e]: the binary search
+    lut_rows: torch.Tensor | None = None   # (4^p, 2) [lut[v], lut[v+1]]
+    # the charwise extension's flat arrays; None under lean upload and for a big SA
+    text: torch.Tensor | None = None  # int8 codes
+    sa: torch.Tensor | None = None    # int32
 
 
 @dataclass(frozen=True)
@@ -54,7 +70,7 @@ class EngineStatic:
     chd_canonical: bool = False  # rows carry both strands' intervals
 
     @staticmethod
-    def for_index(idx: QuasiIndex) -> "EngineStatic":
+    def for_index(idx: QuasiIndex, use_chd: bool | None = None) -> "EngineStatic":
         lut = np.asarray(idx.prefix_lut)
         max_bucket = int(np.max(np.diff(lut))) if len(lut) > 1 else 1
         steps = max(1, int(np.ceil(np.log2(max_bucket + 1))) + 1)
@@ -62,13 +78,15 @@ class EngineStatic:
         widths = np.asarray(idx.kmer_e) - np.asarray(idx.kmer_b)
         max_w = int(widths.max()) if len(widths) else 1
         chd = idx.meta.get("chd") if getattr(idx, "chd_dir", None) is not None else None
+        if use_chd is None:
+            use_chd = chd is not None
         tl = np.asarray(idx.txp_lens)
         return EngineStatic(
             k=idx.k, prefix_bases=idx.prefix_bases, lookup_steps=steps,
             pad_tail=pad_tail, max_interval_idx=max_w,
             n_txps=int(idx.n_txps),
             max_tpos=int(tl.max()) if len(tl) else 0,
-            use_chd=chd is not None,
+            use_chd=bool(use_chd and chd is not None),
             chd_seed=int(chd["seed"]) if chd else 0,
             chd_m_bits=int(chd["m_bits"]) if chd else 0,
             chd_t_bits=int(chd["t_bits"]) if chd else 0,
@@ -117,18 +135,31 @@ def sa_cmp_rows(sa, tend, k: int, t2b: np.ndarray) -> np.ndarray:
     return np.stack(cols, axis=1)
 
 
-def device_bytes_estimate(idx: QuasiIndex) -> int:
-    """Device memory the lean upload needs, from array SHAPES only (safe on
-    mmap'd indexes — no data is read). The CHD table holds one 24 B row per
-    slot (len(chd_perm) = 2^t_bits), not per class as the reference's
-    estimate counts, which undercounts it up to ~2.4x."""
+def device_bytes_estimate(idx: QuasiIndex, lean: bool | None = None) -> int:
+    """Device memory upload_index allocates, from array SHAPES only (safe on
+    mmap'd indexes — no data is read). lean=None means what QuasiMapper
+    picks with the packed extension: lean when the index carries a CHD.
+
+    The CHD table holds one 24 B row per slot (len(chd_perm) = 2^t_bits),
+    not per class as the reference's estimate counts, which undercounts it
+    up to ~2.4x. The full upload adds kmer_rows (16 B a k-mer), lut_rows
+    (8 B a bucket), sa_ext (12 B a slot) and, unless the SA is int64, the
+    flat text (1 B a char) and sa (4 B a slot), which the reference's
+    estimate leaves out."""
+    has_chd = getattr(idx, "chd_dir", None) is not None
+    if lean is None:
+        lean = has_chd
     n = len(idx.sa)
     nw = len(idx.text2b)
     b = n * (3 + SA_CMP_WORDS) * 4   # sa_cmp fused rows
     b += n * 16                      # sa_meta (pair rows worst case)
     b += nw * 16                     # text2q quad rows
-    if getattr(idx, "chd_dir", None) is not None:
+    if has_chd:
         b += len(idx.chd_dir) * 4 + len(idx.chd_perm) * 24
+    if not lean:
+        b += max(len(idx.kmer_b), 1) * 16 + max(0, len(idx.prefix_lut) - 1) * 8 + n * 12
+        if np.asarray(idx.sa).dtype != np.int64:
+            b += len(idx.text) + n * 4
     return int(b)
 
 
@@ -178,26 +209,50 @@ def canonical_class_rows(idx: QuasiIndex) -> np.ndarray:
     ).astype(np.int32)
 
 
+def kmer_table_rows(idx: QuasiIndex) -> np.ndarray:
+    """(K, 4) int32 [hi, lo, b, e]: one row per table probe (a single zero
+    row for an empty table)."""
+    if not len(idx.kmer_b):
+        return np.zeros((1, 4), np.int32)
+    return np.stack(
+        [
+            np.asarray(idx.kmer_hi, dtype=np.uint32).view(np.int32),
+            np.asarray(idx.kmer_lo, dtype=np.uint32).view(np.int32),
+            np.asarray(idx.kmer_b, dtype=np.int32),
+            np.asarray(idx.kmer_e, dtype=np.int32),
+        ],
+        axis=1,
+    )
+
+
+def legacy_chd_rows(idx: QuasiIndex, kmer_rows: np.ndarray) -> np.ndarray:
+    """(2^t_bits, 4) int32 per-strand CHD rows of a CHD that is not
+    canonical: kmer_rows[perm], empty slots a row no query matches."""
+    perm = np.asarray(idx.chd_perm, dtype=np.int64)
+    sentinel = np.array([-1, -1, 0, 0], dtype=np.int32)
+    return np.where(
+        (perm >= 0)[:, None], kmer_rows[np.clip(perm, 0, len(kmer_rows) - 1)],
+        sentinel[None, :],
+    ).astype(np.int32)
+
+
 def upload_index(
-    idx: QuasiIndex, device, meta_pairs: bool = False
+    idx: QuasiIndex, device, lean: bool = False, meta_pairs: bool = False
 ) -> tuple[DeviceQuasiIndex, EngineStatic]:
-    """The reference's lean upload (`upload_index(lean=True)`): only the
-    arrays the canonical-CHD + packed-extension path gathers. Requires an
-    index that carries the canonical-class CHD; the binary-search probe for
-    indexes without one is not part of this package yet."""
+    """The reference's upload. lean=True drops every array the CHD +
+    packed-extension path never gathers (sa_ext, the binary-search
+    kmer_rows/lut_rows, the charwise text/sa) and needs a CHD-bearing index;
+    the full upload keeps them (text/sa only for an int32 SA). A canonical
+    CHD gets 6-column class rows, a legacy one kmer_rows[perm]."""
     if len(np.asarray(idx.sa)) >= 2**31:
         raise ValueError(
             "single-device upload caps at 2^31 SA slots (int32 slot ids on "
             "device); genome-scale indexes need the SA-sharded mode"
         )
+    if lean and getattr(idx, "chd_dir", None) is None:
+        raise ValueError("lean upload requires a CHD-bearing index")
+    big_sa = np.asarray(idx.sa).dtype == np.int64
     st = EngineStatic.for_index(idx)
-    if not (st.use_chd and st.chd_canonical):
-        raise ValueError(
-            "upload needs an index with a canonical-class CHD perfect hash "
-            "(the native index-build library was unavailable at build time, "
-            "or the index predates canonical CHD); the binary-search probe "
-            "path is not ported yet"
-        )
     sa_txp = np.asarray(idx.sa_txp, dtype=np.int32)
     sa_tpos = np.asarray(idx.sa_tpos, dtype=np.int32)
     off = np.asarray(idx.txp_offsets, dtype=np.int64)
@@ -217,15 +272,31 @@ def upload_index(
     t2p = np.concatenate([t2b, np.zeros(4, np.uint32)])
     text2q = np.stack([t2p[i : i + nw] for i in range(4)], axis=1).view(np.int32)
     sa_cmp = sa_cmp_rows(idx.sa, tend, idx.k, t2b)
+    kmer_rows = kmer_table_rows(idx)
 
-    def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
+    def dev(a, dtype=np.int32):
+        a = np.ascontiguousarray(a, dtype=dtype)
+        # arrays of a memory-mapped index are read-only; torch wants writable memory
+        return torch.from_numpy(a if a.flags.writeable else a.copy()).to(device)
 
+    chd_dir = chd_rows = None
+    if st.use_chd:
+        chd_dir = dev(np.asarray(idx.chd_dir, dtype=np.int32))
+        chd_rows = dev(canonical_class_rows(idx) if st.chd_canonical
+                       else legacy_chd_rows(idx, kmer_rows))
+    full = not lean
+    flat = full and not big_sa
+    lut = np.asarray(idx.prefix_lut, dtype=np.int32)
     didx = DeviceQuasiIndex(
         text2q=dev(text2q),
         sa_meta=dev(sa_meta),
         sa_cmp=dev(sa_cmp),
-        chd_dir=dev(np.asarray(idx.chd_dir, dtype=np.int32)),
-        chd_rows=dev(canonical_class_rows(idx)),
+        chd_dir=chd_dir,
+        chd_rows=chd_rows,
+        sa_ext=dev(sa_ext_cols(idx.sa, tend, idx.k)) if full else None,
+        kmer_rows=dev(kmer_rows) if full else None,
+        lut_rows=dev(np.stack([lut[:-1], lut[1:]], axis=1)) if full else None,
+        text=dev(np.asarray(idx.text), np.int8) if flat else None,
+        sa=dev(np.asarray(idx.sa)) if flat else None,
     )
     return didx, st

@@ -1,6 +1,6 @@
 """Device-side read preprocessing: reverse complement, k-mer keys, N scanning.
 
-Port of rapmap_tpu.ops.encode (the functions the canonical-CHD scan uses).
+Port of rapmap_tpu.ops.encode.
 Shape-static and batched over an (R, L) int8 code array (SEMANTICS.md §1
 codes); key words are uint32 values carried in int64 (ops.bits).
 """
@@ -14,6 +14,17 @@ from rapmap_tpu_torch.ops.bits import M32, shl32
 NCODE = 5
 
 
+def revcomp_batch(reads: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """(R, L) int8, per-row lengths -> per-row reverse complement, LEFT-aligned
+    (rc position p at column p), padded with NCODE."""
+    R, L = reads.shape
+    i = torch.arange(L, dtype=torch.int64, device=reads.device)[None, :]
+    src = lens.to(torch.int64)[:, None] - 1 - i
+    vals = torch.gather(reads, 1, src.clamp(0, L - 1).expand(R, L))
+    comp = torch.where((vals >= 1) & (vals <= 4), 5 - vals, NCODE).to(torch.int8)
+    return torch.where(src >= 0, comp, NCODE).to(torch.int8)
+
+
 def comp_flip_batch(reads: torch.Tensor) -> torch.Tensor:
     """(R, L) int8 -> RIGHT-ALIGNED reverse complement: flip of the
     complemented full row (a static permutation — no per-row gather). A row
@@ -21,6 +32,25 @@ def comp_flip_batch(reads: torch.Tensor) -> torch.Tensor:
     column p + (L - len). Pad/N codes flip to NCODE."""
     comp = torch.where((reads >= 1) & (reads <= 4), 5 - reads, NCODE).to(torch.int8)
     return torch.flip(comp, dims=[1])
+
+
+def kmer_keys_batch(reads: torch.Tensor, k: int):
+    """(R, L) -> (hi, lo, valid) each (R, S) with S = L - k + 1: big-endian
+    2-bit keys built one base at a time (the charwise path's keys; equal to
+    kmer_keys_from_packed's); valid iff the window is pure ACGT."""
+    R, L = reads.shape
+    S = L - k + 1
+    if S < 1:
+        raise ValueError("reads shorter than k")
+    hi = torch.zeros((R, S), dtype=torch.int64, device=reads.device)
+    lo = torch.zeros_like(hi)
+    valid = torch.ones((R, S), dtype=torch.bool, device=reads.device)
+    for i in range(k):
+        c = reads[:, i : i + S].to(torch.int64)
+        valid = valid & (c >= 1) & (c <= 4)
+        hi = shl32(hi, 2) | (lo >> 30)
+        lo = shl32(lo, 2) | ((c - 1) & 3)
+    return hi, lo, valid
 
 
 def kmer_keys_from_packed(

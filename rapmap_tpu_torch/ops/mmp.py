@@ -1,24 +1,32 @@
 """MMP search with NIP skipping — the compute core (SACollector rebuild).
 
-Port of rapmap_tpu.ops.mmp's canonical-CHD strand-paired scan, two phases:
+Port of rapmap_tpu.ops.mmp, two phases:
 
-  1. *Dense lookup*: one canonical CHD probe per forward window answers both
-     strands of every (read, strand) lane at once — no loop.
+  1. *Dense lookup*: a k-mer probe of every window of every (read, strand)
+     lane at once — no loop. With the canonical-class CHD one probe per
+     forward window answers both strands (`dense_phase`); otherwise the
+     [fwd; revcomp] lanes are built explicitly and each lane's windows are
+     probed through `ops.lookup.kmer_lookup` (legacy CHD or prefix-LUT binary
+     search: `lane_phase`).
   2. *Anchor walk*: the NIP-skipping scan; each trip lands directly on the
-     next anchor of the lane's anchor mask.
+     next anchor of the lane's anchor mask and extends it, with the packed
+     word compare (`ops.extend_packed`) or, with cfg.packed_extension off,
+     the charwise per-depth narrowing (`_extend`).
 
 On CUDA tensors the walk is one launch of the hand-written kernel of
 csrc/walk.cu (`anchor_walk`): one thread per lane, each looping to its own
-convergence, with the packed extension inside it; it finds a lane's next
-anchor by a bit scan of its mask row and writes every output byte itself. On
-CPU tensors it is `anchor_walk_plain`, which builds the reference's
-next-/prev-anchor tables from the masks and runs max_hits_per_strand + 1
-trips with finished lanes masked: every trip of an active lane either
-records a hit or sets `truncated`, so that many trips finish every lane, and
-per-lane results are identical to the reference's loop-until-done. The
-reference's dead-lane compaction and narrow tail only change the lockstep
-width (its docstring says the output is bit-identical) and are not carried
-over.
+convergence, with the extension inside it; it finds a lane's next anchor by a
+bit scan of its mask row and writes every output byte itself. The same
+kernel walks strand-paired lanes (rc lanes mirrored onto forward columns) or
+explicit lanes that are all walked forward (`paired=False`), and is built
+once with each extension. On CPU tensors the walk is `anchor_walk_plain` /
+`anchor_walk_lanes_plain`, which build the reference's next-(/prev-)anchor
+tables from the masks and run max_hits_per_strand + 1 trips with finished
+lanes masked: every trip of an active lane either records a hit or sets
+`truncated`, so that many trips finish every lane, and per-lane results are
+identical to the reference's loop-until-done. The reference's dead-lane
+compaction and narrow tail only change the lockstep width (its docstring
+says the output is bit-identical) and are not carried over.
 """
 
 from __future__ import annotations
@@ -34,8 +42,8 @@ from rapmap_tpu_torch.config import MapConfig
 from rapmap_tpu_torch.ops import encode as denc
 from rapmap_tpu_torch.ops.device_index import DeviceQuasiIndex, EngineStatic
 from rapmap_tpu_torch.ops.extend_packed import ext_words, extend_packed, pack_reads
-from rapmap_tpu_torch.ops.gather import row_gather
-from rapmap_tpu_torch.ops.lookup import kmer_lookup_2str
+from rapmap_tpu_torch.ops.gather import flat_gather, row_gather
+from rapmap_tpu_torch.ops.lookup import kmer_lookup, kmer_lookup_2str
 
 WALK_FUSED_WORDS_MAX = 8  # csrc/walk.cu kRegWords: fused sa_cmp words it holds in registers
 
@@ -50,15 +58,19 @@ class ScanHits(NamedTuple):
 
 
 class WalkInputs(NamedTuple):
-    """What the dense phase hands the anchor walk. Lane tensors have R = 2B
-    rows, [0, B) forward lanes and [B, 2B) rc lanes; the per-window tensors
-    have B rows in forward columns, `*f` for forward lanes, `*r`/`*rF` for rc
-    lanes (rc lane r reads row r - B). All int64 but the bool masks."""
+    """What the dense phase hands the anchor walk. Lane tensors have R rows.
+    Strand-paired (`dense_phase`): R = 2B, [0, B) forward lanes and [B, 2B)
+    rc lanes; the per-window tensors have B rows in forward columns, `*f` for
+    forward lanes, `*r`/`*rF` for rc lanes (rc lane r reads row r - B).
+    Explicit lanes (`lane_phase`): the per-window tensors have R rows, every
+    lane is walked forward, and br/er/anch_rF are bf/ef/anch_f again (unused).
+    All int64 but the bool masks; preads and next_bad are None on the
+    charwise path, which reads the lanes' codes instead."""
 
-    preads: torch.Tensor    # (R, L) packed read words
-    next_bad: torch.Tensor  # (R, L)
+    preads: torch.Tensor | None    # (R, L) packed read words
+    next_bad: torch.Tensor | None  # (R, L)
     lens2: torch.Tensor     # (R,)
-    col_off2: torch.Tensor  # (R,) 0 for fwd lanes, L - len for rc lanes
+    col_off2: torch.Tensor  # (R,) 0 for fwd and explicit lanes, L - len for paired rc lanes
     bf: torch.Tensor        # (B, S) forward k-mer interval begins
     ef: torch.Tensor        # (B, S) forward k-mer interval ends
     br: torch.Tensor        # (B, S) rc k-mer interval begins
@@ -88,7 +100,9 @@ def dense_phase(
     lane's window at position s' is the reverse complement of the fwd window
     at lens-k-s'. The rc lane's anchor walk runs in its own coordinates;
     dense-array accesses map through col = lens - k - pos, and its next
-    anchor is the previous rc anchor in fwd coordinates."""
+    anchor is the previous rc anchor in fwd coordinates. With
+    cfg.packed_extension off the keys are built base by base and no packed
+    words are made (the charwise walk reads `lane_codes`)."""
     B, L = reads.shape
     k = st.k
     S = L - k + 1
@@ -98,14 +112,18 @@ def dense_phase(
 
     lens = lens.to(torch.int64)
     lens2 = torch.cat([lens, lens])
-    # rc lanes RIGHT-ALIGNED by a static flip: rc data position p lives at
-    # column p + (L - len), threaded into the extension as col_off
-    lanes = torch.cat([reads, denc.comp_flip_batch(reads)], dim=0)
-    col_off2 = torch.cat([torch.zeros_like(lens), L - lens])
-    next_bad = denc.next_bad_batch(lanes, L)
-    preads = pack_reads(lanes)
-
-    key_hi, key_lo, kvalid = denc.kmer_keys_from_packed(preads[:B], next_bad[:B], k, S)
+    if cfg.packed_extension:
+        # rc lanes RIGHT-ALIGNED by a static flip: rc data position p lives at
+        # column p + (L - len), threaded into the extension as col_off
+        lanes = torch.cat([reads, denc.comp_flip_batch(reads)], dim=0)
+        col_off2 = torch.cat([torch.zeros_like(lens), L - lens])
+        next_bad = denc.next_bad_batch(lanes, L)
+        preads = pack_reads(lanes)
+        key_hi, key_lo, kvalid = denc.kmer_keys_from_packed(preads[:B], next_bad[:B], k, S)
+    else:
+        col_off2 = torch.zeros_like(lens2)
+        next_bad = preads = None
+        key_hi, key_lo, kvalid = denc.kmer_keys_batch(reads, k)
     ff, bf, ef, fr, br, er = kmer_lookup_2str(didx, st, key_hi, key_lo)
     s_ix = torch.arange(S, dtype=torch.int64, device=dev)[None, :]
     ok = kvalid & ((s_ix + k) <= lens[:, None])
@@ -117,18 +135,78 @@ def dense_phase(
     )
 
 
-def scan_batch_paired(
+def lane_codes(reads: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """The explicit [fwd; revcomp] lanes of forward reads, (2B, L) int8, each
+    row left-aligned: what the charwise walk and `scan_batch` read."""
+    return torch.cat([reads, denc.revcomp_batch(reads, lens)], dim=0)
+
+
+def lane_phase(
     didx: DeviceQuasiIndex,
     st: EngineStatic,
-    reads: torch.Tensor,  # (B, L) int8 — FORWARD reads only
-    lens: torch.Tensor,   # (B,) int64
+    reads: torch.Tensor,  # (R, L) int8 — rows are (read, strand) lanes
+    lens: torch.Tensor,   # (R,)
+    cfg: MapConfig,
+) -> WalkInputs:
+    """The dense phase of `scan_batch`: every window of every lane probed
+    through `kmer_lookup` (legacy CHD or prefix-LUT binary search); every
+    lane is walked forward."""
+    R, L = reads.shape
+    k = st.k
+    S = L - k + 1
+    if L >= st.pad_tail:
+        raise ValueError("read length must stay below the text tail pad")
+    lens = lens.to(torch.int64)
+    if cfg.packed_extension:
+        next_bad = denc.next_bad_batch(reads, L)
+        preads = pack_reads(reads)
+        key_hi, key_lo, kvalid = denc.kmer_keys_from_packed(preads, next_bad, k, S)
+    else:
+        next_bad = preads = None
+        key_hi, key_lo, kvalid = denc.kmer_keys_batch(reads, k)
+    found, db, de = kmer_lookup(didx, st, key_hi, key_lo)
+    s_ix = torch.arange(S, dtype=torch.int64, device=reads.device)[None, :]
+    anchor = found & kvalid & ((s_ix + k) <= lens[:, None]) & ((de - db) <= cfg.max_interval)
+    return WalkInputs(
+        preads=preads, next_bad=next_bad, lens2=lens, col_off2=torch.zeros_like(lens),
+        bf=db, ef=de, br=db, er=de, anch_f=anchor, anch_rF=anchor,
+    )
+
+
+def scan_batch(
+    didx: DeviceQuasiIndex,
+    st: EngineStatic,
+    reads: torch.Tensor,  # (R, L) int8 — rows are (read, strand) lanes
+    lens: torch.Tensor,   # (R,)
     cfg: MapConfig,
 ) -> ScanHits:
-    """SEMANTICS.md §3 scan over [fwd; rc] lanes: the dense phase with its
-    SHARED lookup, then the anchor walk. Rows [0, B) of the result are
-    forward lanes, [B, 2B) rc."""
-    w = dense_phase(didx, st, reads, lens, cfg)
-    return anchor_walk(didx, *w, **walk_params(st, cfg))
+    """SEMANTICS.md §3 scan over explicit lanes, each walked forward: the
+    probe path of indexes without a canonical CHD."""
+    w = lane_phase(didx, st, reads, lens, cfg)
+    return anchor_walk(didx, *w, **walk_params(st, cfg), paired=False,
+                       codes=None if cfg.packed_extension else reads.contiguous())
+
+
+def scan_inputs(
+    didx: DeviceQuasiIndex,
+    st: EngineStatic,
+    reads: torch.Tensor,  # (B, L) int8 — FORWARD reads
+    lens: torch.Tensor,   # (B,)
+    cfg: MapConfig,
+) -> tuple[WalkInputs, dict]:
+    """The dense half of `scan_dispatch` -> (walk inputs, the keyword
+    arguments of `anchor_walk`): `scan_dispatch` is
+    `anchor_walk(didx, *w, **kw)` of them."""
+    kw = walk_params(st, cfg)
+    lens = lens.to(torch.int64)
+    if st.chd_canonical:
+        w = dense_phase(didx, st, reads, lens, cfg)
+        codes = None if cfg.packed_extension else lane_codes(reads, lens)
+        return w, dict(kw, paired=True, codes=codes)
+    # the reference's non-canonical branch: explicit [fwd; revcomp] lanes
+    lanes = lane_codes(reads, lens)
+    w = lane_phase(didx, st, lanes, torch.cat([lens, lens]), cfg)
+    return w, dict(kw, paired=False, codes=None if cfg.packed_extension else lanes)
 
 
 def anchor_tables(bf, ef, br, er, anch_f, anch_rF):
@@ -136,34 +214,66 @@ def anchor_tables(bf, ef, br, er, anch_f, anch_rF):
     begins, ends, and the next-anchor (fwd rows) / prev-anchor (rc rows, fwd
     coordinates) scans of the masks, S and -1 where there is none."""
     S = bf.shape[1]
-    s_ix = torch.arange(S, dtype=torch.int64, device=bf.device)[None, :]
-    nf = torch.where(anch_f, s_ix, S)  # next anchor >= s (fwd lanes)
-    next_f = torch.flip(torch.cummin(torch.flip(nf, dims=[1]), dim=1).values, dims=[1])
-    pv = torch.where(anch_rF, s_ix, -1)  # prev anchor <= s (rc lanes)
-    prev_rF = torch.cummax(pv, dim=1).values
+    prev_rF = torch.cummax(torch.where(anch_rF, _cols(S, bf.device), -1), dim=1).values
     # lane-aligned stacks: row r < B = fwd arrays, row r >= B = rc arrays
     return (torch.cat([bf, br], dim=0), torch.cat([ef, er], dim=0),
-            torch.cat([next_f, prev_rF], dim=0))
+            torch.cat([next_anchor_table(anch_f), prev_rF], dim=0))
 
 
-def anchor_walk_plain(
-    didx: DeviceQuasiIndex,
-    preads: torch.Tensor,    # (R, L) packed read words of the [fwd; rc] lanes
-    next_bad: torch.Tensor,  # (R, L)
-    lens2: torch.Tensor,     # (R,)
-    col_off2: torch.Tensor,  # (R,) 0 for fwd lanes, L - len for rc lanes
-    bf, ef, br, er, anch_f, anch_rF,  # (B, S) each, as in WalkInputs
-    *, k: int, H: int, ext_steps: int,
-) -> ScanHits:
-    """The anchor walk in PyTorch, all R = 2B lanes in lockstep (rows [0, B)
-    forward, [B, 2B) rc): the anchor tables, then H + 1 trips with finished
-    lanes masked."""
-    db2, de2, anc2 = anchor_tables(bf, ef, br, er, anch_f, anch_rF)
-    R, L = preads.shape
-    S = db2.shape[1]
-    B = R // 2
-    dev = preads.device
-    is_rc = torch.arange(R, device=dev) >= B
+def _cols(S: int, dev) -> torch.Tensor:
+    return torch.arange(S, dtype=torch.int64, device=dev)[None, :]
+
+
+def next_anchor_table(anch: torch.Tensor) -> torch.Tensor:
+    """next[r, s] = smallest anchor column s' >= s of row r, else S."""
+    S = anch.shape[1]
+    nf = torch.where(anch, _cols(S, anch.device), S)
+    return torch.flip(torch.cummin(torch.flip(nf, dims=[1]), dim=1).values, dims=[1])
+
+
+def _col_lower_bound(didx: DeviceQuasiIndex, b, e, d, c, steps: int):
+    """Per-lane lower bound of char c in the depth-d text column over
+    SA[b:e): `steps` trips, converged lanes masked. Needs the flat sa/text
+    arrays, which a big-SA upload drops."""
+    if didx.sa is None or didx.text is None:
+        raise ValueError("charwise extension needs the flat sa/text arrays; big-SA "
+                         "indexes support only packed_extension=True")
+    lo, hi = b, e
+    for _ in range(steps):
+        mid = (lo + hi) >> 1
+        g = flat_gather(didx.sa, mid).to(torch.int64)
+        less = flat_gather(didx.text, g + d).to(torch.int64) < c
+        cont = lo < hi
+        lo, hi = torch.where(cont & less, mid + 1, lo), torch.where(cont & ~less, mid, hi)
+    return lo
+
+
+def _extend(didx, reads, lens, b0, e0, pos, active, k: int, ext_steps: int):
+    """extendSearchNaive rebuild: per-depth interval narrowing from depth k
+    until a mismatch, the read's end or a code outside 1..4 -> (b, e, mlen).
+    Lane r reads row r of `reads` (left-aligned codes); the loop runs until
+    no lane advances, as the reference's while_loop does."""
+    R, L = reads.shape
+    rows = torch.arange(R, device=reads.device)
+    b, e, alive = b0, e0, active
+    d = torch.full_like(b0, k)
+    while bool(alive.any()):
+        ic = pos + d
+        c = reads[rows, ic.clamp(0, L - 1)].to(torch.int64)
+        ok = alive & (ic < lens) & (c >= 1) & (c <= 4)
+        lb = _col_lower_bound(didx, b, e, d, c, ext_steps)
+        ub = _col_lower_bound(didx, b, e, d, c + 1, ext_steps)
+        alive = ok & (lb < ub)
+        b, e, d = torch.where(alive, lb, b), torch.where(alive, ub, e), d + alive
+    return b, e, d
+
+
+def _walk_plain(db2, de2, anc2, is_rc, lens2, extend, k: int, H: int) -> ScanHits:
+    """H + 1 lockstep trips over lane-aligned tables (R, S): forward lanes
+    take the next anchor from anc2, rc lanes the previous one in mirrored
+    columns; extend(b0, e0, pos, active) -> (b, e, mlen)."""
+    R, S = db2.shape
+    dev = db2.device
 
     def at2(arr2d, col):
         return row_gather(arr2d, col.clamp(0, S - 1)[:, None])[:, 0]
@@ -185,10 +295,7 @@ def anchor_walk_plain(
         act = (pos < S) & ~trunc
         posc = pos.clamp(0, S - 1)
         col = torch.where(is_rc, lens2 - k - posc, posc)
-        b1, e1, mlen = extend_packed(
-            didx, preads, next_bad, lens2, at2(db2, col), at2(de2, col), posc,
-            act, k, ext_steps, L, col_off=col_off2,
-        )
+        b1, e1, mlen = extend(at2(db2, col), at2(de2, col), posc, act)
         slot = n.clamp(0, H - 1)
         overflow = act & (n >= H)
         write = act & ~overflow
@@ -203,87 +310,164 @@ def anchor_walk_plain(
     )
 
 
+def _plain_extend(didx, preads, next_bad, lens2, col_off2, codes, k: int, ext_steps: int):
+    """The plain extension of a walk: packed words, or charwise over `codes`."""
+    if codes is not None:
+        return lambda b0, e0, pos, act: _extend(didx, codes, lens2, b0, e0, pos, act, k,
+                                                ext_steps)
+    L = preads.shape[1]
+    return lambda b0, e0, pos, act: extend_packed(
+        didx, preads, next_bad, lens2, b0, e0, pos, act, k, ext_steps, L, col_off=col_off2)
+
+
+def anchor_walk_plain(
+    didx: DeviceQuasiIndex,
+    preads: torch.Tensor | None,    # (R, L) packed read words of the [fwd; rc] lanes
+    next_bad: torch.Tensor | None,  # (R, L)
+    lens2: torch.Tensor,     # (R,)
+    col_off2: torch.Tensor,  # (R,) 0 for fwd lanes, L - len for rc lanes
+    bf, ef, br, er, anch_f, anch_rF,  # (B, S) each, as in WalkInputs
+    *, k: int, H: int, ext_steps: int, codes: torch.Tensor | None = None,
+) -> ScanHits:
+    """The strand-paired anchor walk in PyTorch, all R = 2B lanes in lockstep
+    (rows [0, B) forward, [B, 2B) rc): the anchor tables, then H + 1 trips
+    with finished lanes masked. codes (R, L) int8, the explicit left-aligned
+    [fwd; revcomp] lanes, selects the charwise extension."""
+    db2, de2, anc2 = anchor_tables(bf, ef, br, er, anch_f, anch_rF)
+    R = lens2.shape[0]
+    is_rc = torch.arange(R, device=lens2.device) >= R // 2
+    extend = _plain_extend(didx, preads, next_bad, lens2, col_off2, codes, k, ext_steps)
+    return _walk_plain(db2, de2, anc2, is_rc, lens2, extend, k, H)
+
+
+def anchor_walk_lanes_plain(
+    didx: DeviceQuasiIndex,
+    preads, next_bad, lens2, col_off2,  # (R, L), (R, L), (R,), (R,) as in WalkInputs
+    bf, ef, br, er, anch_f, anch_rF,    # (R, S) each; br, er, anch_rF unused
+    *, k: int, H: int, ext_steps: int, codes: torch.Tensor | None = None,
+) -> ScanHits:
+    """The walk over R explicit lanes, all walked forward, in PyTorch: the
+    reference `scan_batch`'s next-anchor table, then H + 1 trips with
+    finished lanes masked. codes (R, L) int8 selects the charwise extension."""
+    is_rc = torch.zeros(lens2.shape, dtype=torch.bool, device=lens2.device)
+    extend = _plain_extend(didx, preads, next_bad, lens2, col_off2, codes, k, ext_steps)
+    return _walk_plain(bf, ef, next_anchor_table(anch_f), is_rc, lens2, extend, k, H)
+
+
 def _check_walk_inputs(didx, preads, next_bad, lens2, col_off2, bf, ef, br, er, anch_f,
-                       anch_rF):
+                       anch_rF, paired: bool = True, codes=None):
     """Raise on what csrc/walk.cu does not take: anything but contiguous
-    int64 lane and interval tensors, bool masks and int32 index tables of the
-    expected shapes, all on one CUDA device; sa_cmp rows must be whole 8-byte
-    pairs on 8-byte boundaries with at most WALK_FUSED_WORDS_MAX fused words
-    (the index builds 3 + 3)."""
-    dev = preads.device
-    lanes = dict(preads=preads, next_bad=next_bad, lens2=lens2, col_off2=col_off2,
-                 bf=bf, ef=ef, br=br, er=er)
+    int64 lane and interval tensors, bool masks and index tables of the
+    expected types and shapes, all on one CUDA device. Paired lanes: R = 2B
+    lanes over (B, S) windows; explicit lanes: R lanes over (R, S). The
+    packed extension reads sa_cmp rows of whole 8-byte pairs on 8-byte
+    boundaries with at most WALK_FUSED_WORDS_MAX fused words (the index
+    builds 3 + 3); the charwise one reads codes (R, L) int8 and the flat
+    int32 sa and int8 text, which a big-SA upload drops."""
+    charwise = codes is not None
+    if charwise and (didx.sa is None or didx.text is None):
+        raise ValueError("anchor_walk: the charwise extension needs the flat sa/text "
+                         "arrays; big-SA indexes support only packed_extension=True")
+    lanes = dict(lens2=lens2, bf=bf, ef=ef, br=br, er=er)
+    if charwise:
+        tables = dict(sa=(didx.sa, torch.int32), text=(didx.text, torch.int8),
+                      codes=(codes, torch.int8))
+    else:
+        lanes.update(preads=preads, next_bad=next_bad, col_off2=col_off2)
+        tables = dict(sa_cmp=(didx.sa_cmp, torch.int32), text2q=(didx.text2q, torch.int32))
     masks = dict(anch_f=anch_f, anch_rF=anch_rF)
-    tables = dict(sa_cmp=didx.sa_cmp, text2q=didx.text2q)
-    for name, t in {**lanes, **masks, **tables}.items():
+    dev = lens2.device
+    for name, t in {**lanes, **masks, **{n: v[0] for n, v in tables.items()}}.items():
         if t.device != dev:
-            raise ValueError(f"anchor_walk: {name} lies on {t.device}, preads on {dev}")
+            raise ValueError(f"anchor_walk: {name} lies on {t.device}, lens2 on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"anchor_walk: {name} must be contiguous")
-    for group, dtype in ((lanes, torch.int64), (masks, torch.bool), (tables, torch.int32)):
-        for name, t in group.items():
-            if t.dtype != dtype:
-                raise TypeError(f"anchor_walk: {name} must be {dtype}, got {t.dtype}")
-    if preads.dim() != 2 or preads.shape[0] % 2 or preads.shape[0] == 0:
-        raise ValueError("anchor_walk: preads must be (2B, L) with B >= 1")
-    R, L = preads.shape
-    if next_bad.shape != (R, L):
+    expect = [*((n, t, torch.int64) for n, t in lanes.items()),
+              *((n, t, torch.bool) for n, t in masks.items()),
+              *((n, t, d) for n, (t, d) in tables.items())]
+    for name, t, dtype in expect:
+        if t.dtype != dtype:
+            raise TypeError(f"anchor_walk: {name} must be {dtype}, got {t.dtype}")
+    rows = codes if charwise else preads
+    if rows.dim() != 2 or rows.shape[0] == 0 or (paired and rows.shape[0] % 2):
+        raise ValueError("anchor_walk: lanes must be (R, L) with R >= 1, R = 2B when paired")
+    R, L = rows.shape
+    if not charwise and next_bad.shape != (R, L):
         raise ValueError("anchor_walk: next_bad must have the shape of preads")
-    if lens2.shape != (R,) or col_off2.shape != (R,):
-        raise ValueError("anchor_walk: lens2 and col_off2 must be (2B,)")
-    if bf.dim() != 2 or bf.shape[0] != R // 2 or any(
+    if lens2.shape != (R,) or (not charwise and col_off2.shape != (R,)):
+        raise ValueError("anchor_walk: lens2 and col_off2 must be (R,)")
+    if bf.dim() != 2 or bf.shape[0] != (R // 2 if paired else R) or any(
         t.shape != bf.shape for t in (ef, br, er, anch_f, anch_rF)
     ):
         raise ValueError("anchor_walk: bf, ef, br, er, anch_f and anch_rF must share one "
-                         "(B, S) shape")
-    if (didx.sa_cmp.dim() != 2 or didx.sa_cmp.shape[1] % 2
+                         "(B, S) shape, B = R / 2 when paired, else R")
+    if charwise:
+        if didx.sa.dim() != 1 or didx.text.dim() != 1 or not len(didx.sa) or not len(didx.text):
+            raise ValueError("anchor_walk: sa and text must be non-empty 1-D tensors")
+    elif (didx.sa_cmp.dim() != 2 or didx.sa_cmp.shape[1] % 2
             or not 3 < didx.sa_cmp.shape[1] <= 3 + WALK_FUSED_WORDS_MAX):
         raise ValueError("anchor_walk: sa_cmp must be (n, 3 + F) with F odd and "
                          f"F <= {WALK_FUSED_WORDS_MAX}")
-    if didx.text2q.dim() != 2 or didx.text2q.shape[1] != 4:
+    elif didx.text2q.dim() != 2 or didx.text2q.shape[1] != 4:
         raise ValueError("anchor_walk: text2q must be (nw, 4)")
     if dev.type != "cuda":
         raise ValueError(f"anchor_walk: no kernel for device {dev}")
-    if didx.sa_cmp.data_ptr() % 8:
+    if not charwise and didx.sa_cmp.data_ptr() % 8:
         raise ValueError("anchor_walk: sa_cmp must start on an 8-byte boundary")
 
 
 def anchor_walk(
     didx: DeviceQuasiIndex, preads, next_bad, lens2, col_off2, bf, ef, br, er, anch_f,
-    anch_rF, *, k: int, H: int, ext_steps: int,
+    anch_rF, *, k: int, H: int, ext_steps: int, paired: bool = True,
+    codes: torch.Tensor | None = None,
 ) -> ScanHits:
-    """The anchor walk over the [fwd; rc] lanes after the dense phase: the
-    CUDA kernel of csrc/walk.cu for CUDA tensors (one launch, one thread per
-    lane, every output byte written by the kernel: no fill), `anchor_walk_plain`
-    for CPU tensors."""
+    """The anchor walk after the dense phase: the CUDA kernel of csrc/walk.cu
+    for CUDA tensors (one launch, one thread per lane, every output byte
+    written by the kernel: no fill), the plain version for CPU tensors.
+    paired=True walks the strand-paired [fwd; rc] lanes of `dense_phase`,
+    paired=False the explicit lanes of `lane_phase`, all forward. codes
+    (R, L) int8, the lanes' left-aligned codes, selects the charwise
+    extension (kernel `anchor_walk_charwise`); without it the packed one
+    (`anchor_walk`, paired; `anchor_walk_lanes`, explicit lanes)."""
     w = (preads, next_bad, lens2, col_off2, bf, ef, br, er, anch_f, anch_rF)
-    if all(t.device.type == "cpu" for t in (*w, didx.sa_cmp, didx.text2q)):
-        return anchor_walk_plain(didx, *w, k=k, H=H, ext_steps=ext_steps)
-    _check_walk_inputs(didx, *w)
-    R, L = preads.shape
+    ext = (codes, didx.sa, didx.text) if codes is not None else (didx.sa_cmp, didx.text2q)
+    if all(t.device.type == "cpu" for t in (*w, *ext) if t is not None):
+        plain = anchor_walk_plain if paired else anchor_walk_lanes_plain
+        return plain(didx, *w, k=k, H=H, ext_steps=ext_steps, codes=codes)
+    _check_walk_inputs(didx, *w, paired=paired, codes=codes)
+    R, L = (codes if codes is not None else preads).shape
     S = bf.shape[1]
     if S != L - k + 1 or H < 1:
         raise ValueError("anchor_walk: need S == L - k + 1 and H >= 1")
-    dev = preads.device
+    dev = lens2.device
     buf = torch.empty((R, H, 4), dtype=torch.int64, device=dev)
     n = torch.empty((R,), dtype=torch.int64, device=dev)
     trunc = torch.empty((R,), dtype=torch.bool, device=dev)
-    fn = kernels.library("walk").tqm_anchor_walk
-    fn.restype = ctypes.c_int
+    B = R // 2 if paired else R
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    fn.argtypes = [vp] * 11 + [i64, i32, vp, i64, i64, i64] + [i32] * 6 + [vp] * 4
+    lib = kernels.library("walk")
+    if codes is not None:
+        name, fn = "anchor_walk_charwise", lib.tqm_anchor_walk_charwise
+        fn.argtypes = [vp] * 9 + [i64, vp, i64, i64, i64] + [i32] * 5 + [vp] * 4
+        args = [codes.data_ptr(), lens2.data_ptr(),
+                *(t.data_ptr() for t in (bf, ef, br, er, anch_f, anch_rF)),
+                didx.sa.data_ptr(), didx.sa.shape[0], didx.text.data_ptr(), didx.text.shape[0],
+                R, B, L, S, k, H, ext_steps]
+    else:
+        name = "anchor_walk" if paired else "anchor_walk_lanes"
+        fn = lib.tqm_anchor_walk
+        fn.argtypes = [vp] * 11 + [i64, i32, vp, i64, i64, i64] + [i32] * 6 + [vp] * 4
+        args = [*(t.data_ptr() for t in w),
+                didx.sa_cmp.data_ptr(), didx.sa_cmp.shape[0], didx.sa_cmp.shape[1] - 3,
+                didx.text2q.data_ptr(), didx.text2q.shape[0],
+                R, B, L, S, k, H, ext_steps, ext_words(L, k)]
+    fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
-        rc = fn(
-            *(t.data_ptr() for t in w),
-            didx.sa_cmp.data_ptr(), didx.sa_cmp.shape[0], didx.sa_cmp.shape[1] - 3,
-            didx.text2q.data_ptr(), didx.text2q.shape[0],
-            R, R // 2, L, S, k, H, ext_steps, ext_words(L, k),
-            buf.data_ptr(), n.data_ptr(), trunc.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+        rc = fn(*args, buf.data_ptr(), n.data_ptr(), trunc.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"tqm_anchor_walk launch failed: CUDA error {rc}")
-    kernels.LAUNCHES["anchor_walk"] += 1
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {rc}")
+    kernels.LAUNCHES[name] += 1
     return ScanHits(
         q=buf[..., 0], l=buf[..., 1], b=buf[..., 2], e=buf[..., 3],
         n=n, truncated=trunc,
@@ -297,13 +481,10 @@ def scan_dispatch(
     lens: torch.Tensor,   # (B,)
     cfg: MapConfig,
 ) -> ScanHits:
-    """Strand-paired scan of forward reads -> (2B, H) lane hits, for every
-    device program (chunked or over the whole batch): one anchor-walk launch
-    each. Only the canonical-CHD scan is ported; indexes without a canonical
-    CHD (the reference's `scan_batch` binary-search path) are refused."""
-    if not st.chd_canonical:
-        raise NotImplementedError(
-            "the binary-search probe path (indexes without a canonical CHD) "
-            "is not ported yet"
-        )
-    return scan_batch_paired(didx, st, reads, lens, cfg)
+    """Strand-paired scan of forward reads -> (2B, H) lane hits, one
+    anchor-walk launch per device program (chunk, or whole batch). Picks the
+    canonical-CHD paired scan (one dense probe per k-mer class) when the
+    index carries one, else builds [fwd; rc] lanes explicitly and runs the
+    per-lane scan (`scan_batch`). Rows [0, B) are forward lanes, [B, 2B) rc."""
+    w, kw = scan_inputs(didx, st, reads, lens, cfg)
+    return anchor_walk(didx, *w, **kw)

@@ -16,10 +16,11 @@ out, each a text edit of the source that must apply exactly once:
                 alone;
   interleaved_global_words  both.
 
-With --parent DIR it also builds DIR/rapmap_tpu_torch/csrc/walk.cu, a walk
-kernel of the older interface that takes the lane-aligned anchor tables
+With --parent DIR it also builds DIR/rapmap_tpu_torch/csrc/walk.cu and times
+it beside the others: a walk kernel of the anchor-mask interface, as this
+one, or of the older interface that takes the lane-aligned anchor tables
 (db2, de2, anc2 of ops/mmp.py anchor_tables) and a zero-filled hit buffer,
-and times that fill (`torch.zero_`) beside it.
+whose fill (`torch.zero_`) is then timed beside it.
 
 Every build is checked against anchor_walk_plain on the smoke chunk of
 chip_smoke.py's world (16,384 lanes of 76 bp, H = 16), on outputs that start
@@ -235,7 +236,7 @@ def edit(src: str, edits) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", help="checkout whose csrc/walk.cu takes the anchor tables")
+    ap.add_argument("--parent", help="checkout whose csrc/walk.cu to time beside this one")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -262,8 +263,11 @@ def main() -> int:
         sources[name] = os.path.join(out, f"{name}.cu")
         with open(sources[name], "w") as f:
             f.write(edit(src, edits))
+    parent_tables = False
     if args.parent:
         sources["parent"] = os.path.join(args.parent, "rapmap_tpu_torch", "csrc", "walk.cu")
+        with open(sources["parent"]) as f:  # the mask interface names the rc mask anch_r
+            parent_tables = "anch_r" not in f.read()
     procs = {n: subprocess.Popen(
         [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", os.path.join(out, f"{n}.so"), p],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for n, p in sources.items()}
@@ -279,7 +283,7 @@ def main() -> int:
     libs = {n: ctypes.CDLL(os.path.join(out, f"{n}.so")) for n in sources}
 
     dev = torch.device("cuda")
-    didx, st = upload_index(idx, dev)
+    didx, st = upload_index(idx, dev, lean=True)
     cfg = MapConfig(k=cs.K)
     C = 8192
     w = dense_phase(didx, st, torch.from_numpy(codes[:C]).to(dev),
@@ -301,7 +305,8 @@ def main() -> int:
     def launcher(name):
         fn = libs[name].tqm_anchor_walk
         fn.restype = ctypes.c_int
-        head = [t.data_ptr() for t in (w[:4] + tables if name == "parent" else w)]
+        tabled = name == "parent" and parent_tables
+        head = [t.data_ptr() for t in (w[:4] + tables if tabled else w)]
         fn.argtypes = [vp] * (len(head) + 1) + [i64, i32, vp, i64, i64, i64] + [i32] * 6 + [vp] * 4
         args_ = head + tail
 
@@ -314,7 +319,8 @@ def main() -> int:
     res = {}
     for name, go in gos.items():
         for t, ff in ((buf, -1), (n_out, -1), (trunc, 0xFF)):
-            t.fill_(0 if name == "parent" else ff)  # the parent's kernel needs a zeroed buffer
+            # a parent of the anchor-table interface needs a zeroed buffer
+            t.fill_(0 if name == "parent" and parent_tables else ff)
         go()
         torch.cuda.synchronize()
         got = (buf[..., 0], buf[..., 1], buf[..., 2], buf[..., 3], n_out, trunc.bool())
@@ -338,7 +344,7 @@ def main() -> int:
                     flush.fill_(1)
                     go()
             res[name]["cold_ms"].append(kernel_ms(cs.device_kernels(cold), "anchor_walk_kernel"))
-    if args.parent:  # the parent's wrapper zeroed the hit buffer before each launch
+    if parent_tables:  # the parent's wrapper zeroed the hit buffer before each launch
         res["parent"]["fill_ms"] = [kernel_ms(cs.device_kernels(
             lambda: [buf.zero_() for _ in range(100)]), "elementwise") for _ in range(args.rounds)]
     print(json.dumps({"device": cs.nvidia_smi_line(), "lanes": R, "read_len": L, "hit_slots": H,

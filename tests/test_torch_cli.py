@@ -240,7 +240,6 @@ REFUSALS = {
     "index_quasi_map": (["quasimap", "-i", "quasi_map", "-r", "FQ"], "index type quasi_map"),
     "index_quasi_core": (["quasimap", "-i", "quasi_core", "-r", "FQ"], "index type quasi_core"),
     "index_pseudo": (["quasimap", "-i", "pseudo", "-r", "FQ"], "is type pseudo, expected quasi"),
-    "index_without_canonical_chd": (["quasimap", "-i", "no_chd", "-r", "FQ"], "canonical CHD"),
     "no_reads": (["quasimap", "-i", "IDX"], "provide -r"),
 }
 
@@ -277,6 +276,40 @@ def test_refusals_exit_1_with_one_line(world, case, monkeypatch, capfd):
     assert message in records[0].getMessage()
     assert not os.path.exists(out)
     assert capfd.readouterr().out == ""
+
+
+@pytest.mark.parametrize("ends", ["single", "paired"])
+def test_index_without_canonical_chd_maps_as_reference(world, ends):
+    """The world's index with its CHD section dropped (what a with_chd=False
+    build or a failed CHD placement leaves): both tools map it (the port
+    through the binary-search probe and the full upload) and write the same
+    SAM apart from @PG, single-end and paired-end; and the same as the port
+    writes on the index with its CHD."""
+    tmp, txps, reads, fq = world
+    nochd = _retyped_index(tmp, "no_chd")
+    if ends == "single":
+        argv = ["-r", fq]
+    else:  # mates of 100-180 bp fragments, the right one reverse-complemented
+        rng = np.random.default_rng(8)
+        comp = bytes.maketrans(b"ACGT", b"TGCA")
+        mates = ([], [])
+        for i in range(14):
+            seq = txps[i % len(txps)][1]
+            frag = int(rng.integers(100, 181))
+            a = int(rng.integers(0, len(seq) - frag + 1))
+            mates[0].append((f"p{i}", seq[a : a + 36]))
+            mates[1].append((f"p{i}", seq[a + frag - 36 : a + frag].translate(comp)[::-1]))
+        argv = ["-1", write_fastq(str(tmp / "nochd_1.fq"), mates[0]),
+                "-2", write_fastq(str(tmp / "nochd_2.fq"), mates[1])]
+    out = {}
+    for name, tool, index in (("port", port, nochd), ("ref", ref, nochd),
+                              ("port_chd", port, str(tmp / "idx"))):
+        out[name] = str(tmp / f"nochd_{ends}_{name}.sam")
+        r = tool("quasimap", "-i", index, *argv, "-o", out[name], "--batchSize", "8")
+        assert r.returncode == 0, r.stderr
+    assert body(out["port"]) == body(out["ref"])
+    assert body(out["port"]) == body(out["port_chd"])
+    assert sum(1 for ln in body(out["port"]) if ln[0] != "@" and not int(ln.split("\t")[1]) & 4)
 
 
 def test_cli_without_card_exits_nonzero_and_names_cuda(world):

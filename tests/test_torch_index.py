@@ -79,23 +79,46 @@ def test_index_from_reference(tmp_path):
 
 @pytest.mark.parametrize("meta_pairs", [False, True])
 def test_upload_equals_reference(tmp_path, meta_pairs):
+    """The lean upload; tests/test_torch_lookup.py holds the full, legacy-CHD
+    and big-SA uploads."""
     fa = _fasta(tmp_path, 5, n_txps=6, min_len=100, max_len=300)
     ref = ref_build(fa, k=11)
     rdidx, rst = ref_upload(ref, lean=True, meta_pairs=meta_pairs)
-    didx, st = upload_index(index_from_reference(vars(ref)), "cpu", meta_pairs=meta_pairs)
+    didx, st = upload_index(index_from_reference(vars(ref)), "cpu", lean=True,
+                            meta_pairs=meta_pairs)
     assert dataclasses.asdict(st) == dataclasses.asdict(rst)
     assert st == EngineStatic.for_index(ref)
     for name in didx._fields:
-        want = np.asarray(getattr(rdidx, name))
         got = getattr(didx, name)
+        assert (got is None) == (getattr(rdidx, name) is None), name
+        if got is None:
+            continue
+        want = np.asarray(getattr(rdidx, name))
         assert got.dtype == torch.int32 and got.device.type == "cpu", name
         assert np.array_equal(got.numpy(), want.view(np.int32)), name
-    used = sum(t.numel() * t.element_size() for t in didx)
+    used = sum(t.numel() * t.element_size() for t in didx if t is not None)
     assert used <= device_bytes_estimate(ref)
 
 
-def test_mapper_refuses_index_without_canonical_chd(tmp_path):
-    fa = _fasta(tmp_path, 6, n_txps=3, min_len=100, max_len=200)
+def test_mapper_maps_index_without_canonical_chd(tmp_path):
+    """An index built with with_chd=False maps (the binary-search probe and
+    the full upload) and gives the reference's wire buffer."""
+    from rapmap_tpu.config import MapConfig as RefConfig
+    from rapmap_tpu.models.quasi import QuasiMapper as RefMapper
+    from tests.test_device_parity import batch_of
+    from tests.util import sample_reads
+
+    rng = np.random.default_rng(6)
+    txps = random_transcriptome(rng, n_txps=3, min_len=100, max_len=200)
+    fa = write_fasta(str(tmp_path / "txome.fa"), txps)
     idx = build_quasi_index(fa, k=11, with_chd=False)
-    with pytest.raises(ValueError, match="canonical-class CHD"):
-        QuasiMapper(idx, MapConfig(k=11, chunk=8), device="cpu")
+    assert idx.chd_dir is None
+    mapper = QuasiMapper(idx, MapConfig(k=11, chunk=8), device="cpu")
+    assert mapper.didx.kmer_rows is not None and mapper.didx.chd_dir is None
+    seqs = [r[1] for r in sample_reads(rng, txps, 16, read_len=40, error_rate=0.02)]
+    codes, lens = batch_of(seqs, 40)
+    got = mapper.map_se_async(codes, lens)
+    ref = RefMapper(ref_build(fa, k=11, with_chd=False), RefConfig(k=11, chunk=8))
+    want = ref.map_se_async(codes, lens)
+    assert np.array_equal(got.wire.numpy(), np.asarray(want[2]))
+    assert mapper.fetch(got).counters["reads_mapped"] > 0

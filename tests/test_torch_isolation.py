@@ -1,6 +1,6 @@
 """rapmap_tpu_torch stands alone: with jax and rapmap_tpu refused at import,
 every module imports, a toy index builds and maps single-end reads and pairs
-on the CPU, and the command line (`rapmap_tpu_torch.cli`) indexes and maps
+on the CPU (and one without a CHD, packed and charwise), and the command line (`rapmap_tpu_torch.cli`) indexes and maps
 FASTQ to SAM, single-end and paired-end; a mapper asked
 for the default device without a CUDA card raises instead of running on the
 CPU, and the command line returns non-zero; chip_smoke.py without the package
@@ -59,6 +59,12 @@ SCRIPT = textwrap.dedent("""
     out = res.fetch(res.map_se_async(codes, lens))
     # pairs: each read with its own reverse complement as the right mate
     pe = res.fetch(res.map_pe_async(codes, lens, (5 - codes[:, ::-1]).copy(), lens))
+    # an index without a CHD (binary-search probe, full upload), and the
+    # charwise extension on it
+    nochd = build_quasi_index(fa, k=11, with_chd=False)
+    nochd_mapped = [
+        QuasiMapper(nochd, MapConfig(k=11, chunk=8, packed_extension=p), device="cpu")
+        .map_se(codes, lens)[1].reads_mapped.item() for p in (True, False)]
 
     # the command line, in process: quasiindex, then quasimap FASTQ -> SAM
     import os
@@ -90,6 +96,7 @@ SCRIPT = textwrap.dedent("""
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "rapmap_tpu"))
     print(json.dumps(dict(modules=mods, mapped=out.counters["reads_mapped"],
                           pe_mapped=pe.counters["reads_mapped"], pe_kind=pe.recs.shape[1],
+                          nochd_mapped=nochd_mapped,
                           rc_pe=rc_pe, pe_records=pe_records,
                           raised=raised, loaded=loaded, rc_index=rc_index, rc_map=rc_map,
                           sam_mapped=sam_mapped, rc_no_card=rc_no_card,
@@ -117,6 +124,9 @@ def test_port_imports_and_maps_without_jax(tmp_path):
         assert f"rapmap_tpu_torch.{m}" in res["modules"]
     assert (res["rc_index"], res["rc_map"], res["sam_mapped"]) == (0, 0, 16)
     assert (res["pe_mapped"], res["pe_kind"]) == (16, 7)
+    assert res["nochd_mapped"] == [16, 16]
+    for m in ("ops.lookup", "ops.encode", "index.chd"):
+        assert f"rapmap_tpu_torch.{m}" in res["modules"]
     assert res["rc_pe"] == 0 and res["pe_records"] > 0
     assert res["rc_no_card"] != 0 and not res["second_sam"]
 

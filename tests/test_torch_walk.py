@@ -231,11 +231,18 @@ class LaneModel:
             return lb2, ub2, k + ext
         return b0, e0, k
 
-    def walk(self, w, H):
-        R, L = w.preads.shape
+    def extend_lane(self, r, pre, nbad, ln, col_off, b0, e0, pos):
+        """The extension of walk lane r (the charwise model overrides it)."""
+        return self.extend(pre[r], nbad[r], ln, col_off, b0, e0, pos, True)
+
+    def walk(self, w, H, paired=True):
+        """The kernel's walk, lane by lane: strand-paired lanes (R = 2B) or,
+        paired=False, explicit lanes all walked forward (B = R)."""
+        R, L = w.lens2.shape[0], self.L
         S = w.bf.shape[1]
-        B, k = R // 2, self.k
-        pre, nbad = w.preads.numpy(), w.next_bad.numpy()
+        B, k = (R // 2 if paired else R), self.k
+        pre = w.preads.numpy() if w.preads is not None else None
+        nbad = w.next_bad.numpy() if w.next_bad is not None else None
         buf = np.zeros((R, H, 4), np.int64)
         n_out = np.zeros(R, np.int64)
         trunc = np.zeros(R, bool)
@@ -253,8 +260,8 @@ class LaneModel:
                     break
                 posc = clamp(pos, 0, S - 1)
                 col = clamp(ln - k - posc if is_rc else posc, 0, S - 1)
-                b, e, mlen = self.extend(pre[r], nbad[r], ln, col_off, int(db[rr, col]),
-                                         int(de[rr, col]), posc, True)
+                b, e, mlen = self.extend_lane(r, pre, nbad, ln, col_off, int(db[rr, col]),
+                                              int(de[rr, col]), posc)
                 buf[r, n] = (posc, mlen, b, e)
                 n += 1
                 pos = next_anchor_pos(mask, is_rc, ln, k, posc + max(mlen - k + 1, 1))
