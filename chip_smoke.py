@@ -5,7 +5,8 @@
 
 Builds the port's native host library and every CUDA kernel from the
 sources in this checkout, holds each kernel (the voting sort of
-csrc/sort2.cu, the anchor walk of csrc/walk.cu in its three forms) against
+csrc/sort2.cu, the anchor walk of csrc/walk.cu in its three forms, the
+banded DP of csrc/align.cu) against
 its plain PyTorch version on the card, builds a 20 Mbp random transcriptome world from the
 seed, maps 262,144 single-end 76 bp reads through QuasiMapper.map_se_async /
 fetch (one batch in flight), and checks the result: map rate, reads mapped
@@ -31,8 +32,17 @@ both are held against their plain versions; the no-CHD library path
 (nochd_path, nochd_pe_path), the charwise path on both index kinds
 (charwise_path) and the command line on the no-CHD index (cli_nochd_default,
 cli_pe_nochd_default) must give what the canonical-CHD packed path gives in
-the same run, and profile_nochd splits a no-CHD chunk's probe out.
-Every phase prints one JSON line; the last line is
+the same run, and profile_nochd splits a no-CHD chunk's probe out. The
+mapping score's kernel (csrc/align.cu, banded_scores) is held against its
+plain version on eleven input sets (bands 1 to 40, go == ge, 150 bp reads,
+windows off transcript ends, Ns, paired-end rows, a mostly dead cap); the
+same reads then map with cfg.mapping_score on the main path's upload
+(score_path; pe_score_path for one batch of pairs), whose mappings must
+equal main_path's and pe_path's and whose sampled scores must equal the
+numpy oracle's, and the command line runs with --mappingScore
+--minScoreFraction 0.65, single-end and paired-end, where 1,000 sampled
+AS:i tags are recomputed by the oracle and the card's SAM must equal the
+CPU's. Every phase prints one JSON line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It exits non-zero, printing no result, without a CUDA card or without the
 rest of the repository beside it.
@@ -45,6 +55,7 @@ card.
 from __future__ import annotations
 
 import argparse
+import copy
 import ctypes
 import json
 import logging
@@ -64,7 +75,8 @@ K = 31
 # the __global__ functions of csrc/*.cu, as the profiler names them
 HAND_KERNELS = ("cluster_sort_kernel", "tile_sort_kernel", "tile_merge_kernel",
                 "global_step_kernel", "anchor_walk_kernel", "extend_packed_kernel",
-                "extend_charwise_kernel")
+                "extend_charwise_kernel", "banded_reg_kernel", "banded_scratch_kernel")
+SCORE_FLAGS = ["--mappingScore", "--minScoreFraction", "0.65"]
 
 
 def emit(phase: str, **kw) -> None:
@@ -598,12 +610,12 @@ def walk_on_0xff(didx, w, k: int, H: int, ext_steps: int, count: bool = False,
     return hits, sectors, int(rows.cpu()[0])
 
 
-def walk_cold_ms(fn, reps: int, cuda: bool):
-    """The walk with a cold L2: before each call a 1 GiB fill (more than the
+def walk_cold_ms(fn, reps: int, cuda: bool, kernel: str = "anchor_walk_kernel"):
+    """A kernel with a cold L2: before each call a 1 GiB fill (more than the
     card's 50 MB L2, and longer on the device than the host takes to issue
     fn()) outside the timed events -> (CUDA events around each call, mean
-    ms; device time of the walk's kernel alone under torch.profiler, mean
-    ms)."""
+    ms; device time of the kernels whose name holds `kernel` alone under
+    torch.profiler, mean ms)."""
     if not cuda:
         return "not measured", "not measured"
     import torch
@@ -628,9 +640,9 @@ def walk_cold_ms(fn, reps: int, cuda: bool):
             fn()
 
     by_name = device_kernels(work)
-    walk = [v for n, v in by_name.items() if "anchor_walk_kernel" in n]
+    walk = [v for n, v in by_name.items() if kernel in n]
     if sum(v[1] for v in walk) < reps // 2:
-        raise RuntimeError(f"the cold walk timing saw {by_name} for {reps} launches")
+        raise RuntimeError(f"the cold {kernel} timing saw {by_name} for {reps} launches")
     del flush
     torch.cuda.empty_cache()
     return event_ms, sum(v[0] for v in walk) / sum(v[1] for v in walk)
@@ -1044,6 +1056,262 @@ def phase_charwise_kernel(dev, timer, cmapper, nmapper, idx, codes, lens, C: int
     emit("kernel_vs_plain", kernel="anchor_walk_charwise", ok=ok, max_abs_err=max_err,
          covered=covered, checks=checks, timing=timing)
     return ok, max_err, timing
+
+
+def score_rows(res, C: int, cap: int):
+    """The dense record rows of a fetched single-end WireResult's first C
+    reads as the collate's score branch holds them: (cap, 4) int32 rows
+    (t, pos, strand, read id), the live rows first, and the live mask."""
+    counts = np.asarray(res.counts[:C], np.int64)
+    n = int(counts.sum())
+    rows = np.zeros((cap, 4), np.int32)
+    rows[:n, :3] = res.recs[:n, :3]
+    rows[:n, 3] = np.repeat(np.arange(C), counts)
+    return rows, np.arange(cap) < n
+
+
+def score_bound(idx, reads, lens, rows, valid, band: int) -> dict:
+    """The least time the card could take to score these rows: the bytes the
+    function must move (the live mask of every row, the four fields of each
+    live row, each referenced read row, length and txp_align row once, each
+    text word that a live window's in-transcript chars lie in once, the
+    output once) over the memory rate, against its DP cells (min(len, L) x
+    (2b+1) a live row) at 10 integer operations each over the non-tensor
+    rate; the larger is the bound."""
+    L = reads.shape[1]
+    live = rows[valid]
+    rid = np.clip(live[:, 3], 0, len(lens) - 1)
+    tl = np.asarray(idx.txp_lens, np.int64)
+    t = np.clip(live[:, 0], 0, len(tl) - 1)
+    off = np.asarray(idx.txp_offsets, np.int64)[t]
+    start = live[:, 1].astype(np.int64) - band
+    p_lo = np.maximum(start, 0)
+    p_hi = np.minimum(start + L + 2 * band, tl[t]) - 1
+    some = p_hi >= p_lo
+    w_lo, w_hi = (off + p_lo)[some] >> 4, (off + p_hi)[some] >> 4
+    cnt = w_hi - w_lo + 1
+    first = np.repeat(np.cumsum(cnt) - cnt, cnt)
+    words = np.unique(np.repeat(w_lo, cnt) + np.arange(int(cnt.sum())) - first)
+    n_reads = len(np.unique(rid))
+    nbytes = (len(rows) * (1 + 4) + len(live) * 16 + n_reads * (L + 8)
+              + len(np.unique(t)) * 12 + 4 * len(words))
+    cells = int(np.minimum(np.asarray(lens, np.int64)[rid], L).sum()) * (2 * band + 1)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 10 * cells / CUDA_CORE_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else
+                "operations", bytes=nbytes, text_words=len(words), dp_cells=cells,
+                live_rows=len(live), rows=len(rows))
+
+
+def phase_score_kernel(dev, timer, mapper, idx, codes, lens, res0, C: int, seed: int):
+    """banded_scores (the kernel of csrc/align.cu) against score_records_plain
+    on card tensors, called straight on an output filled with 0xFF bytes (so
+    an element the kernel leaves unwritten shows) and through the wrapper,
+    on: one smoke chunk's real single-end record rows (the main path's
+    first chunk, its cap of rows, the live ones first, read as strided
+    columns) at band 7 and at bands 1, 15, 16 and 40 (15 is the widest
+    register build, 16 and 40 take the scratch build); (ma, mp, go, ge) =
+    (1, -3, 4, 4), the go == ge edge; 150 bp reads at their true loci, half
+    shifted by up to 3 bases; reads cut from transcript heads and tails
+    whose windows hang off them (transcript 0's head and the last tail
+    among them); the chunk with 3% of its bases N; paired-end rows over the
+    stacked [mate1; mate2] batch (mate 2 the reverse complement of mate 1)
+    with has = 0 on either side; the chunk's cap with 95% of its live rows
+    dead. Then, on the smoke chunk at band 7: device ms with a warm L2
+    (`ms`) and a flushed one (`cold_ms`), CUDA events around the wrapper's
+    calls (`wrapper_ms`), the plain version's ms, and the bound
+    (score_bound); no single PyTorch call computes it (`library_ms` null)."""
+    import dataclasses
+
+    import torch
+
+    from rapmap_tpu_torch.ops.align import (
+        banded_scores_cuda, score_records, score_records_plain, stack_pe_rows,
+    )
+
+    cuda = dev.type == "cuda"
+    rng = np.random.default_rng(seed + 11)
+    cfg = dataclasses.replace(mapper.cfg, mapping_score=True)
+    didx = mapper.didx
+    cap = cfg.rec_slots * C
+    rows, valid = score_rows(res0, C, cap)
+    tl = np.asarray(idx.txp_lens, np.int64)
+    offs = np.asarray(idx.txp_offsets, np.int64)
+    text = np.asarray(idx.text)
+
+    def cut(t, start, n):  # n bases of transcript t from `start`, as read codes
+        return text[(offs[t] + start)[:, None] + np.arange(n)[None, :]].astype(np.int8)
+
+    chunk = (codes[:C], lens[:C])
+    sets = [("smoke_chunk_band7", cfg, *chunk, rows, valid)]
+    for b in (1, 15, 16, 40):
+        sets.append((f"smoke_chunk_band{b}", dataclasses.replace(cfg, align_band=b), *chunk,
+                     rows, valid))
+    sets.append(("go_equals_ge", dataclasses.replace(cfg, align_ma=1, align_mp=-3,
+                                                     align_go=4, align_ge=4),
+                 *chunk, rows, valid))
+    n_small = min(C, 4096)
+    c150, (t150, p150, s150) = sample_reads(idx, rng, n_small, 150, 0.01)
+    shift = rng.integers(-3, 4, n_small)
+    shift[::2] = 0
+    r150 = np.stack([t150, p150 + shift, s150, np.arange(n_small)], 1).astype(np.int32)
+    sets.append(("reads_150bp", cfg, c150, np.full(n_small, 150, np.int32), r150,
+                 np.ones(n_small, bool)))
+    th = rng.integers(0, len(tl), n_small)
+    th[:64], th[64:128] = 0, len(tl) - 1
+    tail = np.arange(n_small) % 2 == 1
+    seg = np.where(tail, tl[th] - READ_LEN, 0)
+    ch = cut(th, seg, READ_LEN)
+    sh = rng.integers(1, cfg.align_band + 4, n_small)
+    strand = rng.integers(0, 2, n_small)
+    ch[strand == 1] = (5 - ch[strand == 1])[:, ::-1]
+    rh = np.stack([th, np.where(tail, seg + sh, -sh), strand, np.arange(n_small)],
+                  1).astype(np.int32)
+    sets.append(("heads_and_tails", cfg, ch, np.full(n_small, READ_LEN, np.int32), rh,
+                 np.ones(n_small, bool)))
+    cn = codes[:C].copy()
+    cn[rng.random(cn.shape) < 0.03] = 5
+    sets.append(("reads_with_n", cfg, cn, lens[:C], rows, valid))
+    r2 = np.ascontiguousarray((5 - codes[:C])[:, ::-1])
+    has1 = (rng.random(cap) < 0.8).astype(np.int32)
+    has2 = (rng.random(cap) < 0.8).astype(np.int32)
+    pe = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (
+        codes[:C], lens[:C].astype(np.int64), r2, lens[:C].astype(np.int64), rows[:, 3],
+        rows[:, 0], rows[:, 1], rows[:, 2], has1, rows[:, 1], 1 - rows[:, 2], has2, valid)]
+    pe_stack = stack_pe_rows(*pe)
+    sets.append(("pe_rows_has_0", cfg, pe_stack[0], pe_stack[1], None, None))
+    dead = valid.copy()
+    dead[int(valid.sum()) // 20 :] = False
+    sets.append(("mostly_dead_cap", cfg, *chunk, rows, dead))
+
+    checks, max_err, main = [], 0, None
+    for name, c, rd, ln, rw, vd in sets:
+        if rw is None:  # the stacked paired-end set, on the card already
+            args = (rd, ln, *pe_stack[2:])
+            host = dict(reads=rd.cpu().numpy(), lens=ln.cpu().numpy(),
+                        rows=torch.stack([pe_stack[3], pe_stack[4], pe_stack[5],
+                                          pe_stack[2]], 1).cpu().numpy(),
+                        valid=pe_stack[6].cpu().numpy())
+        else:
+            cols = torch.from_numpy(np.ascontiguousarray(rw)).to(dev)  # strided columns
+            args = (torch.from_numpy(np.ascontiguousarray(rd)).to(dev),
+                    torch.from_numpy(ln.astype(np.int64)).to(dev),
+                    cols[:, 3], cols[:, 0], cols[:, 1], cols[:, 2],
+                    torch.from_numpy(vd).to(dev))
+            host = dict(reads=rd, lens=ln, rows=rw, valid=vd)
+        want = score_records_plain(didx, c, *args)
+        got = score_records(didx, c, *args)
+        err = int((got.long() - want.long()).abs().max())
+        if cuda:
+            out = torch.full(want.shape, -1, dtype=torch.int32, device=dev)
+            raw = banded_scores_cuda(didx, c, *args, out=out)
+            torch.cuda.synchronize()
+            err = max(err, int((raw.long() - want.long()).abs().max()))
+        hv = host["valid"]
+        hr = host["rows"][hv]
+        start = hr[:, 1].astype(np.int64) - c.align_band
+        W = host["reads"].shape[1] + 2 * c.align_band
+        w = want.cpu().numpy()
+        half = c.align_ma * host["reads"].shape[1] // 2  # half a perfect 76 (150) bp score
+        checks.append(dict(
+            set=name, rows=len(hv), live_rows=int(hv.sum()), band=c.align_band,
+            scoring=[c.align_ma, c.align_mp, c.align_go, c.align_ge],
+            read_len=host["reads"].shape[1], scored_above_half=int((w > half).sum()),
+            max_score=int(w.max()), dead_rows_zero=bool((w[~hv] == 0).all()),
+            off_head=int((start < 0).sum()),
+            off_tail=int((start + W > tl[np.clip(hr[:, 0], 0, len(tl) - 1)]).sum()),
+            max_abs_err=err, equal_plain=err == 0))
+        max_err = max(max_err, err)
+        if name == "smoke_chunk_band7":
+            main = (c, args, host)
+    by = {x["set"]: x for x in checks}
+    covered = (
+        by["smoke_chunk_band7"]["scored_above_half"] > 0.9 * by["smoke_chunk_band7"]["live_rows"]
+        and by["reads_150bp"]["max_score"] >= 290
+        and by["heads_and_tails"]["off_head"] > 0 and by["heads_and_tails"]["off_tail"] > 0
+        and by["heads_and_tails"]["scored_above_half"] > 0.5 * n_small
+        and by["pe_rows_has_0"]["live_rows"] < 2 * int(valid.sum())
+        and all(x["dead_rows_zero"] and x["scored_above_half"] > 0 for x in checks))
+    ok = covered and all(x["equal_plain"] for x in checks)
+
+    c, args, host = main
+    run = lambda: score_records(didx, c, *args)  # noqa: E731
+    wrapper_ms = timer(run, reps=50)
+    ms, ms_by = device_ms(run, 50, cuda)
+    cold_event_ms, cold_ms = walk_cold_ms(run, 50, cuda, kernel="banded_")
+    plain_ms = timer(lambda: score_records_plain(didx, c, *args), reps=2, warm=1)
+    bound = score_bound(idx, host["reads"], host["lens"], host["rows"], host["valid"],
+                        c.align_band)
+    if cuda:
+        bound.update(share_of_bound=bound["bound_ms"] / ms,
+                     share_of_bound_cold=bound["bound_ms"] / cold_ms)
+    timing = dict(ms=ms, cold_ms=cold_ms, cold_event_ms=cold_event_ms, wrapper_ms=wrapper_ms,
+                  device_ms_by_kernel=ms_by, plain_ms=plain_ms, library_ms=None, **bound)
+    emit("kernel_vs_plain", kernel="banded_scores", ok=ok, max_abs_err=max_err,
+         covered=covered, checks=checks, timing=timing)
+    return ok, max_err, timing
+
+
+def cli_score_cfg(idx):
+    """The scoring of the command line's default flags (--ma, --mp, --go,
+    --ge, --bandwidth)."""
+    from rapmap_tpu_torch.cli import _cfg_from_args, build_parser
+
+    args = build_parser().parse_args(["quasimap", "-i", "-", "-r", "-", *SCORE_FLAGS])
+    return _cfg_from_args(args, idx.k)
+
+
+def as_tags_equal_oracle(path: str, idx, reads1, reads2, cfg, n: int, seed: int) -> dict:
+    """Recomputes the AS:i tag of n SAM records drawn at random (every
+    record with a tag and a mapped position) with the port's numpy oracle,
+    oracle.align.score_mapping_np, from the read as it was written (named
+    r<i>:... or p<i>:... by write_fastq / write_fastq_pairs; reads2 for the
+    second mates) -> {records, checked, unequal}."""
+    from rapmap_tpu_torch.oracle.align import score_mapping_np
+
+    recs = []
+    with open(path) as f:
+        for ln in f:
+            if ln[0] == "@":
+                continue
+            fs = ln.rstrip("\n").split("\t")
+            flag = int(fs[1])
+            tags = [x for x in fs[11:] if x.startswith("AS:i:")]
+            if flag & 0x4 or fs[2] == "*" or not tags:
+                continue
+            recs.append((int(fs[0].split(":")[0][1:]), flag, int(fs[2][1:]), int(fs[3]) - 1,
+                         int(tags[0][5:])))
+    pick = np.random.default_rng(seed).choice(len(recs), size=min(n, len(recs)), replace=False)
+    unequal = 0
+    for j in pick:
+        i, flag, t, pos, score = recs[j]
+        read = (reads2 if flag & 0x80 else reads1)[i]
+        want = score_mapping_np(idx, read, t, pos, 1 if flag & 0x10 else 0, cfg.align_band,
+                                cfg.align_ma, cfg.align_mp, cfg.align_go, cfg.align_ge)
+        unequal += want != score
+    return dict(records=len(recs), checked=len(pick), unequal=int(unequal))
+
+
+def library_scores_equal_oracle(res, idx, reads1, reads2, cfg, n: int, seed: int) -> int:
+    """Recomputes n record scores of a fetched scored WireResult (SE field 3;
+    PE fields 7 and 8 of the mates present) with the numpy oracle -> how many
+    differ."""
+    from rapmap_tpu_torch.oracle.align import score_mapping_np
+
+    rid = np.repeat(np.arange(len(res.counts)), res.counts)
+    pick = np.random.default_rng(seed).choice(len(rid), size=min(n, len(rid)), replace=False)
+    unequal = 0
+    for j in pick:
+        r, i = res.recs[j], rid[j]
+        mates = ([(reads1[i], r[1], r[2], r[3])] if reads2 is None else
+                 [(reads1[i], r[1], r[2], r[7]), (reads2[i], r[4], r[5], r[8])])
+        present = [True] if reads2 is None else [r[3] != 0, r[6] != 0]
+        for (read, pos, strand, score), has in zip(mates, present):
+            want = score_mapping_np(idx, read, int(r[0]), int(pos), int(strand),
+                                    cfg.align_band, cfg.align_ma, cfg.align_mp, cfg.align_go,
+                                    cfg.align_ge) if has else 0
+            unequal += want != score
+    return int(unequal)
 
 
 def library_path(m, codes, lens, B: int, batches: int, cuda: bool):
@@ -1502,6 +1770,42 @@ def main() -> int:
         raise RuntimeError(f"nochd_path: kernel launches {nochd_launches} for {n_chunks} chunks")
     del n_results
 
+    # ---- the mapping score: the kernel against its plain version, then the
+    # same reads with cfg.mapping_score on the main path's upload ---------------
+    score_ok, score_err, score_t = phase_score_kernel(dev, timer, mapper, idx, codes, lens,
+                                                      results[0], C, args.seed)
+    if not score_ok:
+        raise RuntimeError("banded_scores kernel disagrees with its plain version, or an "
+                           "input set missed what it is there to exercise")
+    smapper = copy.copy(mapper)  # the same upload and host index, with scores
+    smapper.cfg = dataclasses.replace(mapper.cfg, mapping_score=True)
+    kernels.reset_launches()
+    s_results, wall = library_path(smapper, codes, lens, B, BATCHES, cuda)
+    score_launches = dict(kernels.LAUNCHES)
+    same = [np.array_equal(a.recs[:, :3], b.recs[:, :3]) and np.array_equal(a.counts, b.counts)
+            and np.array_equal(a.flags, b.flags) and a.counters == b.counters
+            for a, b in zip(s_results, results)]
+    unequal = library_scores_equal_oracle(s_results[0], idx, codes[:B], None, smapper.cfg,
+                                          500, args.seed)
+    prof = profile_one_batch(lambda: smapper.fetch(smapper.map_se_async(codes[:B], lens[:B])),
+                             B // C, cuda, 8)
+    banded = [h for h in prof["hand_kernels"] if "banded_" in h["name"]]
+    emit("score_path", reads=args.reads, batches=BATCHES, batch=B, chunks=n_chunks,
+         seconds=wall, reads_per_s=args.reads / wall,
+         reads_per_s_over_main_path_repeat=again_s / wall,
+         equal_main_path_mappings=same, sampled_scores_unequal_oracle=unequal,
+         launches=score_launches, launches_per_chunk=prof["launches_per_chunk"],
+         kernel_device_ms_per_chunk=(sum(h["ms"] for h in banded) / (B // C) if cuda
+                                     else "not measured"),
+         device_busy_ms=prof["device_busy_ms"], device_idle_share=prof["device_idle_share"],
+         score_mean=float(np.mean(s_results[0].recs[:, 3])))
+    if cuda and score_launches["banded_scores"] < n_chunks:
+        raise RuntimeError(f"score_path: kernel launches {score_launches} for {n_chunks} chunks")
+    if not all(same) or unequal:
+        raise RuntimeError("score_path: a batch's mappings differ from main_path's, or a "
+                           "sampled score differs from the oracle's")
+    del s_results
+
     # ---- the charwise extension (packed_extension=False), both index kinds ----
     kernels.reset_launches()
     charwise = {}
@@ -1595,6 +1899,30 @@ def main() -> int:
                     nochd_pe_launches["bitonic_sort_pairs"]) < 2 * (PB // C):
         raise RuntimeError(f"nochd_pe_path: kernel launches {nochd_pe_launches} for "
                            f"{PB // C} chunks of two mates")
+
+    # one paired-end batch with the mapping score: both mates of a chunk's
+    # records scored in one launch
+    kernels.reset_launches()
+    t0 = time.time()
+    got = smapper.fetch(smapper.map_pe_async(pc1[:PB], plens[:PB], pc2[:PB], plens[:PB]))
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    pe_score_launches = dict(kernels.LAUNCHES)
+    same = (got.recs.shape[1] == 9 and np.array_equal(got.recs[:, :7], pe_first.recs)
+            and np.array_equal(got.counts, pe_first.counts)
+            and np.array_equal(got.flags, pe_first.flags) and got.counters == pe_first.counters)
+    unequal = library_scores_equal_oracle(got, idx, pc1[:PB], pc2[:PB], smapper.cfg, 250,
+                                          args.seed)
+    emit("pe_score_path", pairs=PB, chunks=PB // C, seconds=wall, pairs_per_s=PB / wall,
+         equal_pe_path_first_batch_fields_0_6=same, sampled_scores_unequal_oracle=unequal,
+         launches=pe_score_launches)
+    if not same or unequal:
+        raise RuntimeError("pe_score_path: fields 0-6 differ from pe_path's first batch, or "
+                           "a sampled score differs from the oracle's")
+    if cuda and pe_score_launches["banded_scores"] < PB // C:
+        raise RuntimeError(f"pe_score_path: kernel launches {pe_score_launches} for "
+                           f"{PB // C} chunks")
     del got, pe_first
     # the command line's paired-end inputs: every pair with its true locus in
     # its name, and the head of them for the card-against-CPU runs
@@ -1616,7 +1944,7 @@ def main() -> int:
         again.done.synchronize()
         again_pe.done.synchronize()
         card, card_pe = again.wire.clone(), again_pe.wire.clone()
-        del mapper, nmapper, again, again_pe
+        del mapper, smapper, nmapper, again, again_pe
         torch.cuda.empty_cache()
         t0 = time.time()
         cpu_mapper = QuasiMapper(idx, cfg, device="cpu")
@@ -1639,8 +1967,8 @@ def main() -> int:
     idx_dir = os.path.join(work, "idx")
     n_main_mapped = ctr["reads_mapped"]
     if not cuda:
-        del nmapper
-    del results, idx, nidx
+        del nmapper, smapper
+    del results, nidx  # idx stays: the oracle recomputes sampled AS:i tags
 
     def sam(name):
         return os.path.join(work, name)
@@ -1728,6 +2056,39 @@ def main() -> int:
             raise RuntimeError("cli_card_equals_cpu: the card's SAM differs from the CPU's, "
                                "or the CPU run launched a kernel")
 
+    # ---- the command line with the mapping score: AS:i tags and the filter ----
+    cli_score = run_cli(
+        "cli_score_default", ["-i", idx_dir, "-r", reads_fq, "-o", sam("s.sam"), *default_bs,
+                              *SCORE_FLAGS], work, force_cpu)
+    share = sam_true_locus_share(sam("s.sam"), args.reads)
+    as_check = as_tags_equal_oracle(sam("s.sam"), idx, codes, None, cli_score_cfg(idx), 1000,
+                                    args.seed)
+    emit("cli_score_default_checks", batches=n_batches, primary_at_true_locus_share=share,
+         score_filtered=cli_score["counters"].get("score_filtered", 0),
+         reads_mapped_cli_default=cli_default["counters"]["reads_mapped"],
+         reads_per_s_over_cli_default=cli_score["reads_per_s"] / cli_default["reads_per_s"],
+         as_tags=as_check)
+    if share < 0.98 or as_check["unequal"] or as_check["checked"] < min(1000, args.reads // 2):
+        raise RuntimeError(f"cli_score_default: {share:.4f} of the primary records at the true "
+                           f"locus, or AS:i tags unequal to the oracle's: {as_check}")
+    if cuda and cli_score["launches"]["banded_scores"] != n_batches:
+        raise RuntimeError(f"cli_score_default: kernel launches {cli_score['launches']} for "
+                           f"{n_batches} batches")
+    if cuda:
+        head = {}
+        for name, on_cpu in (("card", False), ("cpu", True)):
+            head[name] = run_cli(
+                f"cli_score_head_{name}", ["-i", idx_dir, "-r", head_fq,
+                                           "-o", sam(f"head_score_{name}.sam"), *SCORE_FLAGS],
+                work, on_cpu)
+        same = sam_body(sam("head_score_card.sam")) == sam_body(sam("head_score_cpu.sam"))
+        emit("cli_score_card_equals_cpu", reads=n_head, equal=same,
+             card_launches=head["card"]["launches"], cpu_launches=head["cpu"]["launches"])
+        if (not same or head["cpu"]["launches"]["banded_scores"]
+                or not head["card"]["launches"]["banded_scores"]):
+            raise RuntimeError("cli_score_card_equals_cpu: the card's SAM differs from the "
+                               "CPU's, or the kernel ran on the CPU or not on the card")
+
     # ---- the paired-end command line ---------------------------------------
     pe_default = run_cli(
         "cli_pe_default", ["-i", idx_dir, "-1", pe_fq[0], "-2", pe_fq[1], "-o", sam("pa.sam"),
@@ -1792,6 +2153,40 @@ def main() -> int:
             raise RuntimeError("cli_pe_card_equals_cpu: the card's SAM differs from the CPU's, "
                                "the card skipped the walk kernel, or the CPU launched it")
 
+    # the paired-end command line with the mapping score
+    pe_score = run_cli(
+        "cli_pe_score_default", ["-i", idx_dir, "-1", pe_fq[0], "-2", pe_fq[1],
+                                 "-o", sam("ps.sam"), *default_bs, *SCORE_FLAGS],
+        work, force_cpu)
+    share = sam_pe_true_locus_share(sam("ps.sam"), n_pairs)
+    as_check = as_tags_equal_oracle(sam("ps.sam"), idx, pc1, pc2, cli_score_cfg(idx), 1000,
+                                    args.seed + 1)
+    emit("cli_pe_score_default_checks", batches=pe_batches,
+         primary_proper_pair_at_true_locus_share=share,
+         score_filtered=pe_score["counters"].get("score_filtered", 0),
+         pairs_per_s_over_cli_pe_default=pe_score["reads_per_s"] / pe_default["reads_per_s"],
+         as_tags=as_check)
+    if share < 0.95 or as_check["unequal"] or as_check["checked"] < min(1000, n_pairs):
+        raise RuntimeError(f"cli_pe_score_default: {share:.4f} of the primary pairs at their "
+                           f"true locus, or AS:i tags unequal to the oracle's: {as_check}")
+    if cuda and pe_score["launches"]["banded_scores"] != pe_batches:
+        raise RuntimeError(f"cli_pe_score_default: kernel launches {pe_score['launches']} for "
+                           f"{pe_batches} batches")
+    if cuda:
+        head = {}
+        for name, on_cpu in (("card", False), ("cpu", True)):
+            head[name] = run_cli(
+                f"cli_pe_score_head_{name}",
+                ["-i", idx_dir, "-1", head_pe_fq[0], "-2", head_pe_fq[1],
+                 "-o", sam(f"head_pe_score_{name}.sam"), *SCORE_FLAGS], work, on_cpu)
+        same = sam_body(sam("head_pe_score_card.sam")) == sam_body(sam("head_pe_score_cpu.sam"))
+        emit("cli_pe_score_card_equals_cpu", pairs=n_head_pe, equal=same,
+             card_launches=head["card"]["launches"], cpu_launches=head["cpu"]["launches"])
+        if (not same or head["cpu"]["launches"]["banded_scores"]
+                or not head["card"]["launches"]["banded_scores"]):
+            raise RuntimeError("cli_pe_score_card_equals_cpu: the card's SAM differs from the "
+                               "CPU's, or the kernel ran on the CPU or not on the card")
+
     # the host-oracle fallback on pairs: a starved expansion pool against an
     # ample one on the repetitive world (1,024 pairs of 2 x 100 bp: the record
     # buffer, rec_slots x batch, holds 16 records a pair)
@@ -1820,11 +2215,14 @@ def main() -> int:
 
     cli_launches = {"cli_default": cli_default["launches"], "cli_chunked": cli_chunked["launches"],
                     "cli_fallback_starved": rep["starved"]["launches"],
-                    "cli_fallback_ample": rep["ample"]["launches"]}
+                    "cli_fallback_ample": rep["ample"]["launches"],
+                    "cli_score_default": cli_score["launches"]}
     pe_path_launches = {"pe_path": pe_launches, "cli_pe_default": pe_default["launches"],
                         "cli_pe_chunked": pe_chunked["launches"],
                         "cli_pe_fallback_starved": rep_pe["starved"]["launches"],
-                        "cli_pe_fallback_ample": rep_pe["ample"]["launches"]}
+                        "cli_pe_fallback_ample": rep_pe["ample"]["launches"],
+                        "pe_score_path": pe_score_launches,
+                        "cli_pe_score_default": pe_score["launches"]}
 
     def on_pe(kernel):
         return {path: n[kernel] for path, n in pe_path_launches.items()}
@@ -1883,6 +2281,16 @@ def main() -> int:
         "bound_by": char_t["paired_chunk"]["bound_by"], "library_ms": None,
         "lanes_mode": {x: char_t["lanes_chunk"][x] for x in
                        ("ms", "cold_ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")},
+    }, {
+        "name": "banded_scores", "route": "cuda",
+        "source": "rapmap_tpu_torch/csrc/align.cu",
+        "replaces": "rapmap_tpu/ops/align.py:111",
+        "launches": score_launches["banded_scores"],
+        "launches_on_cli_paths": on_cli("banded_scores"),
+        "launches_on_pe_paths": on_pe("banded_scores"), "max_abs_err": score_err,
+        "matches_plain": score_ok, "ms": score_t["ms"], "cold_ms": score_t["cold_ms"],
+        "wrapper_ms": score_t["wrapper_ms"], "plain_ms": score_t["plain_ms"],
+        "bound_ms": score_t["bound_ms"], "bound_by": score_t["bound_by"], "library_ms": None,
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

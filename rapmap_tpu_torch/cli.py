@@ -3,9 +3,10 @@
 Port of rapmap_tpu.cli: the same subcommands, flag names and defaults, so a
 parity harness can drive either tool with the same argv. `quasimap` of
 single-end (-r) and paired-end (-1/-2) reads on a quasi index, with or without
-the canonical CHD, runs end to end (FASTQ in, SAM out); what is not ported
-yet (pseudo-mapping, --mappingScore, the host-staged engine, --worldSize > 1,
-the quasi_map / quasi_core artifacts) is refused with one log line and exit
+the canonical CHD, with or without --mappingScore (AS:i tags, the
+--minScoreFraction filter), runs end to end (FASTQ in, SAM out); what is not
+ported yet (pseudo-mapping, the host-staged engine, --worldSize > 1, the
+quasi_map / quasi_core artifacts) is refused with one log line and exit
 code 1.
 
 The mapping runs on the CUDA card. TQM_FORCE_CPU=1 runs every kernel's plain
@@ -255,8 +256,6 @@ def run_map(args) -> int:
 
     if args.worldSize > 1:
         return _refuse("--worldSize > 1", "the data-parallel and multi-process slice")
-    if args.mappingScore:
-        return _refuse("--mappingScore", "the mapping-score slice")
     if args.engine == "staged":
         return _refuse("--engine staged", "the host-staged slice")
     if not (args.reads or (args.mates1 and args.mates2)):
@@ -333,11 +332,15 @@ def run_map(args) -> int:
         # pipeline: dispatch the next batches before fetching batch i's
         # results so the device computes while the host renders SAM
         from rapmap_tpu_torch.models import fallback as fb
+        from rapmap_tpu_torch.models import scorefilter
         from rapmap_tpu_torch.oracle import quasimap as oracle_mod
         from rapmap_tpu_torch.utils.timers import StageTimers, device_trace
 
         timers = StageTimers()
         use_fallback = not args.noFallback
+        # per batch: fetch -> fallback -> score filter -> SAM, as tqm drains;
+        # the filter re-derives the counters (score_filtered among them)
+        score_filter = cfg.mapping_score and cfg.min_score_fraction > 0.0
 
         def drain_se(pending):
             batch, fut = pending
@@ -349,6 +352,8 @@ def run_map(args) -> int:
                         recsd, batch.codes, batch.lens, batch.n,
                         mapper.host_index, mapper.cfg, oracle_mod,
                     )
+            if score_filter:
+                recsd = scorefilter.filter_se(recsd, batch.lens, cfg)
             acc(recsd.counters)
             if recsd.overflowed:
                 log.warning("record buffer overflow in a batch; tail records dropped")
@@ -357,7 +362,7 @@ def run_map(args) -> int:
                     sam.write_se_records_dense(
                         out, batch.names[: batch.n], batch.seqs, batch.quals,
                         recsd.recs, recsd.counts, idx.txp_names, write_unmapped,
-                        formatter=sam_fmt,
+                        formatter=sam_fmt, with_score=cfg.mapping_score,
                     )
 
         def drain_pe(pending):
@@ -370,6 +375,8 @@ def run_map(args) -> int:
                         recsd, b1.codes, b1.lens, b2.codes, b2.lens, b1.n,
                         mapper.host_index, mapper.cfg, oracle_mod,
                     )
+            if score_filter:
+                recsd = scorefilter.filter_pe(recsd, b1.lens, b2.lens, cfg)
             acc(recsd.counters)
             if recsd.overflowed:
                 log.warning("record buffer overflow in a batch; tail records dropped")
@@ -378,7 +385,7 @@ def run_map(args) -> int:
                     sam.write_pe_records_dense(
                         out, b1.names[: b1.n], b1.seqs, b1.quals, b2.seqs, b2.quals,
                         recsd.recs, recsd.counts, idx.txp_names, write_unmapped,
-                        formatter=sam_fmt,
+                        formatter=sam_fmt, with_score=cfg.mapping_score,
                     )
 
         if args.reads:

@@ -35,6 +35,7 @@ LAUNCHES: dict[str, int] = {
     "anchor_walk": 0,           # csrc/walk.cu, packed extension, strand-paired lanes
     "anchor_walk_lanes": 0,     # csrc/walk.cu, packed extension, explicit lanes
     "anchor_walk_charwise": 0,  # csrc/walk.cu, charwise extension, either lane kind
+    "banded_scores": 0,         # csrc/align.cu, the mapping score of record rows
 }
 
 _lock = threading.Lock()

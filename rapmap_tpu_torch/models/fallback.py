@@ -7,8 +7,9 @@ of silently degrading, the command line remaps EXACTLY the reads whose wire
 flags carry FLAG_DEGRADED with the numpy oracle (the executable spec,
 SEMANTICS.md) and splices the corrected records into the dense batch output. Budgets
 auto-size from index stats so this stays rare; correctness never depends on
-the budget. The alignment-score fields of the records come with the
-mapping-score engine.
+the budget. Under --mappingScore a remapped record carries its banded
+alignment score (oracle.align, equal to the device kernel's) where it
+would carry the MMP support, and a pair record one score a mate.
 """
 
 from __future__ import annotations
@@ -46,9 +47,22 @@ def _update_counters(recsd: WireResult, n: int, bad, mapped_after) -> None:
     ctr["host_fallback"] = ctr.get("host_fallback", 0) + len(bad)
 
 
+def _rec_score(idx, cfg, rcodes, t, pos, fwd, support) -> int:
+    """Record score field: MMP support normally; the banded alignment score
+    (oracle.align — identical to the device kernel) under --mappingScore."""
+    if not getattr(cfg, "mapping_score", False):
+        return support
+    from rapmap_tpu_torch.oracle.align import score_mapping_np
+
+    return score_mapping_np(
+        idx, rcodes, int(t), int(pos), 0 if fwd else 1, cfg.align_band,
+        cfg.align_ma, cfg.align_mp, cfg.align_go, cfg.align_ge,
+    )
+
+
 def remap_se(recsd: WireResult, codes, lens, n: int, idx, cfg, oracle) -> WireResult:
     """Re-resolve FLAG_DEGRADED single-end reads with oracle.map_read; the
-    record score field is the MMP support."""
+    record score field is the MMP support, or the alignment score."""
     flags = np.asarray(recsd.flags)
     bad = np.flatnonzero((flags[:n] & FLAG_DEGRADED) != 0)
     if bad.size == 0:
@@ -61,7 +75,9 @@ def remap_se(recsd: WireResult, codes, lens, n: int, idx, cfg, oracle) -> WireRe
         if len(ms) > cfg.max_num_hits:
             ms = []
         new_rows[int(i)] = np.array(
-            [[m.txp, m.pos, 0 if m.fwd else 1, m.score] for m in ms], np.int32
+            [[m.txp, m.pos, 0 if m.fwd else 1,
+              _rec_score(idx, cfg, rcodes, m.txp, m.pos, m.fwd, m.score)]
+             for m in ms], np.int32
         ).reshape(-1, 4)
         mapped_after[j] = bool(ms)
     recsd = _splice(recsd, n, new_rows)
@@ -71,21 +87,31 @@ def remap_se(recsd: WireResult, codes, lens, n: int, idx, cfg, oracle) -> WireRe
 
 def remap_pe(recsd: WireResult, c1, l1, c2, l2, n: int, idx, cfg, oracle) -> WireResult:
     """Re-resolve FLAG_DEGRADED pairs with oracle.map_pair; rows are
-    (t, p1, s1, has1, p2, s2, has2), a missing mate's fields 0."""
+    (t, p1, s1, has1, p2, s2, has2), a missing mate's fields 0, plus the
+    per-mate scores (sc1, sc2; 0 for a missing mate) under --mappingScore."""
     flags = np.asarray(recsd.flags)
     bad = np.flatnonzero((flags[:n] & FLAG_DEGRADED) != 0)
     if bad.size == 0:
         return recsd
     new_rows: dict[int, np.ndarray] = {}
     mapped_after = np.zeros(len(bad), bool)
+    W = 9 if getattr(cfg, "mapping_score", False) else 7
     for j, i in enumerate(bad):
-        ms, _ = oracle.map_pair(idx, np.asarray(c1[i][: l1[i]]), np.asarray(c2[i][: l2[i]]), cfg)
-        new_rows[int(i)] = np.array(
-            [[m.txp,
-              m.pos1 if m.pos1 is not None else 0, 0 if m.fwd1 else 1, int(m.pos1 is not None),
-              m.pos2 if m.pos2 is not None else 0, 0 if m.fwd2 else 1, int(m.pos2 is not None)]
-             for m in ms], np.int32
-        ).reshape(-1, 7)
+        r1 = np.asarray(c1[i][: l1[i]])
+        r2 = np.asarray(c2[i][: l2[i]])
+        ms, _ = oracle.map_pair(idx, r1, r2, cfg)
+        rows = []
+        for m in ms:
+            row = [m.txp,
+                   m.pos1 if m.pos1 is not None else 0, 0 if m.fwd1 else 1, int(m.pos1 is not None),
+                   m.pos2 if m.pos2 is not None else 0, 0 if m.fwd2 else 1, int(m.pos2 is not None)]
+            if W == 9:
+                row.append(_rec_score(idx, cfg, r1, m.txp, m.pos1, m.fwd1, 0)
+                           if m.pos1 is not None else 0)
+                row.append(_rec_score(idx, cfg, r2, m.txp, m.pos2, m.fwd2, 0)
+                           if m.pos2 is not None else 0)
+            rows.append(row)
+        new_rows[int(i)] = np.array(rows, np.int32).reshape(-1, W)
         mapped_after[j] = bool(ms)
     recsd = _splice(recsd, n, new_rows)
     _update_counters(recsd, n, bad, mapped_after)

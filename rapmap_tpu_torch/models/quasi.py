@@ -15,7 +15,9 @@ stream and start a non-blocking copy of the result into pinned host memory;
 `fetch` waits for that copy alone, so a caller can hold batches in flight
 while it prepares the next. Every call pins fresh buffers, and a fetched
 result's records may be a view of its buffer: nothing is reused while a
-result is alive. The mapping score is not ported yet.
+result is alive. With cfg.mapping_score every record carries its banded
+alignment score (ops.align, the CUDA kernel of csrc/align.cu on the card):
+the SE score field, and two per-mate fields after a PE row's seven.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import torch
 from rapmap_tpu_torch.config import MapConfig, auto_expand_budget, sampled_width
 from rapmap_tpu_torch.index.format import QuasiIndex
 from rapmap_tpu_torch.ops.collate import MapOut, collate_batch, collate_records_se
-from rapmap_tpu_torch.ops.compact import compact_pe, compact_se
+from rapmap_tpu_torch.ops.compact import compact_pe, compact_se, rid_from_counts
 from rapmap_tpu_torch.ops.device_index import DeviceQuasiIndex, EngineStatic, upload_index
 from rapmap_tpu_torch.ops.mmp import scan_dispatch
 from rapmap_tpu_torch.ops.pairs import (
@@ -114,11 +116,21 @@ def map_batch_se_wire(
     cfg: MapConfig, cap: int, B: int, L: int,
 ) -> torch.Tensor:
     """Single-buffer in/out SE mapping step (ops.wire format), one program
-    over the whole batch -> int32 wire_out on the wire's device."""
+    over the whole batch -> int32 wire_out on the wire's device. With
+    cfg.mapping_score the compacted rows' score column is replaced, in
+    place, by their alignment scores."""
     reads, lens, n_valid = unpack_in_se(wire_in, B, L)
     out, ctr = map_batch_se(didx, st, reads, lens, n_valid, cfg)
     flags = encode_read_flags(out.over_budget, out.out_truncated, out.too_ambiguous, out.mapped)
-    return pack_out(compact_se(out, cap), ctr, flags)
+    se = compact_se(out, cap)
+    if cfg.mapping_score:
+        from rapmap_tpu_torch.ops.align import score_records
+
+        rid = rid_from_counts(se.counts, cap)
+        live = torch.arange(cap, device=se.recs.device) < se.total.clamp(max=cap)
+        se.recs[:, 3] = score_records(didx, cfg, reads, lens, rid, se.recs[:, 0],
+                                      se.recs[:, 1], se.recs[:, 2], live)
+    return pack_out(se, ctr, flags)
 
 
 def map_batch_pe_wire(
@@ -126,10 +138,13 @@ def map_batch_pe_wire(
     cfg: MapConfig, cap: int, B: int, L: int,
 ) -> torch.Tensor:
     """Single-buffer in/out PE mapping step, one program over the whole
-    batch -> int32 wire_out (7 fields a record) on the wire's device."""
+    batch -> int32 wire_out (7 fields a record, 9 with the mapping score) on
+    the wire's device."""
     r1, l1, r2, l2, n_valid = unpack_in_pe(wire_in, B, L)
     out1, out2, pairs, ctr = map_batch_pe(didx, st, r1, l1, r2, l2, n_valid, cfg)
-    return pack_out(compact_pe(pairs, cap), ctr, _pe_flags(out1, out2, pairs))
+    sargs = (didx, cfg, r1, l1, r2, l2) if cfg.mapping_score else None
+    return pack_out(compact_pe(pairs, cap, score_args=sargs), ctr,
+                    _pe_flags(out1, out2, pairs))
 
 
 def _chunk_counters(flags, n_valid, C: int) -> Counters:
@@ -191,7 +206,8 @@ def map_batch_se_wire_chunked(
         r, ln = reads[c * C : (c + 1) * C], lens[c * C : (c + 1) * C]
         nv = (n_valid - c * C).clamp(0, C)
         hits = scan_dispatch(didx, st, r, ln, cfg)
-        se, flags = collate_records_se(didx, st, hits, ln, cfg, capc, rec_spec=spec)
+        se, flags = collate_records_se(didx, st, hits, ln, cfg, capc, rec_spec=spec,
+                                       reads=r)
         fbits = encode_read_flags(
             flags.over_budget, flags.out_truncated, flags.too_ambiguous, flags.mapped
         )
@@ -222,7 +238,8 @@ def map_batch_pe_wire_chunked(
             hits1 = scan_dispatch(didx, st, a, la, cfg)
             hits2 = scan_dispatch(didx, st, b, lb, cfg)
             pe, fl, _ = collate_records_pe(
-                didx, st, hits1, la, hits2, lb, cfg, capc, rec_spec=spec
+                didx, st, hits1, la, hits2, lb, cfg, capc, rec_spec=spec,
+                reads1=a, reads2=b,
             )
             ctr = _chunk_counters(fl, nv, C)
             fbits = encode_read_flags(
@@ -230,7 +247,8 @@ def map_batch_pe_wire_chunked(
             )
         else:
             out1, out2, pairs, ctr = map_batch_pe(didx, st, a, la, b, lb, nv, cfg)
-            pe = compact_pe(pairs, capc, rec_spec=spec)
+            sargs = (didx, cfg, a, la, b, lb) if cfg.mapping_score else None
+            pe = compact_pe(pairs, capc, rec_spec=spec, score_args=sargs)
             fbits = _pe_flags(out1, out2, pairs)
         blocks.append(_chunk_block(pe, ctr, fbits, packed_cf))
     return _join_chunks(blocks)
@@ -274,8 +292,6 @@ class QuasiMapper:
             cfg = MapConfig(k=idx.k)
         if cfg.k != idx.k:
             raise ValueError(f"config k={cfg.k} != index k={idx.k}")
-        if cfg.mapping_score:
-            raise NotImplementedError("mapping_score (--mappingScore) is not ported yet")
         if cfg.expand_budget == 0:
             widths = np.asarray(idx.kmer_e) - np.asarray(idx.kmer_b)
             cfg = replace(
@@ -366,11 +382,12 @@ class QuasiMapper:
 
     def fetch(self, result: MapHandle):
         """-> WireResult; recs fields SE (t, pos, strand, score), PE (t, p1,
-        s1, has1, p2, s2, has2)."""
+        s1, has1, p2, s2, has2 [, sc1, sc2 with the mapping score])."""
         if result.done is not None:
             result.done.synchronize()
+        pe_w = 9 if self.cfg.mapping_score else 7  # per-mate AS fields 7-8
         return unpack_out(
-            result.wire.numpy(), result.B, 4 if result.kind == "se" else 7,
+            result.wire.numpy(), result.B, 4 if result.kind == "se" else pe_w,
             chunk=result.C, capc=result.capc, rec_spec=result.spec,
             packed_cf=bool(result.C) and _packed_cf(self.cfg, result.C),
         )

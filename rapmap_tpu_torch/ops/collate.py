@@ -383,19 +383,19 @@ def collate_records_se(
     cfg: MapConfig,
     cap: int,
     rec_spec=None,
+    reads=None,
 ):
     """Winners compacted DIRECTLY into a dense (cap, W) int32 record buffer.
 
     The core's winner rows already sit in (read, t*2+strand) sorted order —
     the row-major layout of the records — so one cumsum + scatter compacts
     them. With rec_spec (wire.RecSpec), rows pack into W=2 words instead of
-    4 (t, pos, strand, score). Returns (SERecords, MapFlags)."""
+    4 (t, pos, strand, score). With cfg.mapping_score (and `reads`), the
+    score field carries the banded alignment score (ops.align, computed on
+    the compacted cap rows) instead of the MMP support. Returns (SERecords,
+    MapFlags)."""
     from rapmap_tpu_torch.ops.compact import SERecords
 
-    if cfg.mapping_score:
-        raise NotImplementedError(
-            "mapping_score (--mappingScore) is not ported yet"
-        )
     B = hits.q.shape[0] // 2
     c = _collate_core(didx, st, hits, lens, cfg)
     emit = c.keep & ~c.too_ambiguous[c.rclip]
@@ -404,13 +404,31 @@ def collate_records_se(
     # which is cut off; emitted rows below the cap have distinct indices
     dest = torch.where(emit, gidx.clamp(max=cap), cap)
     fields = [c.k2s >> 1, c.p2, c.k2s & 1, c.sup2]
+    scoring = cfg.mapping_score and reads is not None
+    if scoring:
+        # scatter the unpacked columns + read id first, score the dense cap
+        # rows (the pool's CAPG rows would be ~expand_budget/rec_slots times
+        # more DP lanes), then pack the columns
+        from rapmap_tpu_torch.ops.align import score_records
+
+        cols = torch.stack([f.to(torch.int32) for f in fields[:3] + [c.rclip]], dim=-1)
+        buf = torch.zeros((cap + 1, 4), dtype=torch.int32, device=cols.device)
+        raw = buf.index_put_((dest,), cols)[:cap]
+        # the live-row mask comes from the device-side total: no host sync
+        row_live = torch.arange(cap, device=raw.device) < emit.sum().clamp(max=cap)
+        sc = score_records(didx, cfg, reads, lens, raw[:, 3], raw[:, 0], raw[:, 1],
+                           raw[:, 2], row_live)
+        fields = [raw[:, 0], raw[:, 1], raw[:, 2], sc]
     if rec_spec is not None:
         from rapmap_tpu_torch.ops.wire import pack_rec_fields
 
         fields = list(pack_rec_fields(rec_spec, fields))
     rows = torch.stack([f.to(torch.int32) for f in fields], dim=-1)
-    buf = torch.zeros((cap + 1, len(fields)), dtype=torch.int32, device=rows.device)
-    recs = buf.index_put_((dest,), rows)[:cap]
+    if scoring:  # already the dense cap rows
+        recs = rows
+    else:
+        buf = torch.zeros((cap + 1, len(fields)), dtype=torch.int32, device=rows.device)
+        recs = buf.index_put_((dest,), rows)[:cap]
     emitted = _segment_sum(emit, c.rclip, B)
     ends = torch.cumsum(emitted, dim=0)
     counts = ends.clamp(max=cap) - (ends - emitted).clamp(max=cap)

@@ -12,12 +12,14 @@ row:
   sa_meta   (n, 2|4) [sa_txp, sa_tpos (, next pair)]         one per expansion slot
   text2q    (nw, 4)  packed words w..w+3                     long-read compare tails
   text, sa  the flat int8 text and int32 SA of the charwise extension
+  txp_align (n_txps, 3) [off >> 4, off & 15, txp_len]    one per scored record
 
 The lean upload (what the canonical-CHD + packed-extension path gathers)
 drops sa_ext, kmer_rows, lut_rows, text and sa; the full upload keeps them,
-except text and sa for an int64 (big) SA. Words keep the reference's int32
-bit patterns (ops.bits widens them on gather). All derived at upload from
-the on-disk arrays (disk format unchanged).
+except text and sa for an int64 (big) SA; both keep the tiny txp_align.
+Words keep the reference's int32 bit patterns (ops.bits widens them on
+gather). All derived at upload from the on-disk arrays (disk format
+unchanged).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from rapmap_tpu_torch.index.format import QuasiIndex
+from rapmap_tpu_torch.ops.align import make_txp_align
 
 
 class DeviceQuasiIndex(NamedTuple):
@@ -47,6 +50,8 @@ class DeviceQuasiIndex(NamedTuple):
     # the charwise extension's flat arrays; None under lean upload and for a big SA
     text: torch.Tensor | None = None  # int8 codes
     sa: torch.Tensor | None = None    # int32
+    # transcript geometry of the mapping score (ops.align); tiny, always uploaded
+    txp_align: torch.Tensor | None = None  # (n_txps, 3) int32
 
 
 @dataclass(frozen=True)
@@ -156,6 +161,7 @@ def device_bytes_estimate(idx: QuasiIndex, lean: bool | None = None) -> int:
     b += nw * 16                     # text2q quad rows
     if has_chd:
         b += len(idx.chd_dir) * 4 + len(idx.chd_perm) * 24
+    b += len(idx.txp_lens) * 12      # txp_align rows
     if not lean:
         b += max(len(idx.kmer_b), 1) * 16 + max(0, len(idx.prefix_lut) - 1) * 8 + n * 12
         if np.asarray(idx.sa).dtype != np.int64:
@@ -298,5 +304,6 @@ def upload_index(
         lut_rows=dev(np.stack([lut[:-1], lut[1:]], axis=1)) if full else None,
         text=dev(np.asarray(idx.text), np.int8) if flat else None,
         sa=dev(np.asarray(idx.sa)) if flat else None,
+        txp_align=dev(make_txp_align(off, tl)),
     )
     return didx, st

@@ -9,7 +9,8 @@ Port of rapmap_tpu.ops.pairs. Two forms, with the same records:
 - `collate_records_pe` merges the two mates' collate cores directly into a
   dense record buffer: one sort of both mates' winner rows by a (read, t,
   left strand) join key makes concordant partners adjacent. The chunked
-  wire takes it whenever `pe_direct_eligible`.
+  wire takes it whenever `pe_direct_eligible`; with the mapping score it
+  scores both mates of its rows (ops.align) before they pack.
 
 The join key is a uint32 word of the reference; here it rides an int64
 tensor (ops/bits.py), so no product wraps.
@@ -68,21 +69,21 @@ def _scatter_rows(buf: torch.Tensor, dest: torch.Tensor, fields, rec_spec) -> to
 
 
 def collate_records_pe(didx, st, hits1, lens1, hits2, lens2, cfg: MapConfig, cap: int,
-                       rec_spec=None):
+                       rec_spec=None, reads1=None, reads2=None):
     """PE merge DIRECTLY from the two mates' collate cores into a dense
-    (cap, W) record buffer (the reference's function without its
-    mapping-score branch). Each mate's winner rows (already (read, t*2+s)
+    (cap, W) record buffer. Each mate's winner rows (already (read, t*2+s)
     sorted, unique per key) compact to a dense (cap,) list; one sort of the
     2*cap concatenation by the join key makes concordant partners adjacent
     rows. Orphan records come from the per-side lists (left mappings, then
     right). Records equal merge_pairs_batch -> compact_pe's, capped only by
-    `cap` (overflow flagged).
+    `cap` (overflow flagged). With cfg.mapping_score (and `reads1`,
+    `reads2`) the rows scatter unpacked (W = 7), both mates are scored in
+    one pass over the dense cap rows (ops.align.score_pe_rows), and the 9
+    fields (+ sc1, sc2) pack only then.
 
     Returns (PERecords, pair MapFlags, per-read concordant bool)."""
-    from rapmap_tpu_torch.ops.compact import PERecords
+    from rapmap_tpu_torch.ops.compact import PERecords, rid_from_counts
 
-    if cfg.mapping_score:
-        raise NotImplementedError("mapping_score (--mappingScore) is not ported yet")
     C = hits1.q.shape[0] // 2
     KT = 2 * st.n_txps
     c1 = _collate_core(didx, st, hits1, lens1, cfg)
@@ -149,7 +150,11 @@ def collate_records_pe(didx, st, hits1, lens1, hits2, lens2, cfg: MapConfig, cap
     base = torch.cumsum(emit_n, dim=0) - emit_n  # per-read record base
 
     # ---- assemble records: three masked scatter sources ---------------------
-    W = 2 if rec_spec is not None else 7
+    # with the mapping score the rows scatter UNPACKED, are scored on the
+    # dense cap rows (both mates in one pass), then pack elementwise
+    scoring = cfg.mapping_score and reads1 is not None
+    row_spec = None if scoring else rec_spec
+    W = 2 if row_spec is not None else 7
     buf = torch.zeros((cap + 1, W), dtype=torch.int32, device=dev)
 
     # (a) concordant pair rows, in join-key order == left hit order
@@ -160,7 +165,7 @@ def collate_records_pe(didx, st, hits1, lens1, hits2, lens2, cfg: MapConfig, cap
     dest_c = torch.where(w_conc, base[r_sc] + rank_c, cap)
     t_s = torch.where(valid_s, (k_s % KT) >> 1, 0)
     one = torch.ones_like(t_s)
-    buf = _scatter_rows(buf, dest_c, [t_s, pos_s, s1_s, one, pp2, 1 - s1_s, one], rec_spec)
+    buf = _scatter_rows(buf, dest_c, [t_s, pos_s, s1_s, one, pp2, 1 - s1_s, one], row_spec)
 
     # (b) left orphan rows (mate order preserved by c1.rank), then (c) right
     # orphan rows after the read's left rows; with no_orphans there are none
@@ -173,12 +178,25 @@ def collate_records_pe(didx, st, hits1, lens1, hits2, lens2, cfg: MapConfig, cap
             s = c.k2s & 1
             z = torch.zeros_like(t)
             fields = [t, c.p2, s, z + 1, z, z, z] if left else [t, z, z, z, c.p2, s, z + 1]
-            buf = _scatter_rows(buf, dest, fields, rec_spec)
+            buf = _scatter_rows(buf, dest, fields, row_spec)
 
     recs = buf[:cap]
     total = emit_n.sum()
     ends = torch.cumsum(emit_n, dim=0)
     counts = ends.clamp(max=cap) - (ends - emit_n).clamp(max=cap)
+    if scoring:
+        from rapmap_tpu_torch.ops.align import score_pe_rows
+
+        rid = rid_from_counts(counts, cap)
+        live = torch.arange(cap, device=dev) < total.clamp(max=cap)
+        sc1, sc2 = score_pe_rows(didx, cfg, reads1, lens1, reads2, lens2, rid,
+                                 *(recs[:, j] for j in range(7)), live)
+        cols = [recs[:, j] for j in range(7)] + [sc1, sc2]
+        if rec_spec is not None:
+            from rapmap_tpu_torch.ops.wire import pack_rec_fields
+
+            cols = list(pack_rec_fields(rec_spec, cols))
+        recs = torch.stack([x.to(torch.int32) for x in cols], dim=-1)
     pe = PERecords(recs=recs, counts=counts, total=total, overflowed=total > cap)
     mapped = (n_rec >= 1) & ~too_amb
     flags = MapFlags(

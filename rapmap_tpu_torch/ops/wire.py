@@ -13,7 +13,8 @@ wire_out (int32): [0] total records | [1] overflowed | [2:8] counters
                   | [8+B:8+2B] per-read outcome flag bits (FLAG_*)
                   | [8+2B:] records row-major, F fields each (pack_out):
                   SE (t, pos, strand, score), PE (t, p1, s1, has1, p2, s2,
-                  has2).
+                  has2) plus (sc1, sc2) with the mapping score; the SE
+                  score is the MMP support, or the alignment score.
                   The CHUNKED path holds one block per chunk of
                   [counts | flags | records] after the header: counts ride
                   uint16 pairs, flags 8-per-word nibbles (when the chunk
@@ -154,8 +155,10 @@ class RecSpec(NamedTuple):
     """Static bit layout packing one mapping record into 2 int32 words.
 
     SE rows (t, pos, strand, score) and PE rows (t, p1, s1, has1, p2, s2,
-    has2) pack MSB-first in field order, positions biased by `bias` so they
-    are non-negative (pos >= -(L-1) > -pad_tail). None -> unpacked int32."""
+    has2 [, sc1, sc2 with the mapping score]) pack MSB-first in field
+    order, positions biased by `bias` so they are non-negative
+    (pos >= -(L-1) > -pad_tail); the scores carry no bias. None -> unpacked
+    int32."""
 
     kind: str            # "se" | "pe"
     bits: tuple          # per-field bit widths, same order as the row fields
@@ -165,12 +168,15 @@ class RecSpec(NamedTuple):
 def rec_spec_se(st, cfg) -> RecSpec | None:
     if st is None or getattr(st, "n_txps", 0) <= 0:
         return None
-    if cfg.mapping_score:
-        raise NotImplementedError("mapping_score (--mappingScore) is not ported yet")
     tb = (st.n_txps + 1).bit_length()
     bias = st.pad_tail
     pb = (st.max_tpos + bias + 1).bit_length()
-    scb = (2 * cfg.max_hits_per_strand + 1).bit_length()
+    if cfg.mapping_score:  # score field carries the clamped AS value instead
+        from rapmap_tpu_torch.ops.align import SCORE_BITS
+
+        scb = SCORE_BITS
+    else:
+        scb = (2 * cfg.max_hits_per_strand + 1).bit_length()
     if tb + pb + 1 + scb > 64:
         return None
     return RecSpec("se", (tb, pb, 1, scb), bias)
@@ -179,11 +185,15 @@ def rec_spec_se(st, cfg) -> RecSpec | None:
 def rec_spec_pe(st, cfg) -> RecSpec | None:
     if st is None or getattr(st, "n_txps", 0) <= 0:
         return None
-    if cfg.mapping_score:
-        raise NotImplementedError("mapping_score (--mappingScore) is not ported yet")
     tb = (st.n_txps + 1).bit_length()
     bias = st.pad_tail
     pb = (st.max_tpos + bias + 1).bit_length()
+    if cfg.mapping_score:  # two per-mate AS fields ride the tail
+        from rapmap_tpu_torch.ops.align import SCORE_BITS
+
+        if tb + 2 * pb + 4 + 2 * SCORE_BITS > 64:
+            return None
+        return RecSpec("pe", (tb, pb, 1, 1, pb, 1, 1, SCORE_BITS, SCORE_BITS), bias)
     if tb + 2 * pb + 4 > 64:
         return None
     return RecSpec("pe", (tb, pb, 1, 1, pb, 1, 1), bias)

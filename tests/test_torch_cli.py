@@ -230,7 +230,9 @@ REFUSALS = {
     "paired_end": (["quasimap", "-i", "IDX", "-1", "FQ"], "-1/-2 for paired-end"),
     "pseudomap": (["pseudomap", "-i", "IDX", "-r", "FQ"], "pseudomap"),
     "pseudoindex": (["pseudoindex", "-t", "FA", "-i", "OUT"], "pseudoindex"),
-    "mapping_score": (["quasimap", "-i", "IDX", "-r", "FQ", "--mappingScore"], "--mappingScore"),
+    # the mapping score is ported: under the staged engine, which is not, it is refused
+    "mapping_score": (["quasimap", "-i", "IDX", "-r", "FQ", "--mappingScore", "--engine",
+                       "staged"], "--engine staged"),
     "engine_staged": (["quasimap", "-i", "IDX", "-r", "FQ", "--engine", "staged"],
                       "--engine staged"),
     "engine_auto_picks_staged": (["quasimap", "-i", "IDX", "-r", "FQ"], "host-staged engine"),
