@@ -5,8 +5,8 @@
 
 Builds the port's native host library and every CUDA kernel from the
 sources in this checkout, holds each kernel (the voting sort of
-csrc/sort2.cu, the anchor walk of csrc/walk.cu in its three forms, the
-banded DP of csrc/align.cu) against
+csrc/sort2.cu, the anchor walk of csrc/walk.cu in its three forms and its
+pseudo build, the banded DP of csrc/align.cu) against
 its plain PyTorch version on the card, builds a 20 Mbp random transcriptome world from the
 seed, maps 262,144 single-end 76 bp reads through QuasiMapper.map_se_async /
 fetch (one batch in flight), and checks the result: map rate, reads mapped
@@ -42,7 +42,19 @@ equal main_path's and pe_path's and whose sampled scores must equal the
 numpy oracle's, and the command line runs with --mappingScore
 --minScoreFraction 0.65, single-end and paired-end, where 1,000 sampled
 AS:i tags are recomputed by the oracle and the card's SAM must equal the
-CPU's. Every phase prints one JSON line; the last line is
+CPU's. Then the pseudo-mapping path: the world's pseudo index (the port's
+build_pseudo_index of the same FASTA, saved for the command line), the walk
+kernel's pseudo build (csrc/walk.cu without an extension: pseudo_walk on
+strand-paired lanes, pseudo_walk_lanes on explicit lanes) held against its
+plain versions on 0xFF-filled outputs (the smoke chunk, Ns and mixed lengths
+with empty rows and rows shorter than k, a repetitive world at 1, 2 and 16 hit
+slots and with a max_interval its shared k-mers exceed), the 262,144 reads
+through PseudoMapper (pseudo_path, 1,000 sampled reads equal to the numpy
+pseudo oracle), 32,768 pairs in unchunked batches of 4,096 (pseudo_pe_path,
+500 sampled pairs), one batch each without the CHD (binary-search probe,
+explicit lanes) and in the big-occ layout, both equal to pseudo_path's, and
+the command line's pseudomap, single-end and paired-end, on the card and on
+the CPU (SAM equal apart from @PG). Every phase prints one JSON line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It exits non-zero, printing no result, without a CUDA card or without the
 rest of the repository beside it.
@@ -420,8 +432,9 @@ class StageLog(logging.Handler):
             self.stages[name] = [seconds, calls]
 
 
-def run_cli(phase: str, argv: list[str], workdir: str, force_cpu: bool = False) -> dict:
-    """One `quasimap` through rapmap_tpu_torch.cli.main in this process, with
+def run_cli(phase: str, argv: list[str], workdir: str, force_cpu: bool = False,
+            cmd: str = "quasimap") -> dict:
+    """One `quasimap` (or `cmd`) through rapmap_tpu_torch.cli.main in this process, with
     --statsJson and --profile, the launch counts zeroed just before it and read
     just after -> the phase's record (also printed as its JSON line). Raises
     unless the command returns 0."""
@@ -436,7 +449,7 @@ def run_cli(phase: str, argv: list[str], workdir: str, force_cpu: bool = False) 
     kernels.reset_launches()
     t0 = time.time()
     try:
-        rc = cli.main(["quasimap", *argv, "--statsJson", stats_path, "--profile"])
+        rc = cli.main([cmd, *argv, "--statsJson", stats_path, "--profile"])
     finally:
         total_s = time.time() - t0
         launches = dict(kernels.LAUNCHES)
@@ -1570,6 +1583,228 @@ def profile_batch(mapper, codes, lens, C: int, cuda: bool) -> dict:
                      walk_ms=(t1 - tw) * 1e3, collate_ms=(time.perf_counter() - t1) * 1e3)
     return dict(**batch, scan_device=scan_device, chunk_stages=stage, wire_host=wire)
 
+# ---- pseudo-mapping ---------------------------------------------------------
+
+def dense_pseudo(didx, st, cfg, codes, lens, paired: bool, dev):
+    """The pseudo dense phase of a batch on the card: strand-paired lanes
+    (canonical CHD) or the explicit [fwd; revcomp] lanes -> PseudoWalkInputs."""
+    import torch
+
+    from rapmap_tpu_torch.models.pseudo import pseudo_dense_lanes, pseudo_dense_paired
+    from rapmap_tpu_torch.ops import encode as denc
+
+    r = torch.from_numpy(np.ascontiguousarray(codes)).to(dev)
+    ln = torch.from_numpy(lens.astype(np.int64)).to(dev)
+    if st.chd_canonical != paired:
+        raise RuntimeError("the index's CHD does not give the lane kind asked for")
+    if paired:
+        return pseudo_dense_paired(didx, st, r, ln, cfg)
+    lanes = torch.cat([r, denc.revcomp_batch(r, ln)])
+    return pseudo_dense_lanes(didx, st, lanes, torch.cat([ln, ln]), cfg)
+
+
+def pseudo_walk_on_0xff(w, k: int, H: int, paired: bool, count: bool = False):
+    """csrc/walk.cu's pseudo entries called straight (tqm_pseudo_walk, or
+    with count the counting build tqm_pseudo_walk_traffic), on outputs that
+    start as 0xFF bytes, as walk_on_0xff -> (ScanHits, {input: distinct
+    sectors read} or None, trips or None). Only this script calls them."""
+    import torch
+
+    from rapmap_tpu_torch import kernels
+    from rapmap_tpu_torch.ops.mmp import ScanHits
+
+    R, S = w.lens2.shape[0], w.bf.shape[1]
+    dev = w.lens2.device
+    buf = torch.full((R, H, 4), -1, dtype=torch.int64, device=dev)
+    n = torch.full((R,), -1, dtype=torch.int64, device=dev)
+    trunc = torch.full((R,), 0xFF, dtype=torch.uint8, device=dev)
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    argtypes = [vp] * 7 + [i64, i64] + [i32] * 3 + [vp] * 3
+    args = [*(t.data_ptr() for t in w), R, R // 2 if paired else R, S, k, H,
+            buf.data_ptr(), n.data_ptr(), trunc.data_ptr()]
+    lib = kernels.library("walk")
+    if count:
+        words = [((t.numel() * t.element_size() + 31) // 32 + 1 + 31) // 32 for t in w]
+        off = np.concatenate([[0], np.cumsum(words)]).astype(np.int64)
+        bits = torch.zeros(int(off[-1]), dtype=torch.int32, device=dev)
+        rows = torch.zeros(1, dtype=torch.int64, device=dev)
+        fn = lib.tqm_pseudo_walk_traffic
+        argtypes += [vp, ctypes.POINTER(i64), vp]
+        args += [bits.data_ptr(), (i64 * len(words))(*off[:-1].tolist()), rows.data_ptr()]
+    else:
+        fn = lib.tqm_pseudo_walk
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes + [vp]
+    with torch.cuda.device(dev):
+        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {rc}")
+    torch.cuda.synchronize(dev)
+    hits = ScanHits(q=buf[..., 0], l=buf[..., 1], b=buf[..., 2], e=buf[..., 3],
+                    n=n, truncated=trunc)
+    if not count:
+        return hits, None, None
+    marks = bits.cpu().numpy().view(np.uint8)
+    sectors = {nm: int(np.unpackbits(marks[4 * off[g] : 4 * off[g + 1]]).sum())
+               for g, nm in enumerate(w._fields)}
+    return hits, sectors, int(rows.cpu()[0])
+
+
+def pseudo_walk_timing(w, k: int, H: int, paired: bool, timer, cuda: bool) -> dict:
+    """The pseudo walk's launch at a main-path shape, as walk_timing: device
+    ms warm and cold, wrapper_ms, the plain version's ms, and the byte bound
+    from the counting build (every 32-byte input sector the walk uses, once,
+    plus the outputs once; 16 integer operations a trip for the operations
+    bound); no single PyTorch call computes it (library_ms null)."""
+    from rapmap_tpu_torch.ops.mmp import pseudo_walk, pseudo_walk_lanes_plain, pseudo_walk_plain
+
+    run = lambda: pseudo_walk(*w, k=k, H=H, paired=paired)  # noqa: E731
+    plain = pseudo_walk_plain if paired else pseudo_walk_lanes_plain
+    wrapper_ms = timer(run, reps=50)
+    ms, ms_by = device_ms(run, 50, cuda)
+    cold_event_ms, cold_ms = walk_cold_ms(run, 50, cuda)
+    plain_ms = timer(lambda: plain(*w, k=k, H=H), reps=2, warm=1)
+    hits = run()
+    out_bytes = sum(t.numel() * t.element_size() for t in hits)
+    if cuda:
+        counted, sectors, trips = pseudo_walk_on_0xff(w, k, H, paired, count=True)
+        if any(hits_err(counted, hits).values()):
+            raise RuntimeError("the counting build of the pseudo walk disagrees with the kernel")
+        nbytes = 32 * sum(sectors.values()) + out_bytes
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 16 * trips / CUDA_CORE_OPS_PER_S * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        bound = dict(bound_ms=bound_ms, bound_by="bytes" if t_bytes >= t_ops else "operations",
+                     bytes=nbytes, output_bytes=out_bytes, input_sectors_read=sectors,
+                     trips=trips, share_of_bound=bound_ms / ms,
+                     share_of_bound_cold=bound_ms / cold_ms)
+    else:
+        bound = dict(bound_ms="not measured", bound_by="bytes")
+    return dict(lanes=w.lens2.shape[0], ms=ms, cold_ms=cold_ms, cold_event_ms=cold_event_ms,
+                wrapper_ms=wrapper_ms, device_ms_by_kernel=ms_by, plain_ms=plain_ms,
+                library_ms=None, **bound)
+
+
+def phase_pseudo_walk_kernel(dev, timer, pmap, npmap, work: str, codes, lens, C: int,
+                             seed: int):
+    """pseudo_walk (the walk kernel's pseudo build) against pseudo_walk_plain
+    on strand-paired lanes (the canonical-CHD index) and against
+    pseudo_walk_lanes_plain on explicit lanes (the index without its CHD),
+    all six ScanHits fields, through the wrapper and through the entry on
+    outputs that start as 0xFF bytes, on: the smoke chunk (16,384 lanes, 76
+    columns, H = 16), Ns and mixed lengths with empty rows and rows shorter
+    than k, and the repetitive world's pseudo index at 1, 2 and 16 hit slots
+    and with max_interval 4, which its shared k-mers exceed; then the timing
+    and bound of each lane kind on the chunk."""
+    import dataclasses
+
+    import torch
+
+    from rapmap_tpu_torch.config import MapConfig
+    from rapmap_tpu_torch.index.builder import build_pseudo_index
+    from rapmap_tpu_torch.index.format import load_index
+    from rapmap_tpu_torch.models.pseudo import upload_pseudo_index
+    from rapmap_tpu_torch.ops.mmp import pseudo_walk, pseudo_walk_lanes_plain, pseudo_walk_plain
+
+    cuda = dev.type == "cuda"
+    rng = np.random.default_rng(seed + 11)
+    c2 = codes[C : 2 * C].copy()
+    c2[rng.random(c2.shape) < 0.02] = 5
+    l2 = rng.integers(20, READ_LEN + 1, C).astype(np.int32)
+    l2[::7], l2[1::7], l2[2::7], l2[3::7] = K, K - 3, READ_LEN, 0
+    c2[np.arange(READ_LEN)[None, :] >= l2[:, None]] = 5
+    rpidx = build_pseudo_index(os.path.join(work, "repetitive.fa"), k=K)
+    n_rep = max(min(C, 4096), 512)
+    c4, _ = sample_reads(load_index(os.path.join(work, "repetitive_idx")), rng, n_rep, 120, 0.02)
+    l4 = np.full(n_rep, 120, np.int32)
+    checks, max_err, main = [], 0, {}
+    for paired in (True, False):
+        base = pmap if paired else npmap
+        rep = upload_pseudo_index(rpidx if paired else without_chd(rpidx), dev)
+        sets = [
+            ("chunk", base.didx, base.st, base.cfg, codes[:C], lens[:C]),
+            ("ns_mixed_lengths", base.didx, base.st, base.cfg, c2, l2),
+            ("repetitive_1_slot", *rep, MapConfig(k=K, max_hits_per_strand=1), c4, l4),
+            ("repetitive_2_slots", *rep, MapConfig(k=K, max_hits_per_strand=2), c4, l4),
+            ("repetitive_16_slots", *rep, MapConfig(k=K), c4, l4),
+            ("repetitive_max_interval_4", *rep, MapConfig(k=K, max_interval=4), c4, l4),
+        ]
+        for name, didx, st, cfg, cds, lns in sets:
+            w = dense_pseudo(didx, st, cfg, cds, lns, paired, dev)
+            H = cfg.max_hits_per_strand
+            want = (pseudo_walk_plain if paired else pseudo_walk_lanes_plain)(*w, k=K, H=H)
+            got = pseudo_walk(*w, k=K, H=H, paired=paired)
+            errs = hits_err(got, want)
+            if cuda:
+                raw, _, _ = pseudo_walk_on_0xff(w, K, H, paired)
+                errs = {f: max(v, hits_err(raw, want)[f]) for f, v in errs.items()}
+            hit = torch.arange(H, device=got.q.device)[None, :] < got.n[:, None]
+            wide = dense_pseudo(didx, st, dataclasses.replace(cfg, max_interval=1000), cds, lns,
+                                paired, dev)
+            checks.append(dict(
+                set=name, paired=paired, lanes=w.lens2.shape[0], columns=w.bf.shape[1],
+                hit_slots=H, hits=int(got.n.sum()), truncated_lanes=int(got.truncated.sum()),
+                widest_interval=int(torch.where(hit, got.e - got.b, 0).max()),
+                anchors_over_max_interval=int((wide.anch_f & ~w.anch_f).sum() + (
+                    (wide.anch_rF & ~w.anch_rF).sum() if paired else 0)),
+                empty_rows=int((w.lens2 == 0).sum()), rows_below_k=int((w.lens2 < K).sum()),
+                field_err=errs, equal_plain=not any(errs.values())))
+            max_err = max(max_err, *errs.values())
+            if name == "chunk":
+                main[paired] = w
+        del rep
+    by = {(c["set"], c["paired"]): c for c in checks}
+    covered = all(
+        by[("chunk", p)]["lanes"] == 2 * C and by[("ns_mixed_lengths", p)]["empty_rows"] > 0
+        and by[("ns_mixed_lengths", p)]["rows_below_k"] > by[("ns_mixed_lengths", p)]["empty_rows"]
+        and by[("repetitive_1_slot", p)]["truncated_lanes"] > 0
+        and by[("repetitive_2_slots", p)]["truncated_lanes"] > 0
+        and by[("repetitive_16_slots", p)]["widest_interval"] > 4
+        and by[("repetitive_max_interval_4", p)]["anchors_over_max_interval"] > 0
+        and by[("repetitive_max_interval_4", p)]["widest_interval"] <= 4
+        for p in (True, False))
+    ok = covered and all(c["equal_plain"] for c in checks)
+    timing = {("paired" if p else "lanes"): pseudo_walk_timing(main[p], K, 16, p, timer, cuda)
+              for p in (True, False)}
+    emit("kernel_vs_plain", kernel="pseudo_walk", ok=ok, max_abs_err=max_err, covered=covered,
+         checks=checks, timing=timing)
+    return ok, max_err, timing
+
+
+def pseudo_oracle_unequal(results, idx, c1, c2, lens1, lens2, cfg, B: int, n: int,
+                          seed: int) -> dict:
+    """n reads (pairs) drawn at random from the library path's fetched
+    batches of B, each batch's records split by its counts, against the
+    port's numpy pseudo oracle (oracle.pseudomap.map_read / map_pair): SE
+    rows (t, pos, strand, score); PE rows (t, pos and strand of each mate
+    present). Reads flagged FLAG_DEGRADED (the host fallback's to remap) are
+    counted apart -> {checked, unequal, degraded}."""
+    from rapmap_tpu_torch.oracle import pseudomap as opm
+    from rapmap_tpu_torch.ops.wire import FLAG_DEGRADED
+
+    starts = [np.concatenate([[0], np.cumsum(r.counts)]) for r in results]
+    pick = np.random.default_rng(seed).choice(B * len(results), size=n, replace=False)
+    unequal = degraded = 0
+    for g in pick:
+        res, i = results[g // B], g % B
+        if res.flags[i] & FLAG_DEGRADED:
+            degraded += 1
+            continue
+        rows = res.recs[starts[g // B][i] : starts[g // B][i + 1]]
+        if c2 is None:
+            got = [tuple(int(x) for x in r[:4]) for r in rows]
+            want = [(m.txp, m.pos, 0 if m.fwd else 1, m.score)
+                    for m in opm.map_read(idx, c1[g][: lens1[g]], cfg)]
+        else:
+            got = [(int(r[0]), (int(r[1]), int(r[2])) if r[3] else None,
+                    (int(r[4]), int(r[5])) if r[6] else None) for r in rows]
+            ms, _ = opm.map_pair(idx, c1[g][: lens1[g]], c2[g][: lens2[g]], cfg)
+            want = [(m.txp, (m.pos1, 0 if m.fwd1 else 1) if m.pos1 is not None else None,
+                     (m.pos2, 0 if m.fwd2 else 1) if m.pos2 is not None else None) for m in ms]
+        unequal += got != want
+    return dict(checked=n - degraded, unequal=int(unequal), degraded=degraded)
+
+
 
 def main() -> int:
     t_start = time.time()
@@ -2213,6 +2448,179 @@ def main() -> int:
     if cuda and min(r["launches"]["anchor_walk"] for r in rep_pe.values()) < 2:
         raise RuntimeError("cli_pe_fallback: the walk kernel was not launched for both mates")
 
+    # ---- pseudo-mapping: pseudoindex / pseudomap on the same world -----------
+    # the port's build of the world's FASTA, saved for the command line; the
+    # same index without its CHD (binary-search probe, explicit lanes) and in
+    # the big-occ layout must map every read as it does
+    from rapmap_tpu_torch.index.builder import build_pseudo_index
+    from rapmap_tpu_torch.models.pseudo import PseudoMapper
+
+    pidx_dir = os.path.join(work, "pidx")
+    t0 = time.time()
+    pidx = build_pseudo_index(os.path.join(work, "txome.fa"), pidx_dir, k=K)
+    pbuild_s = time.time() - t0
+    pcfg = MapConfig(k=K, chunk=C)
+    pups = {}
+    for name, ix, kw in (("chd", pidx, {}), ("nochd", without_chd(pidx), {}),
+                         ("bigocc", pidx, dict(force_big_occ=True))):
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.time()
+        m = PseudoMapper(ix, pcfg, device=dev, **kw)
+        if cuda:
+            torch.cuda.synchronize()
+        pups[name] = (m, time.time() - t0)
+    pmap, npmap, bpmap = (pups[n][0] for n in ("chd", "nochd", "bigocc"))
+    emit("pseudo_world", kmers=len(pidx.kmer_hi), occurrences=int(pidx.kmer_off[-1]),
+         chd=pidx.meta.get("chd"), index_build_s=pbuild_s,
+         expand_budget=pmap.cfg.expand_budget,
+         uploads={name: dict(upload_s=t, device_index_bytes=didx_bytes(m.didx),
+                             occ_pairs=m.st.occ_pairs, chd_canonical=m.st.chd_canonical,
+                             lookup_steps=m.st.lookup_steps,
+                             tensors={f: didx_bytes([getattr(m.didx, f)])
+                                      for f in m.didx._fields if getattr(m.didx, f) is not None})
+                  for name, (m, t) in pups.items()})
+    if not pmap.st.chd_canonical or npmap.st.use_chd or not bpmap.st.occ_pairs:
+        raise RuntimeError("pseudo_world: an upload is not of the kind asked for")
+    del pups
+
+    ps_ok, ps_err, ps_t = phase_pseudo_walk_kernel(dev, timer, pmap, npmap, work, codes, lens, C,
+                                                   args.seed)
+    if not ps_ok:
+        raise RuntimeError("pseudo_walk kernel disagrees with its plain version, or an input "
+                           "set missed what it is there to exercise")
+
+    if cuda:  # the peak of the three pseudo uploads and the pseudo path
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    ps_results, wall = library_path(pmap, codes, lens, B, BATCHES, cuda)
+    ps_launches = dict(kernels.LAUNCHES)
+    ps_peak = torch.cuda.max_memory_allocated() if cuda else "not measured"
+    pctr_s = {k: sum(r.counters[k] for r in ps_results) for k in ps_results[0].counters}
+    ps_rate = pctr_s["reads_mapped"] / pctr_s["reads_total"]
+    ps_oracle = pseudo_oracle_unequal(ps_results, pidx, codes, None, lens, None, pmap.cfg, B,
+                                      min(1000, args.reads), args.seed + 21)
+    prof = profile_one_batch(lambda: pmap.fetch(pmap.map_se_async(codes[:B], lens[:B])),
+                             B // C, cuda, 8)
+    emit("pseudo_path", reads=args.reads, batches=BATCHES, batch=B, chunks=n_chunks,
+         seconds=wall, reads_per_s=args.reads / wall, map_rate=ps_rate,
+         true_locus_share=float(np.mean([true_locus_share(r, truth, i * B, (i + 1) * B)
+                                         for i, r in enumerate(ps_results)])),
+         counters=pctr_s, launches=ps_launches, launches_per_chunk=prof["launches_per_chunk"],
+         device_busy_ms=prof["device_busy_ms"], device_idle_share=prof["device_idle_share"],
+         top_kernels=prof["top_kernels"], hand_kernels=prof["hand_kernels"],
+         oracle=ps_oracle, max_memory_allocated=ps_peak)
+    if cuda and (ps_launches["pseudo_walk"] < n_chunks or ps_launches["anchor_walk"]
+                 or ps_launches["bitonic_sort_pairs"]):
+        raise RuntimeError(f"pseudo_path: kernel launches {ps_launches} for {n_chunks} chunks")
+    if ps_rate < 0.9 or ps_oracle["unequal"] or ps_oracle["checked"] < 0.9 * min(1000, args.reads):
+        raise RuntimeError(f"pseudo_path: map rate {ps_rate:.4f} below 0.9, or sampled reads "
+                           f"unequal to the oracle's: {ps_oracle}")
+    for r in ps_results:
+        if r.recs.shape[1] != 4 or len(r.recs) != r.total or r.overflowed:
+            raise RuntimeError("pseudo_path: malformed wire result")
+
+    ps_other = {}
+    for name, m, kernel in (("pseudo_nochd_path", npmap, "pseudo_walk_lanes"),
+                            ("pseudo_bigocc_path", bpmap, "pseudo_walk")):
+        kernels.reset_launches()
+        t0 = time.time()
+        got = m.fetch(m.map_se_async(codes[:B], lens[:B]))
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.time() - t0
+        ps_other[name] = dict(kernels.LAUNCHES)
+        same = same_result(got, ps_results[0])
+        emit(name, reads=B, chunks=B // C, seconds=wall, reads_per_s=B / wall,
+             equal_pseudo_path_first_batch=same, launches=ps_other[name])
+        other = "pseudo_walk" if kernel == "pseudo_walk_lanes" else "pseudo_walk_lanes"
+        if not same or (cuda and (ps_other[name][kernel] < B // C or ps_other[name][other])):
+            raise RuntimeError(f"{name}: the batch differs from pseudo_path's first batch, or "
+                               f"kernel launches {ps_other[name]}")
+        del got
+    del ps_results, npmap, bpmap
+
+    # pairs: unchunked batches of 4,096 (the reference has no chunked pseudo
+    # PE program), one in flight
+    n_ps_pairs = min(32_768, n_pairs)
+    PSB = n_ps_pairs // 8
+    kernels.reset_launches()
+    ps_pe, t0 = [], time.time()
+    pending = pmap.map_pe_async(pc1[:PSB], plens[:PSB], pc2[:PSB], plens[:PSB])
+    for b in range(1, 9):
+        rows = slice(b * PSB, (b + 1) * PSB)
+        nxt = pmap.map_pe_async(pc1[rows], plens[rows], pc2[rows], plens[rows]) if b < 8 else None
+        ps_pe.append(pmap.fetch(pending))
+        pending = nxt
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    ps_pe_launches = dict(kernels.LAUNCHES)
+    pctr_p = {k: sum(r.counters[k] for r in ps_pe) for k in ps_pe[0].counters}
+    shares = [pair_shares(r, ptruth, i * PSB, (i + 1) * PSB) for i, r in enumerate(ps_pe)]
+    pe_oracle = pseudo_oracle_unequal(ps_pe, pidx, pc1, pc2, plens, plens, pmap.cfg, PSB,
+                                      min(500, n_ps_pairs), args.seed + 22)
+    prof = profile_one_batch(lambda: pmap.fetch(pmap.map_pe_async(
+        pc1[:PSB], plens[:PSB], pc2[:PSB], plens[:PSB])), 1, cuda, 8)
+    emit("pseudo_pe_path", pairs=n_ps_pairs, batches=8, batch=PSB, seconds=wall,
+         pairs_per_s=n_ps_pairs / wall, map_rate=pctr_p["reads_mapped"] / pctr_p["reads_total"],
+         concordant_share=float(np.mean([x[0] for x in shares])),
+         concordant_at_true_locus_share=float(np.mean([x[1] for x in shares])),
+         counters=pctr_p, launches=ps_pe_launches, launches_per_batch=prof["launches_per_chunk"],
+         device_busy_ms=prof["device_busy_ms"], device_idle_share=prof["device_idle_share"],
+         oracle=pe_oracle)
+    if cuda and ps_pe_launches["pseudo_walk"] < 2 * 8:
+        raise RuntimeError(f"pseudo_pe_path: kernel launches {ps_pe_launches} for 8 batches "
+                           "of two mates")
+    if (pctr_p["reads_mapped"] < 0.9 * pctr_p["reads_total"] or pe_oracle["unequal"]
+            or pe_oracle["checked"] < 0.9 * min(500, n_ps_pairs)):
+        raise RuntimeError(f"pseudo_pe_path: map rate below 0.9, or sampled pairs unequal to "
+                           f"the oracle's: {pe_oracle}")
+    for r in ps_pe:
+        if r.recs.shape[1] != 7 or len(r.recs) != r.total or r.overflowed:
+            raise RuntimeError("pseudo_pe_path: malformed wire result")
+    del ps_pe, pmap
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # the command line's pseudomap: every read and pair at the default
+    # flags, then the heads on the card and on the CPU
+    cli_ps = run_cli("cli_pseudo_default", ["-i", pidx_dir, "-r", reads_fq, "-o", sam("q.sam"),
+                                            *default_bs], work, force_cpu, cmd="pseudomap")
+    cli_ps_pe = run_cli("cli_pseudo_pe_default", ["-i", pidx_dir, "-1", pe_fq[0], "-2", pe_fq[1],
+                                                  "-o", sam("qp.sam"), *default_bs],
+                        work, force_cpu, cmd="pseudomap")
+    emit("cli_pseudo_default_checks", batches=n_batches, pe_batches=pe_batches,
+         primary_at_true_locus_share=sam_true_locus_share(sam("q.sam"), args.reads),
+         reads_mapped_pseudo_path=pctr_s["reads_mapped"],
+         reads_per_s_over_cli_default=cli_ps["reads_per_s"] / cli_default["reads_per_s"],
+         pairs_per_s_over_cli_pe_default=cli_ps_pe["reads_per_s"] / pe_default["reads_per_s"])
+    if (cli_ps["counters"]["reads_mapped"] != pctr_s["reads_mapped"] or cli_ps["map_rate"] < 0.9
+            or cli_ps_pe["map_rate"] < 0.9):
+        raise RuntimeError("cli_pseudo_default: reads mapped unequal to pseudo_path's, or a map "
+                           "rate below 0.9")
+    if cuda and (cli_ps["launches"]["pseudo_walk"] != n_batches
+                 or cli_ps_pe["launches"]["pseudo_walk"] != 2 * pe_batches):
+        raise RuntimeError(f"cli_pseudo_default: walk launches {cli_ps['launches']}, "
+                           f"{cli_ps_pe['launches']} for {n_batches} and {pe_batches} batches")
+    cli_ps_heads = {}
+    if cuda:  # the heads on the CPU against the same reads of the card's runs
+        checks = []
+        for ends, argv, card_sam, n in (
+                ("single", ["-r", head_fq], "q.sam", n_head),
+                ("paired", ["-1", head_pe_fq[0], "-2", head_pe_fq[1]], "qp.sam", n_head_pe)):
+            phase = f"cli_pseudo_head_{ends}_cpu"
+            head = run_cli(phase, ["-i", pidx_dir, *argv, "-o", sam(f"{phase}.sam")], work, True,
+                           cmd="pseudomap")
+            cli_ps_heads[phase] = head["launches"]
+            card = [ln for ln in sam_body(sam(card_sam))
+                    if ln[0] == "@" or int(ln.split(":", 1)[0][1:]) < n]
+            checks.append(dict(ends=ends, reads=n, equal=sam_body(sam(f"{phase}.sam")) == card,
+                               cpu_launches=sum(head["launches"].values())))
+        emit("cli_pseudo_card_equals_cpu", checks=checks)
+        if not all(c["equal"] and not c["cpu_launches"] for c in checks):
+            raise RuntimeError("cli_pseudo_card_equals_cpu: the card's SAM differs from the "
+                               "CPU's on the same reads, or the CPU launched a kernel")
     cli_launches = {"cli_default": cli_default["launches"], "cli_chunked": cli_chunked["launches"],
                     "cli_fallback_starved": rep["starved"]["launches"],
                     "cli_fallback_ample": rep["ample"]["launches"],
@@ -2230,6 +2638,14 @@ def main() -> int:
     def on_cli(kernel):
         return {path: n[kernel] for path, n in cli_launches.items()}
 
+    ps_path_launches = {"pseudo_path": ps_launches, **ps_other,
+                        "pseudo_pe_path": ps_pe_launches,
+                        "cli_pseudo_default": cli_ps["launches"],
+                        "cli_pseudo_pe_default": cli_ps_pe["launches"], **cli_ps_heads}
+
+    def on_ps(kernel):
+        return {path: n[kernel] for path, n in ps_path_launches.items()}
+
     emit("run", seconds=time.time() - t_start)
     print(json.dumps({"kernels": [{
         "name": "bitonic_sort_pairs", "route": "cuda",
@@ -2237,7 +2653,8 @@ def main() -> int:
         "replaces": "rapmap_tpu/ops/pallas/sort2.py:153",
         "launches": launches["bitonic_sort_pairs"],
         "launches_on_cli_paths": on_cli("bitonic_sort_pairs"),
-        "launches_on_pe_paths": on_pe("bitonic_sort_pairs"), "max_abs_err": sort_err,
+        "launches_on_pe_paths": on_pe("bitonic_sort_pairs"),
+        "launches_on_pseudo_paths": on_ps("bitonic_sort_pairs"), "max_abs_err": sort_err,
         "matches_plain": sort_ok, "ms": sort_t["ms"], "wrapper_ms": sort_t["wrapper_ms"],
         "plain_ms": sort_t["plain_ms"], "bound_ms": sort_t["bound_ms"],
         "bound_by": sort_t["bound_by"], "library_ms": sort_t["library_ms"],
@@ -2248,7 +2665,8 @@ def main() -> int:
         "replaces": "rapmap_tpu/ops/mmp.py:190",
         "launches": launches["anchor_walk"],
         "launches_on_cli_paths": on_cli("anchor_walk"),
-        "launches_on_pe_paths": on_pe("anchor_walk"), "max_abs_err": walk_err,
+        "launches_on_pe_paths": on_pe("anchor_walk"),
+        "launches_on_pseudo_paths": on_ps("anchor_walk"), "max_abs_err": walk_err,
         "matches_plain": walk_ok, "ms": walk_t["ms"], "cold_ms": walk_t["cold_ms"],
         "wrapper_ms": walk_t["wrapper_ms"], "plain_ms": walk_t["plain_ms"],
         "bound_ms": walk_t["bound_ms"], "bound_by": walk_t["bound_by"], "library_ms": None,
@@ -2291,6 +2709,24 @@ def main() -> int:
         "matches_plain": score_ok, "ms": score_t["ms"], "cold_ms": score_t["cold_ms"],
         "wrapper_ms": score_t["wrapper_ms"], "plain_ms": score_t["plain_ms"],
         "bound_ms": score_t["bound_ms"], "bound_by": score_t["bound_by"], "library_ms": None,
+    }, {
+        "name": "pseudo_walk", "route": "cuda",
+        "source": "rapmap_tpu_torch/csrc/walk.cu",
+        "replaces": "rapmap_tpu/models/pseudo.py:353",
+        "launches": ps_launches["pseudo_walk"],
+        "launches_on_pseudo_paths": on_ps("pseudo_walk"), "max_abs_err": ps_err,
+        "matches_plain": ps_ok, **{x: ps_t["paired"][x] for x in (
+            "ms", "cold_ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+    }, {
+        "name": "pseudo_walk_lanes", "route": "cuda",
+        "source": "rapmap_tpu_torch/csrc/walk.cu",
+        "replaces": "rapmap_tpu/models/pseudo.py:268",
+        "launches": ps_other["pseudo_nochd_path"]["pseudo_walk_lanes"],
+        "launches_on_pseudo_paths": on_ps("pseudo_walk_lanes"), "max_abs_err": ps_err,
+        "matches_plain": ps_ok, **{x: ps_t["lanes"][x] for x in (
+            "ms", "cold_ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

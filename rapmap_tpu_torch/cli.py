@@ -1,13 +1,14 @@
-"""tqm command-line interface of the PyTorch/CUDA port: quasiindex | quasimap.
+"""tqm command-line interface of the PyTorch/CUDA port: quasiindex | pseudoindex
+| quasimap | pseudomap.
 
 Port of rapmap_tpu.cli: the same subcommands, flag names and defaults, so a
 parity harness can drive either tool with the same argv. `quasimap` of
 single-end (-r) and paired-end (-1/-2) reads on a quasi index, with or without
 the canonical CHD, with or without --mappingScore (AS:i tags, the
---minScoreFraction filter), runs end to end (FASTQ in, SAM out); what is not
-ported yet (pseudo-mapping, the host-staged engine, --worldSize > 1, the
-quasi_map / quasi_core artifacts) is refused with one log line and exit
-code 1.
+--minScoreFraction filter), and `pseudomap` of either on a pseudo index, run
+end to end (FASTQ in, SAM out); what is not ported yet (the host-staged
+engine, --worldSize > 1, the quasi_map / quasi_core artifacts) is refused
+with one log line and exit code 1.
 
 The mapping runs on the CUDA card. TQM_FORCE_CPU=1 runs every kernel's plain
 PyTorch version on the CPU instead; without it and without a card the command
@@ -228,7 +229,31 @@ def _choose_quasi_engine(args, idx, device) -> str:
     return "replicated"
 
 
-def _pick_device():
+def _choose_pseudo_engine(args, idx, device) -> str:
+    """Size-driven pseudomap engine dispatch, mirroring _choose_quasi_engine:
+    the CSR occurrence rows dominate device bytes (the big-occ pairs layout
+    is 8 B an occurrence either way); past the budget (or the 2^32-occurrence
+    device layout ceiling) the host-staged engine takes over."""
+    if args.engine != "auto":
+        return args.engine
+    n_occ = int(np.asarray(idx.kmer_off)[-1])
+    K = len(idx.kmer_hi)
+    est = K * 16 + n_occ * 8
+    if getattr(idx, "chd_dir", None) is not None:
+        est += len(idx.chd_dir) * 4 + K * 24
+    budget = _device_budget_bytes(device)
+    if n_occ >= 2**32 or est > budget:
+        log.info(
+            "pseudo index needs ~%.2f GB on device (budget %.2f GB%s) -> "
+            "host-staged engine",
+            est / 2**30, budget / 2**30,
+            "" if n_occ < 2**32 else "; >= 2^32 occurrences",
+        )
+        return "staged"
+    return "replicated"
+
+
+def _pick_device(cmd: str):
     """The card, or the CPU under TQM_FORCE_CPU=1; None (after an error
     line) when neither applies."""
     import torch
@@ -236,8 +261,8 @@ def _pick_device():
     if os.environ.get("TQM_FORCE_CPU") == "1":
         return torch.device("cpu")
     if not torch.cuda.is_available():
-        log.error("no CUDA device: quasimap runs on a CUDA card; set "
-                  "TQM_FORCE_CPU=1 to run the plain PyTorch path on the CPU")
+        log.error("no CUDA device: %s runs on a CUDA card; set "
+                  "TQM_FORCE_CPU=1 to run the plain PyTorch path on the CPU", cmd)
         return None
     return torch.device("cuda")
 
@@ -247,7 +272,7 @@ def _refuse(what: str, when: str) -> int:
     return 1
 
 
-def run_map(args) -> int:
+def run_map(args, pseudo: bool) -> int:
     import contextlib
     import json
 
@@ -264,22 +289,32 @@ def run_map(args) -> int:
 
     header = load_header(args.index)
     itype = header["index_type"]
-    if itype not in {"quasi", "quasi_map", "quasi_core"}:
-        log.error("index at %s is type %s, expected quasi", args.index, itype)
+    want = "pseudo" if pseudo else "quasi"
+    if itype not in ({"pseudo"} if pseudo else {"quasi", "quasi_map", "quasi_core"}):
+        log.error("index at %s is type %s, expected %s", args.index, itype, want)
         return 1
-    if itype != "quasi":
+    if pseudo and args.mappingScore:
+        log.error("--mappingScore needs the suffix-array text; quasimap only")
+        return 1
+    if itype != want:
         return _refuse(f"index type {itype}", "the index-artifact slice")
-    device = _pick_device()
+    device = _pick_device(args.cmd)
     if device is None:
         return 1
     idx = load_index(args.index)
     cfg = _cfg_from_args(args, idx.k)
-    if _choose_quasi_engine(args, idx, device) == "staged":
+    choose = _choose_pseudo_engine if pseudo else _choose_quasi_engine
+    if choose(args, idx, device) == "staged":
         return _refuse("the host-staged engine", "the host-staged slice")
 
-    from rapmap_tpu_torch.models.quasi import QuasiMapper
+    if pseudo:
+        from rapmap_tpu_torch.models.pseudo import PseudoMapper
 
-    mapper = QuasiMapper(idx, cfg, device=device)
+        mapper = PseudoMapper(idx, cfg, device=device)
+    else:
+        from rapmap_tpu_torch.models.quasi import QuasiMapper
+
+        mapper = QuasiMapper(idx, cfg, device=device)
 
     cl = " ".join(sys.argv)
     t0 = time.time()
@@ -333,7 +368,10 @@ def run_map(args) -> int:
         # results so the device computes while the host renders SAM
         from rapmap_tpu_torch.models import fallback as fb
         from rapmap_tpu_torch.models import scorefilter
-        from rapmap_tpu_torch.oracle import quasimap as oracle_mod
+        if pseudo:
+            from rapmap_tpu_torch.oracle import pseudomap as oracle_mod
+        else:
+            from rapmap_tpu_torch.oracle import quasimap as oracle_mod
         from rapmap_tpu_torch.utils.timers import StageTimers, device_trace
 
         timers = StageTimers()
@@ -503,9 +541,15 @@ def main(argv: list[str] | None = None) -> int:
             dedup=not args.keepDuplicates, require_chd=args.perfectHash,
         )
         return 0
-    if args.cmd in ("pseudoindex", "pseudomap"):
-        return _refuse(args.cmd, "the pseudo-mapping slice")
-    return run_map(args)
+    if args.cmd == "pseudoindex":
+        from rapmap_tpu_torch.index.builder import build_pseudo_index
+
+        build_pseudo_index(
+            args.transcripts, args.index, k=args.kmerLen, seed=args.seed,
+            dedup=not args.keepDuplicates,
+        )
+        return 0
+    return run_map(args, pseudo=args.cmd == "pseudomap")
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 // The anchor walk of the MMP scan, with the extension inside it as device
-// functions: one thread per lane, each looping to its own convergence.
+// functions: one thread per lane, each looping to its own convergence; and,
+// built without an extension, the pseudo walks.
 //
 // Replaces no Pallas kernel. The reference runs this as XLA lax.while_loops,
 // which XLA compiles into one program: the strand-paired walk
@@ -15,16 +16,22 @@
 // thousands of small launches per chunk, every trip for every lane whether
 // or not it is active, and the charwise loop syncs with the host each depth.
 // Here a lane's searches stop at lo == hi and its walk at pos >= S, so no
-// masked trip runs and nothing syncs with the host.
+// masked trip runs and nothing syncs with the host. The pseudo walks
+// (rapmap_tpu/models/pseudo.py pseudo_scan_batch_paired, while_loop :353,
+// and pseudo_scan_batch, :268) are the same walk with no extension: a hit
+// records its anchor's k-mer interval (the CSR occurrence range) with length
+// k, and the walk jumps k columns on (plain versions ops/mmp.py
+// pseudo_walk_plain, pseudo_walk_lanes_plain).
 //
 // Lane kinds: with R = 2B, lanes [0, B) are forward and [B, 2B) are rc lanes
 // walked in mirrored forward columns (the canonical-CHD scan); with R = B
 // every lane is a forward lane over its own (R, S) rows (the explicit
-// [fwd; revcomp] lanes of scan_batch). Extensions: the kernel is built once
-// per extension (template parameter kChar): packed words (extend_lane) or
-// the charwise per-depth narrowing over the lanes' int8 codes and the flat
-// sa/text arrays (extend_charwise). The packed instantiation is the code the
-// kernel had before the charwise one was added (if constexpr).
+// [fwd; revcomp] lanes of scan_batch and pseudo_scan_batch). Extensions:
+// the kernel is built once per extension kind (template parameter kExt):
+// packed words (extend_lane), the charwise per-depth narrowing over the
+// lanes' int8 codes and the flat sa/text arrays (extend_charwise), or none
+// (the pseudo walks). The packed instantiation is the code the kernel had
+// before the other two were added (if constexpr).
 //
 // What bounds it on the card. The byte bound is the hit buffer written once
 // (R x H x 32 bytes, three quarters of the bytes at H = 16) plus the 32-byte
@@ -39,6 +46,12 @@
 // warps per SM to hide it. One thread per lane stays: on a
 // transcriptome most anchors have narrow intervals, so a lane's work is a
 // chain of hops, not one wide search, and a warp per lane would idle.
+//
+// The pseudo build reads only the lengths, the mask rows and one interval
+// column pair a hit, and writes the hit buffer, so its byte bound is mostly
+// the outputs; its counting build, tqm_pseudo_walk_traffic, counts those
+// sectors and the walk's trips. Its lanes do a few mask scans each and wait
+// on little but the mask loads and the stores.
 //
 // What the design does about it:
 //  - Anchors come from masks. A lane reads its (B, S) bool mask row (forward
@@ -91,6 +104,9 @@ namespace {
 constexpr int kMaxLanes = 64;      // lanes (threads) per block: 16,384 lanes -> 256 blocks
 constexpr int kMaskRegWords = 4;   // anchor-mask words in registers: S <= 128
 constexpr int kRegWords = 8;       // query words and fused sa_cmp words in registers
+
+// The extension a build of the walk runs at each anchor.
+enum class Ext { kPacked, kCharwise, kNone };
 
 struct Index {
   const int32_t* sa_cmp;  // (n_sa, 3 + F) [wi, sub, tleft, w0..w_{F-1}], 8-byte aligned rows
@@ -510,9 +526,11 @@ __device__ __forceinline__ void put_slot(int64_t* slot, int64_t a, int64_t b, in
 
 // Lane r < B is forward and reads row r of bf/ef/anch_f; lane r >= B is rc
 // and reads row r - B of br/er/anch_r, in forward columns (none when B = R).
-// kChar: the charwise extension over cx (preads, next_bad, col_off2 and ix
-// unused); else the packed one (cx unused).
-template <bool kCount, bool kChar>
+// kExt kCharwise: the charwise extension over cx (preads, next_bad, col_off2
+// and ix unused); kPacked: the packed one (cx unused); kNone: no extension
+// (the pseudo walks: a hit is the anchor's own interval, with length k, and
+// the walk jumps k columns; only lens2, the intervals and the masks are read).
+template <bool kCount, Ext kExt>
 __global__ void __launch_bounds__(kMaxLanes) anchor_walk_kernel(
     const int64_t* __restrict__ preads, const int64_t* __restrict__ next_bad,
     const int64_t* __restrict__ lens2, const int64_t* __restrict__ col_off2,
@@ -530,7 +548,7 @@ __global__ void __launch_bounds__(kMaxLanes) anchor_walk_kernel(
   const bool is_rc = r >= B;
   const int64_t rr = is_rc ? r - B : r;
   const int64_t len = load<kCount>(tr, kLens, lens2 + r);
-  const int64_t col_off = kChar ? 0 : load<kCount>(tr, kColOff, col_off2 + r);
+  const int64_t col_off = kExt != Ext::kPacked ? 0 : load<kCount>(tr, kColOff, col_off2 + r);
   AnchorMask<kCount> mask;
   mask.init((is_rc ? anch_r : anch_f) + rr * S, S, is_rc ? kAnchR : kAnchF);
   // Each warp zeroes, stages and writes out its own lanes' part of buf, so
@@ -576,19 +594,28 @@ __global__ void __launch_bounds__(kMaxLanes) anchor_walk_kernel(
       const int64_t posc = clamp64(pos, 0, S - 1);
       const int64_t col = clamp64(is_rc ? len - k - posc : posc, 0, S - 1);
       int64_t b, e, mlen;
-      if constexpr (kChar) {
+      if constexpr (kExt == Ext::kCharwise) {
         extend_charwise<kCount>(cx, cx.codes + r * L, len, load<kCount>(tr, gb, db + col),
                                 load<kCount>(tr, ge, de + col), posc, true, k, steps, L, b,
                                 e, mlen, tr);
-      } else {
+      } else if constexpr (kExt == Ext::kPacked) {
         extend_lane<kCount>(ix, preads + r * L, next_bad + r * L, len, col_off,
                             load<kCount>(tr, gb, db + col), load<kCount>(tr, ge, de + col),
                             posc, true, k, steps, L, W, b, e, mlen, tr);
+      } else {
+        if constexpr (kCount) atomicAdd(tr.rows, 1ull);  // a trip of the walk
+        b = load<kCount>(tr, gb, db + col);
+        e = load<kCount>(tr, ge, de + col);
+        mlen = k;
       }
       put_slot(out + 4 * n, posc, mlen, b, e);
       n += 1;
-      const int64_t adv = mlen - k + 1;
-      pos = next_anchor_pos(posc + (adv > 1 ? adv : 1));
+      if constexpr (kExt == Ext::kNone) {
+        pos = next_anchor_pos(posc + k);  // jump-ahead k on a hit
+      } else {
+        const int64_t adv = mlen - k + 1;
+        pos = next_anchor_pos(posc + (adv > 1 ? adv : 1));
+      }
     }
     if (!staged)  // empty slots read 0
       for (int s = n; s < H; ++s) put_slot(out + 4 * s, 0, 0, 0, 0);
@@ -660,9 +687,9 @@ CharIndex make_char_index(const void* codes, const void* sa, int64_t n_sa, const
                    static_cast<const int8_t*>(text), n_text};
 }
 
-// The launch of either extension's walk; the inputs of the other extension
-// are not read (ix or cx default, null lane pointers).
-template <bool kCount, bool kChar>
+// The launch of a walk of any extension kind; the inputs of the others are
+// not read (ix or cx default, null lane pointers).
+template <bool kCount, Ext kExt>
 int launch_walk(const void* preads, const void* next_bad, const void* lens2,
                 const void* col_off2, const void* bf, const void* ef, const void* br,
                 const void* er, const void* anch_f, const void* anch_r, const Index& ix,
@@ -685,13 +712,13 @@ int launch_walk(const void* preads, const void* next_bad, const void* lens2,
                            : kMaxLanes;
   const size_t smem = staged ? static_cast<size_t>(lanes * lane_bytes) : 0;
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(anchor_walk_kernel<kCount, kChar>,
+    err = cudaFuncSetAttribute(anchor_walk_kernel<kCount, kExt>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const unsigned blocks = static_cast<unsigned>((R + lanes - 1) / lanes);
-  anchor_walk_kernel<kCount, kChar><<<blocks, lanes, smem, static_cast<cudaStream_t>(stream)>>>(
+  anchor_walk_kernel<kCount, kExt><<<blocks, lanes, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(preads), static_cast<const int64_t*>(next_bad),
       static_cast<const int64_t*>(lens2), static_cast<const int64_t*>(col_off2),
       static_cast<const int64_t*>(bf), static_cast<const int64_t*>(ef),
@@ -731,10 +758,10 @@ extern "C" int tqm_anchor_walk(
     int64_t R, int64_t B, int L, int S, int k, int H, int steps, int W, void* buf, void* n_out,
     void* trunc_out, void* stream) {
   if (!index_ok(sa_cmp, n_sa, F, nw)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_walk<false, false>(preads, next_bad, lens2, col_off2, bf, ef, br, er, anch_f,
-                                   anch_r, make_index(sa_cmp, n_sa, F, text2q, nw), CharIndex{},
-                                   R, B, L, S, k, H, steps, W, buf, n_out, trunc_out, Traffic{},
-                                   stream);
+  return launch_walk<false, Ext::kPacked>(preads, next_bad, lens2, col_off2, bf, ef, br, er,
+                                          anch_f, anch_r, make_index(sa_cmp, n_sa, F, text2q, nw),
+                                          CharIndex{}, R, B, L, S, k, H, steps, W, buf, n_out,
+                                          trunc_out, Traffic{}, stream);
 }
 
 // The same walk, counting what it reads: for measuring the byte bound of a
@@ -756,11 +783,12 @@ extern "C" int tqm_anchor_walk_traffic(
                            br,     er,       anch_f, anch_r,   sa_cmp, text2q};
   const Region regions[] = {kPreads, kNextBad, kLens,  kColOff, kBf,    kEf,
                             kBr,     kEr,      kAnchF, kAnchR,  kSaCmp, kText2q};
-  return launch_walk<true, false>(preads, next_bad, lens2, col_off2, bf, ef, br, er, anch_f,
-                                  anch_r, make_index(sa_cmp, n_sa, F, text2q, nw), CharIndex{},
-                                  R, B, L, S, k, H, steps, W, buf, n_out, trunc_out,
-                                  make_traffic(tensors, regions, 12, bits, word_off, rows),
-                                  stream);
+  return launch_walk<true, Ext::kPacked>(preads, next_bad, lens2, col_off2, bf, ef, br, er,
+                                         anch_f, anch_r, make_index(sa_cmp, n_sa, F, text2q, nw),
+                                         CharIndex{}, R, B, L, S, k, H, steps, W, buf, n_out,
+                                         trunc_out,
+                                         make_traffic(tensors, regions, 12, bits, word_off, rows),
+                                         stream);
 }
 
 // The anchor walk with the charwise extension (ops/mmp.py _extend), lanes as
@@ -776,10 +804,10 @@ extern "C" int tqm_anchor_walk_charwise(
     int steps, void* buf, void* n_out, void* trunc_out, void* stream) {
   if (!char_index_ok(codes, sa, n_sa, text, n_text))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_walk<false, true>(nullptr, nullptr, lens2, nullptr, bf, ef, br, er, anch_f,
-                                  anch_r, Index{}, make_char_index(codes, sa, n_sa, text, n_text),
-                                  R, B, L, S, k, H, steps, 1, buf, n_out, trunc_out, Traffic{},
-                                  stream);
+  return launch_walk<false, Ext::kCharwise>(
+      nullptr, nullptr, lens2, nullptr, bf, ef, br, er, anch_f, anch_r, Index{},
+      make_char_index(codes, sa, n_sa, text, n_text), R, B, L, S, k, H, steps, 1, buf, n_out,
+      trunc_out, Traffic{}, stream);
 }
 
 // The charwise walk counting what it reads, as tqm_anchor_walk_traffic; the
@@ -796,10 +824,43 @@ extern "C" int tqm_anchor_walk_charwise_traffic(
     return static_cast<int>(cudaErrorInvalidValue);
   const void* tensors[] = {lens2, bf, ef, br, er, anch_f, anch_r, codes, sa, text};
   const Region regions[] = {kLens, kBf, kEf, kBr, kEr, kAnchF, kAnchR, kCodes, kSa, kText};
-  return launch_walk<true, true>(nullptr, nullptr, lens2, nullptr, bf, ef, br, er, anch_f,
-                                 anch_r, Index{}, make_char_index(codes, sa, n_sa, text, n_text),
-                                 R, B, L, S, k, H, steps, 1, buf, n_out, trunc_out,
-                                 make_traffic(tensors, regions, 10, bits, word_off, rows), stream);
+  return launch_walk<true, Ext::kCharwise>(
+      nullptr, nullptr, lens2, nullptr, bf, ef, br, er, anch_f, anch_r, Index{},
+      make_char_index(codes, sa, n_sa, text, n_text), R, B, L, S, k, H, steps, 1, buf, n_out,
+      trunc_out, make_traffic(tensors, regions, 10, bits, word_off, rows), stream);
+}
+
+// The pseudo walks (ops/mmp.py pseudo_walk): lanes as in tqm_anchor_walk,
+// strand-paired (R = 2B, the canonical-CHD scan) or explicit (B = R, the
+// [fwd; revcomp] lanes), with no extension: a hit is [pos, k, b, e] of its
+// anchor's interval, and the walk jumps k columns. b and e are copied as the
+// int64 values they are (uint32 occurrence ids of a big-occ table). Writes
+// every output byte as tqm_anchor_walk does.
+extern "C" int tqm_pseudo_walk(const void* lens2, const void* bf, const void* ef,
+                               const void* br, const void* er, const void* anch_f,
+                               const void* anch_r, int64_t R, int64_t B, int S, int k, int H,
+                               void* buf, void* n_out, void* trunc_out, void* stream) {
+  return launch_walk<false, Ext::kNone>(nullptr, nullptr, lens2, nullptr, bf, ef, br, er, anch_f,
+                                        anch_r, Index{}, CharIndex{}, R, B, S + k - 1, S, k, H,
+                                        0, 1, buf, n_out, trunc_out, Traffic{}, stream);
+}
+
+// The pseudo walk counting what it reads, as tqm_anchor_walk_traffic; the
+// bitmaps follow the order lens2, bf, ef, br, er, anch_f, anch_r, and `rows`
+// receives the number of trips (hits written).
+extern "C" int tqm_pseudo_walk_traffic(const void* lens2, const void* bf, const void* ef,
+                                       const void* br, const void* er, const void* anch_f,
+                                       const void* anch_r, int64_t R, int64_t B, int S, int k,
+                                       int H, void* buf, void* n_out, void* trunc_out,
+                                       void* bits, const int64_t* word_off, void* rows,
+                                       void* stream) {
+  const void* tensors[] = {lens2, bf, ef, br, er, anch_f, anch_r};
+  const Region regions[] = {kLens, kBf, kEf, kBr, kEr, kAnchF, kAnchR};
+  return launch_walk<true, Ext::kNone>(nullptr, nullptr, lens2, nullptr, bf, ef, br, er, anch_f,
+                                       anch_r, Index{}, CharIndex{}, R, B, S + k - 1, S, k, H,
+                                       0, 1, buf, n_out, trunc_out,
+                                       make_traffic(tensors, regions, 7, bits, word_off, rows),
+                                       stream);
 }
 
 // The extension alone, once per lane on given (b0, e0, pos, active): the

@@ -1,5 +1,5 @@
-"""Index construction: quasiindex (offline, host-side; copy of
-rapmap_tpu.index.builder — the pseudoindex build belongs to a later slice).
+"""Index construction: quasiindex and pseudoindex (offline, host-side; copy
+of rapmap_tpu.index.builder).
 
 Covers the reference's RapMapSAIndexer / RapMapIndexer (SURVEY.md §2.1 #2, #9):
 FASTA -> $-concatenated coded text -> suffix array (native SA-IS when built,
@@ -14,7 +14,7 @@ import time
 import numpy as np
 
 from rapmap_tpu_torch.index import encode
-from rapmap_tpu_torch.index.format import QuasiIndex, save_index
+from rapmap_tpu_torch.index.format import PseudoIndex, QuasiIndex, save_index
 from rapmap_tpu_torch.index.kmer_table import (
     build_kmer_table,
     build_prefix_lut,
@@ -233,4 +233,52 @@ def build_quasi_index(
     if outdir:
         save_index(idx, outdir, pre_hashes=pre_hashes)
         log.info("index written to %s", outdir)
+    return idx
+
+
+def build_pseudo_index(
+    fasta_path: str, outdir: str | None = None, k: int = 31, seed: int = 0, dedup: bool = True
+) -> PseudoIndex:
+    """k-mer -> (txp, pos) occurrence CSR (reference RapMapIndexer role), built
+    via the suffix array: occurrences of k-mer i = SA[b_i:e_i], ordered by
+    (k-mer, txp, pos) with one lexsort."""
+    q = build_quasi_index(fasta_path, None, k=k, seed=seed, dedup=dedup)
+    n_k = len(q.kmer_b)
+    counts = (q.kmer_e - q.kmer_b).astype(np.int64)
+    off = np.zeros(n_k + 1, dtype=np.int64)
+    np.cumsum(counts, out=off[1:])
+    total = int(off[-1])
+    sa = np.asarray(q.sa, dtype=np.int64)
+    kmer_of = np.repeat(np.arange(n_k, dtype=np.int64), counts)
+    slot = (np.arange(total, dtype=np.int64) - np.repeat(off[:-1], counts)
+            + np.repeat(q.kmer_b.astype(np.int64), counts))
+    t_all = q.sa_txp[slot]
+    p_all = (sa[slot] - q.txp_offsets[t_all]).astype(np.int32)
+    order = np.lexsort((p_all, t_all, kmer_of))
+    occ_txp = t_all[order].astype(np.int32)
+    occ_pos = p_all[order]
+    # canonical-class CHD perfect hash over the k-mer set: one 2-gather probe
+    # answers both strands of a window
+    from rapmap_tpu_torch.index.chd import build_canonical_chd
+
+    t0 = time.time()
+    chd = build_canonical_chd(
+        np.asarray(q.kmer_hi, np.uint32), np.asarray(q.kmer_lo, np.uint32), k,
+        seed0=seed + 7,
+    )
+    meta = {}
+    chd_dir = chd_perm = chd_cls = None
+    if chd is not None:
+        chd_dir, chd_perm, chd_cls = chd["dir"], chd["perm"], chd["cls"]
+        meta["chd"] = {k_: chd[k_] for k_ in ("seed", "m_bits", "t_bits", "p_bits", "canonical")}
+        log.info("canonical CHD perfect hash built (%.1fs)", time.time() - t0)
+    idx = PseudoIndex(
+        k=k, kmer_hi=q.kmer_hi, kmer_lo=q.kmer_lo, kmer_off=off,
+        occ_txp=occ_txp, occ_pos=occ_pos,
+        txp_offsets=q.txp_offsets, txp_lens=q.txp_lens, txp_names=q.txp_names, seed=seed,
+        chd_dir=chd_dir, chd_perm=chd_perm, chd_cls=chd_cls, meta=meta,
+    )
+    if outdir:
+        save_index(idx, outdir)
+        log.info("pseudo index written to %s", outdir)
     return idx

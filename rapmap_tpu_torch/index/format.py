@@ -1,9 +1,10 @@
 """On-disk index format: flat .npy arrays + header.json (cereal replacement).
 
-Copy of rapmap_tpu.index.format for the quasi index type; the directory
-layout, header and content hashes are identical, so an index written by
-`tqm quasiindex` loads here and one written here loads there. The pseudo,
-mapping-only and core artifact types belong to later slices.
+Copy of rapmap_tpu.index.format for the quasi and pseudo index types; the
+directory layout, header and content hashes are identical, so an index
+written by `tqm quasiindex` or `tqm pseudoindex` loads here and one written
+here loads there. The mapping-only and core artifact types belong to a
+later slice.
 """
 
 from __future__ import annotations
@@ -24,7 +25,12 @@ _QUASI_ARRAYS = [
     "kmer_hi", "kmer_lo", "kmer_b", "kmer_e", "prefix_lut",
     "txp_offsets", "txp_lens",
 ]
+_PSEUDO_ARRAYS = [
+    "kmer_hi", "kmer_lo", "kmer_off", "occ_txp", "occ_pos",
+    "txp_offsets", "txp_lens",
+]
 _QUASI_OPTIONAL = ["chd_dir", "chd_perm", "chd_cls"]
+_PSEUDO_OPTIONAL = ["chd_dir", "chd_perm", "chd_cls"]
 
 
 @dataclass
@@ -60,13 +66,40 @@ class QuasiIndex:
         return len(self.txp_lens)
 
 
-def index_from_reference(fields: dict) -> QuasiIndex:
-    """The reference package's quasi index, given as a dict of its fields
-    (numpy arrays, scalars, names, meta — e.g. `vars(idx)`), as this
-    package's QuasiIndex. The index arrays are this system's parameters:
-    this is how one index feeds both packages."""
+@dataclass
+class PseudoIndex:
+    """Host-side view of a pseudo index: the k-mer -> (txp, pos) occurrence
+    CSR (device upload in models/pseudo.py)."""
+
+    k: int
+    kmer_hi: np.ndarray
+    kmer_lo: np.ndarray
+    kmer_off: np.ndarray      # int64 CSR offsets, len = n_kmers + 1
+    occ_txp: np.ndarray       # int32
+    occ_pos: np.ndarray       # int32 (txp-local position of k-mer start)
+    txp_offsets: np.ndarray
+    txp_lens: np.ndarray
+    txp_names: list[str]
+    seed: int = 0
+    meta: dict = field(default_factory=dict)
+    # optional canonical-class CHD perfect hash over the k-mer set
+    # (meta["chd"]; same structure as the quasi index's)
+    chd_dir: np.ndarray | None = None   # int32 (2^m_bits,)
+    chd_perm: np.ndarray | None = None  # int32 (2^t_bits,) class id, -1
+    chd_cls: np.ndarray | None = None   # int32 (n_cls, 2) [fwd_row, rc_row]
+
+    @property
+    def n_txps(self) -> int:
+        return len(self.txp_lens)
+
+
+def index_from_reference(fields: dict, kind: type = QuasiIndex):
+    """The reference package's quasi (or, with kind=PseudoIndex, pseudo)
+    index, given as a dict of its fields (numpy arrays, scalars, names, meta
+    — e.g. `vars(idx)`), as this package's index. The index arrays are this
+    system's parameters: this is how one index feeds both packages."""
     kw = {}
-    for f in dataclasses.fields(QuasiIndex):
+    for f in dataclasses.fields(kind):
         if f.name not in fields:
             continue
         v = fields[f.name]
@@ -75,7 +108,7 @@ def index_from_reference(fields: dict) -> QuasiIndex:
         elif f.name in ("meta", "txp_names"):
             v = copy.deepcopy(v)
         kw[f.name] = v
-    return QuasiIndex(**kw)
+    return kind(**kw)
 
 
 def _sha(arr: np.ndarray) -> str:
@@ -96,10 +129,13 @@ def save_arrays(outdir: str, arrays: dict) -> dict:
     return hashes
 
 
-def save_index(idx: QuasiIndex, outdir: str, pre_hashes: dict | None = None) -> None:
+def save_index(idx: QuasiIndex | PseudoIndex, outdir: str,
+               pre_hashes: dict | None = None) -> None:
     os.makedirs(outdir, exist_ok=True)
-    names = list(_QUASI_ARRAYS)
-    names += [n for n in _QUASI_OPTIONAL if getattr(idx, n, None) is not None]
+    is_quasi = isinstance(idx, QuasiIndex)
+    names = list(_QUASI_ARRAYS) if is_quasi else list(_PSEUDO_ARRAYS)
+    opt = _QUASI_OPTIONAL if is_quasi else _PSEUDO_OPTIONAL
+    names += [n for n in opt if getattr(idx, n, None) is not None]
     hashes = {}
     for name in names:
         if pre_hashes and name in pre_hashes:
@@ -113,16 +149,19 @@ def save_index(idx: QuasiIndex, outdir: str, pre_hashes: dict | None = None) -> 
     header = {
         "format_version": INDEX_FORMAT_VERSION,
         "tool_version": __version__,
-        "index_type": "quasi",
+        "index_type": "quasi" if is_quasi else "pseudo",
         "k": int(idx.k),
         "n_txps": int(idx.n_txps),
         "seed": int(idx.seed),
         "hashes": hashes,
         "meta": idx.meta,
-        "n_text": int(idx.n_text),
-        "big_sa": bool(idx.sa.dtype == np.int64),
-        "prefix_bases": int(idx.prefix_bases),
     }
+    if is_quasi:
+        header.update(
+            n_text=int(idx.n_text),
+            big_sa=bool(idx.sa.dtype == np.int64),
+            prefix_bases=int(idx.prefix_bases),
+        )
     with open(os.path.join(outdir, "header.json"), "w") as f:
         json.dump(header, f, indent=1)
 
@@ -137,17 +176,20 @@ def load_header(indir: str) -> dict:
     return header
 
 
-def load_index(indir: str, mmap: bool = True, verify: bool = False) -> QuasiIndex:
-    """Load a quasi index directory (header index_type "quasi")."""
+def load_index(indir: str, mmap: bool = True, verify: bool = False):
+    """Load a quasi or pseudo index directory (header index_type "quasi" or
+    "pseudo"); the mapper dispatches on the type."""
     header = load_header(indir)
     itype = header["index_type"]
-    if itype != "quasi":
+    if itype not in ("quasi", "pseudo"):
         raise NotImplementedError(
-            f"index type {itype!r}: this slice of rapmap_tpu_torch loads quasi "
-            "indexes only (pseudo, quasi_map and quasi_core come with later slices)"
+            f"index type {itype!r}: this slice of rapmap_tpu_torch loads quasi and "
+            "pseudo indexes only (quasi_map and quasi_core come with a later slice)"
         )
-    names = list(_QUASI_ARRAYS)
-    names += [n for n in _QUASI_OPTIONAL if n in header["hashes"]]
+    is_quasi = itype == "quasi"
+    names = list(_QUASI_ARRAYS) if is_quasi else list(_PSEUDO_ARRAYS)
+    opt = _QUASI_OPTIONAL if is_quasi else _PSEUDO_OPTIONAL
+    names += [n for n in opt if n in header["hashes"]]
     arrays = {}
     mode = "r" if mmap else None
     for name in names:
@@ -157,8 +199,9 @@ def load_index(indir: str, mmap: bool = True, verify: bool = False) -> QuasiInde
         arrays[name] = arr
     with open(os.path.join(indir, "txp_names.txt")) as f:
         txp_names = [ln for ln in f.read().splitlines() if ln]
-    return QuasiIndex(
-        k=header["k"], txp_names=txp_names, seed=header["seed"],
-        meta=header.get("meta", {}), n_text=header["n_text"],
-        prefix_bases=header["prefix_bases"], **arrays,
-    )
+    common = dict(k=header["k"], txp_names=txp_names, seed=header["seed"],
+                  meta=header.get("meta", {}))
+    if not is_quasi:
+        return PseudoIndex(**arrays, **common)
+    return QuasiIndex(n_text=header["n_text"], prefix_bases=header["prefix_bases"],
+                      **arrays, **common)

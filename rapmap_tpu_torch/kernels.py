@@ -36,6 +36,8 @@ LAUNCHES: dict[str, int] = {
     "anchor_walk_lanes": 0,     # csrc/walk.cu, packed extension, explicit lanes
     "anchor_walk_charwise": 0,  # csrc/walk.cu, charwise extension, either lane kind
     "banded_scores": 0,         # csrc/align.cu, the mapping score of record rows
+    "pseudo_walk": 0,           # csrc/walk.cu, no extension, strand-paired lanes
+    "pseudo_walk_lanes": 0,     # csrc/walk.cu, no extension, explicit lanes
 }
 
 _lock = threading.Lock()

@@ -64,8 +64,13 @@ def map_batch_se(
 ) -> tuple[MapOut, Counters]:
     hits = scan_dispatch(didx, st, reads, lens, cfg)
     out = collate_batch(didx, st, hits, lens, cfg)
-    real = torch.arange(reads.shape[0], device=reads.device) < n_valid
-    ctr = Counters(
+    return out, mapout_counters(out, n_valid)
+
+
+def mapout_counters(out: MapOut, n_valid: torch.Tensor) -> Counters:
+    """A slotted SE batch's counters over its first n_valid rows."""
+    real = torch.arange(out.t.shape[0], device=out.t.device) < n_valid
+    return Counters(
         reads_total=n_valid,
         reads_mapped=(out.mapped & real).sum(),
         too_ambiguous=(out.too_ambiguous & real).sum(),
@@ -73,7 +78,6 @@ def map_batch_se(
         records=((out.t != -1) & real[:, None]).sum(),
         out_truncated=(out.out_truncated & real).sum(),
     )
-    return out, ctr
 
 
 def map_batch_pe(
@@ -89,8 +93,13 @@ def map_batch_pe(
     out1, _ = map_batch_se(didx, st, reads1, lens1, n_valid, cfg)
     out2, _ = map_batch_se(didx, st, reads2, lens2, n_valid, cfg)
     pairs = merge_pairs_batch(out1, out2, cfg)
-    real = torch.arange(reads1.shape[0], device=reads1.device) < n_valid
-    ctr = Counters(
+    return out1, out2, pairs, pair_counters(out1, out2, pairs, n_valid)
+
+
+def pair_counters(out1: MapOut, out2: MapOut, pairs: PairOut, n_valid: torch.Tensor) -> Counters:
+    """A slotted PE batch's counters over its first n_valid pairs."""
+    real = torch.arange(pairs.t.shape[0], device=pairs.t.device) < n_valid
+    return Counters(
         reads_total=n_valid,
         reads_mapped=(pairs.any_record & real).sum(),
         too_ambiguous=(pairs.too_ambiguous & real).sum(),
@@ -100,7 +109,6 @@ def map_batch_pe(
             (out1.out_truncated | out2.out_truncated | pairs.out_truncated) & real
         ).sum(),
     )
-    return out1, out2, pairs, ctr
 
 
 def _pe_flags(out1: MapOut, out2: MapOut, pairs: PairOut) -> torch.Tensor:
@@ -272,43 +280,27 @@ def _host(x: torch.Tensor) -> np.ndarray:
     return x if x.dtype == np.bool_ else x.astype(np.int32)
 
 
-class QuasiMapper:
-    """Host-side owner of the device index and its mapping loop.
-
-    device=None means the CUDA card; without one it raises instead of
-    running on the CPU. Pass device="cpu" to run the plain PyTorch versions
-    of every kernel on the CPU."""
-
-    def __init__(self, idx: QuasiIndex, cfg: MapConfig | None = None, device=None):
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "QuasiMapper: no CUDA device; pass device='cpu' to run "
-                    "the plain PyTorch path on the CPU"
-                )
-            device = "cuda"
-        self.device = torch.device(device)
-        if cfg is None:
-            cfg = MapConfig(k=idx.k)
-        if cfg.k != idx.k:
-            raise ValueError(f"config k={cfg.k} != index k={idx.k}")
-        if cfg.expand_budget == 0:
-            widths = np.asarray(idx.kmer_e) - np.asarray(idx.kmer_b)
-            cfg = replace(
-                cfg,
-                expand_budget=auto_expand_budget(widths),
-                # wide-interval (repetitive) indexes expand pairwise
-                expand_pairs=cfg.expand_pairs or sampled_width(widths) >= 2.0,
+def cuda_or(device, who: str) -> torch.device:
+    """A mapper's device: None means the CUDA card, and without one it
+    raises instead of running on the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{who}: no CUDA device; pass device='cpu' to run the plain PyTorch "
+                "path on the CPU"
             )
-        self.cfg = cfg
-        # lean upload drops the arrays the CHD + packed-extension path never
-        # gathers; the binary-search probe and the charwise extension need them
-        lean = cfg.packed_extension and getattr(idx, "chd_dir", None) is not None
-        self.didx, self.st = upload_index(idx, self.device, lean=lean,
-                                          meta_pairs=cfg.expand_pairs)
-        self.host_index = idx  # oracle fallback for budget-degraded reads
-        self.txp_names = idx.txp_names
-        self.txp_lens = np.asarray(idx.txp_lens)
+        device = "cuda"
+    return torch.device(device)
+
+
+class _Mapper:
+    """The host loop a mapper shares: batches in, wire programs enqueued on
+    the device's current stream, pinned result copies out. A subclass sets
+    didx, st, cfg, device and host_index and picks the program of a batch
+    (`_program`)."""
+
+    device: torch.device
+    cfg: MapConfig
 
     def _codes(self, codes) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(codes, dtype=np.int8)).to(self.device)
@@ -316,25 +308,8 @@ class QuasiMapper:
     def _lens(self, lens) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(lens, dtype=np.int64)).to(self.device)
 
-    def map_se(self, codes: np.ndarray, lens: np.ndarray, n_valid: int | None = None):
-        """-> (MapOut, Counters) as numpy (int32 fields, bool flags)."""
-        out, ctr = map_batch_se(
-            self.didx, self.st, self._codes(codes), self._lens(lens),
-            torch.tensor(n_valid if n_valid is not None else len(lens), device=self.device),
-            self.cfg,
-        )
-        return MapOut(*map(_host, out)), Counters(*map(_host, ctr))
-
-    def map_pe(self, codes1, lens1, codes2, lens2, n_valid: int | None = None):
-        """-> (MapOut left, MapOut right, PairOut, Counters) as numpy."""
-        o1, o2, pairs, ctr = map_batch_pe(
-            self.didx, self.st, self._codes(codes1), self._lens(lens1),
-            self._codes(codes2), self._lens(lens2),
-            torch.tensor(n_valid if n_valid is not None else len(lens1), device=self.device),
-            self.cfg,
-        )
-        return (MapOut(*map(_host, o1)), MapOut(*map(_host, o2)),
-                PairOut(*map(_host, pairs)), Counters(*map(_host, ctr)))
+    def _n_valid(self, n_valid, B: int) -> torch.Tensor:
+        return torch.tensor(n_valid if n_valid is not None else B, device=self.device)
 
     def _cap(self, B: int) -> int:
         return self.cfg.rec_slots * B
@@ -343,23 +318,23 @@ class QuasiMapper:
         C = self.cfg.chunk
         return C if (C and C < B and B % C == 0) else 0
 
+    def _program(self, kind: str, win: torch.Tensor, B: int, L: int):
+        """-> (wire_out, C, capc, rec_spec) of one batch's wire program."""
+        raise NotImplementedError
+
+    def _pe_width(self) -> int:
+        """Fields of a PE record: seven, plus the per-mate AS fields 7-8
+        with the mapping score."""
+        return 9 if self.cfg.mapping_score else 7
+
     def _dispatch(self, kind: str, win: np.ndarray, B: int, L: int) -> MapHandle:
-        """Upload one packed wire_in, enqueue its program (chunked when the
-        batch allows) and the copy of its wire_out to pinned host memory."""
-        C = self._chunk_of(B)
+        """Upload one packed wire_in, enqueue its program and the copy of its
+        wire_out to pinned host memory."""
         win = torch.from_numpy(win)
         on_cuda = self.device.type == "cuda"
         if on_cuda:
             win = win.pin_memory().to(self.device, non_blocking=True)
-        if C:
-            capc = self._cap(C)
-            spec = (rec_spec_se if kind == "se" else rec_spec_pe)(self.st, self.cfg)
-            fn = map_batch_se_wire_chunked if kind == "se" else map_batch_pe_wire_chunked
-            out = fn(self.didx, self.st, win, self.cfg, capc, B, L, C)
-        else:
-            capc, spec = 0, None
-            fn = map_batch_se_wire if kind == "se" else map_batch_pe_wire
-            out = fn(self.didx, self.st, win, self.cfg, self._cap(B), B, L)
+        out, C, capc, spec = self._program(kind, win, B, L)
         done = None
         if on_cuda:
             host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
@@ -385,9 +360,69 @@ class QuasiMapper:
         s1, has1, p2, s2, has2 [, sc1, sc2 with the mapping score])."""
         if result.done is not None:
             result.done.synchronize()
-        pe_w = 9 if self.cfg.mapping_score else 7  # per-mate AS fields 7-8
         return unpack_out(
-            result.wire.numpy(), result.B, 4 if result.kind == "se" else pe_w,
+            result.wire.numpy(), result.B, 4 if result.kind == "se" else self._pe_width(),
             chunk=result.C, capc=result.capc, rec_spec=result.spec,
             packed_cf=bool(result.C) and _packed_cf(self.cfg, result.C),
         )
+
+
+class QuasiMapper(_Mapper):
+    """Host-side owner of the device index and its mapping loop.
+
+    device=None means the CUDA card; without one it raises instead of
+    running on the CPU. Pass device="cpu" to run the plain PyTorch versions
+    of every kernel on the CPU."""
+
+    def __init__(self, idx: QuasiIndex, cfg: MapConfig | None = None, device=None):
+        self.device = cuda_or(device, "QuasiMapper")
+        if cfg is None:
+            cfg = MapConfig(k=idx.k)
+        if cfg.k != idx.k:
+            raise ValueError(f"config k={cfg.k} != index k={idx.k}")
+        if cfg.expand_budget == 0:
+            widths = np.asarray(idx.kmer_e) - np.asarray(idx.kmer_b)
+            cfg = replace(
+                cfg,
+                expand_budget=auto_expand_budget(widths),
+                # wide-interval (repetitive) indexes expand pairwise
+                expand_pairs=cfg.expand_pairs or sampled_width(widths) >= 2.0,
+            )
+        self.cfg = cfg
+        # lean upload drops the arrays the CHD + packed-extension path never
+        # gathers; the binary-search probe and the charwise extension need them
+        lean = cfg.packed_extension and getattr(idx, "chd_dir", None) is not None
+        self.didx, self.st = upload_index(idx, self.device, lean=lean,
+                                          meta_pairs=cfg.expand_pairs)
+        self.host_index = idx  # oracle fallback for budget-degraded reads
+        self.txp_names = idx.txp_names
+        self.txp_lens = np.asarray(idx.txp_lens)
+
+    def map_se(self, codes: np.ndarray, lens: np.ndarray, n_valid: int | None = None):
+        """-> (MapOut, Counters) as numpy (int32 fields, bool flags)."""
+        out, ctr = map_batch_se(
+            self.didx, self.st, self._codes(codes), self._lens(lens),
+            self._n_valid(n_valid, len(lens)), self.cfg,
+        )
+        return MapOut(*map(_host, out)), Counters(*map(_host, ctr))
+
+    def map_pe(self, codes1, lens1, codes2, lens2, n_valid: int | None = None):
+        """-> (MapOut left, MapOut right, PairOut, Counters) as numpy."""
+        o1, o2, pairs, ctr = map_batch_pe(
+            self.didx, self.st, self._codes(codes1), self._lens(lens1),
+            self._codes(codes2), self._lens(lens2), self._n_valid(n_valid, len(lens1)),
+            self.cfg,
+        )
+        return (MapOut(*map(_host, o1)), MapOut(*map(_host, o2)),
+                PairOut(*map(_host, pairs)), Counters(*map(_host, ctr)))
+
+    def _program(self, kind: str, win: torch.Tensor, B: int, L: int):
+        """The chunked program when the batch allows, else one over it."""
+        C = self._chunk_of(B)
+        if C:
+            capc = self._cap(C)
+            spec = (rec_spec_se if kind == "se" else rec_spec_pe)(self.st, self.cfg)
+            fn = map_batch_se_wire_chunked if kind == "se" else map_batch_pe_wire_chunked
+            return fn(self.didx, self.st, win, self.cfg, capc, B, L, C), C, capc, spec
+        fn = map_batch_se_wire if kind == "se" else map_batch_pe_wire
+        return fn(self.didx, self.st, win, self.cfg, self._cap(B), B, L), 0, 0, None

@@ -146,12 +146,18 @@ class CollateCore(NamedTuple):
 
 
 def _collate_core(
-    didx: DeviceQuasiIndex,
-    st: EngineStatic,
+    didx: DeviceQuasiIndex | None,
+    st: EngineStatic | None,
     hits: ScanHits,
     lens: torch.Tensor,  # (B,) read lengths
     cfg: MapConfig,
+    expand_fn=None,
 ) -> CollateCore:
+    """expand_fn(slot p, query pos q) -> (t, tpos) resolves one expanded
+    occurrence; None is the quasi resolution through didx.sa_meta. The pseudo
+    path passes its CSR resolver (models.pseudo.csr_expand_fn) with didx and
+    st None: then there is no pair pool and no packed key (the vote sorts
+    through _lexsort)."""
     R, H = hits.q.shape
     B = R // 2
     H2 = 2 * H
@@ -188,7 +194,8 @@ def _collate_core(
     # ---- global expansion pool ---------------------------------------------
     # pair mode: each pool slot covers TWO adjacent SA positions resolved by
     # one sa_meta pair-row gather (device_index meta_pairs)
-    pairs = cfg.expand_pairs and didx.sa_meta.shape[1] >= 4
+    pairs = (cfg.expand_pairs and expand_fn is None and didx is not None
+             and didx.sa_meta.shape[1] >= 4)
     P = 2 if pairs else 1
     CAPP = (CAPG + P - 1) // P      # pool size in slot units (pairs or singles)
     w_el = torch.where(hv, he - hb, 0).reshape(-1)  # (NH,)
@@ -225,8 +232,11 @@ def _collate_core(
     hq_slot = g4[:, 2]
     read = g4[:, 3] >> 1
     strand = g4[:, 3] & 1
-    meta = row_gather_nd(didx.sa_meta, p).to(torch.int64)
-    if pairs:
+    if expand_fn is not None:
+        t, tpos = expand_fn(p, hq_slot)
+    elif pairs:
+        meta = row_gather_nd(didx.sa_meta, p).to(torch.int64)
+
         # unzip pair rows -> element arrays (length 2*CAPP >= CAPG); the
         # element order equals the single-slot pool's SA-position order
         def z2(a, b):
@@ -239,6 +249,7 @@ def _collate_core(
         strand = z2(strand, strand)
         slot_valid = z2(slot_valid, second_ok)
     else:
+        meta = row_gather_nd(didx.sa_meta, p).to(torch.int64)
         t = meta[:, 0]
         tpos = meta[:, 1] - hq_slot
     NEL = P * CAPP                  # voting element count (== CAPG up to round-up)
@@ -247,7 +258,7 @@ def _collate_core(
     # whenever the index's static stats bound the fields
     ts_val = t * 2 + strand
     packed = False
-    if st.n_txps > 0:
+    if expand_fn is None and st is not None and st.n_txps > 0:
         rb = (B + 1).bit_length()
         tb = (2 * st.n_txps + 1).bit_length()
         sb = (2 * H + 1).bit_length()
@@ -335,17 +346,18 @@ def _collate_core(
 
 
 def collate_batch(
-    didx: DeviceQuasiIndex,
-    st: EngineStatic,
+    didx: DeviceQuasiIndex | None,
+    st: EngineStatic | None,
     hits: ScanHits,
     lens: torch.Tensor,
     cfg: MapConfig,
+    expand_fn=None,
 ) -> MapOut:
     """Winners scattered into the slotted (B, MAX_OUT) MapOut layout (used by
     the unchunked wire path and the library API)."""
     B = hits.q.shape[0] // 2
     MO = cfg.out_slots
-    c = _collate_core(didx, st, hits, lens, cfg)
+    c = _collate_core(didx, st, hits, lens, cfg, expand_fn)
     emit = c.keep & ~c.too_ambiguous[c.rclip] & (c.rank < MO)
     # rows that are not emitted go to the sink row B * MO, which is cut off;
     # emitted rows have distinct (read, rank) slots
@@ -384,6 +396,7 @@ def collate_records_se(
     cap: int,
     rec_spec=None,
     reads=None,
+    expand_fn=None,
 ):
     """Winners compacted DIRECTLY into a dense (cap, W) int32 record buffer.
 
@@ -392,12 +405,13 @@ def collate_records_se(
     them. With rec_spec (wire.RecSpec), rows pack into W=2 words instead of
     4 (t, pos, strand, score). With cfg.mapping_score (and `reads`), the
     score field carries the banded alignment score (ops.align, computed on
-    the compacted cap rows) instead of the MMP support. Returns (SERecords,
-    MapFlags)."""
+    the compacted cap rows) instead of the MMP support. expand_fn as in
+    _collate_core (the pseudo path: 4-word records, no rec_spec). Returns
+    (SERecords, MapFlags)."""
     from rapmap_tpu_torch.ops.compact import SERecords
 
     B = hits.q.shape[0] // 2
-    c = _collate_core(didx, st, hits, lens, cfg)
+    c = _collate_core(didx, st, hits, lens, cfg, expand_fn)
     emit = c.keep & ~c.too_ambiguous[c.rclip]
     gidx = torch.cumsum(emit, dim=0) - 1
     # non-emitted rows (and any past the cap) go to the sink row `cap`,

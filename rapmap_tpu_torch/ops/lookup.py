@@ -12,7 +12,16 @@ Three probes over the same sorted k-mer table:
   eager PyTorch with converged lanes masked and no host sync.
 
 Hash arithmetic is uint32 in int64 (ops.bits) and must match native/chd.cpp
-and index/chd.py bit for bit, or every probe misses.
+and index/chd.py bit for bit, or every probe misses. Interval bounds are
+read as uint32 values too: big-occ pseudo tables carry occurrence ids in
+[0, 2^32) as int32 bit patterns, so a sign-extended bound would turn an
+interval that straddles 2^31 into a negative width. With the values, every
+width is exact and equals the reference's wrapped int32 width wherever that
+is below 2^31.
+
+The probes take a quasi upload (DeviceQuasiIndex, EngineStatic) or a pseudo
+one (models.pseudo.DevicePseudoIndex, PseudoStatic): they read only the
+fields the two share.
 """
 
 from __future__ import annotations
@@ -76,17 +85,10 @@ def _chd_lookup(
     row = row_gather_nd(didx.chd_rows, _chd_hash(st, didx, key_hi, key_lo))
     # The empty-slot sentinel key (-1, -1) equals the poly-T k-mer when k == 32;
     # requiring a non-empty interval (sentinel rows carry b == e == 0) keeps an
-    # absent T^32 probe from false-hitting. The width is taken in int32, as the
-    # reference takes it: tables that carry uint32 bit patterns in int32 order
-    # by the wrapped difference, not by a signed compare.
-    found = (
-        (u32(row[..., 0]) == key_hi)
-        & (u32(row[..., 1]) == key_lo)
-        & (row[..., 3] - row[..., 2] > 0)
-    )
-    b = torch.where(found, row[..., 2].to(torch.int64), 0)
-    e = torch.where(found, row[..., 3].to(torch.int64), 0)
-    return found, b, e
+    # absent T^32 probe from false-hitting.
+    rb, re_ = u32(row[..., 2]), u32(row[..., 3])
+    found = (u32(row[..., 0]) == key_hi) & (u32(row[..., 1]) == key_lo) & (re_ - rb > 0)
+    return found, torch.where(found, rb, 0), torch.where(found, re_, 0)
 
 
 def _chd_probe_canonical(
@@ -110,8 +112,8 @@ def kmer_lookup_2str(
     is_can = (key_hi < rhi) | ((key_hi == rhi) & (key_lo <= rlo))
     can_hi = torch.where(is_can, key_hi, rhi)
     can_lo = torch.where(is_can, key_lo, rlo)
-    row = _chd_probe_canonical(didx, st, can_hi, can_lo).to(torch.int64)
-    hit = ((row[..., 0] & M32) == can_hi) & ((row[..., 1] & M32) == can_lo)
+    row = u32(_chd_probe_canonical(didx, st, can_hi, can_lo))
+    hit = (row[..., 0] == can_hi) & (row[..., 1] == can_lo)
     # row cols 2,3 = canonical orientation's interval; 4,5 = its rc
     b_can, e_can = row[..., 2], row[..., 3]
     b_alt, e_alt = row[..., 4], row[..., 5]
@@ -155,6 +157,4 @@ def kmer_lookup(
         lo, hi = torch.where(cont & less, mid + 1, lo), torch.where(cont & ~less, mid, hi)
     row = row_gather_nd(didx.kmer_rows, lo.clamp(0, Kc))
     found = (lo < hi_i) & (u32(row[..., 0]) == key_hi) & (u32(row[..., 1]) == key_lo)
-    b = torch.where(found, row[..., 2].to(torch.int64), 0)
-    e = torch.where(found, row[..., 3].to(torch.int64), 0)
-    return found, b, e
+    return found, torch.where(found, u32(row[..., 2]), 0), torch.where(found, u32(row[..., 3]), 0)

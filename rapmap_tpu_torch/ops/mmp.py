@@ -27,6 +27,12 @@ lanes masked: every trip of an active lane either records a hit or sets
 identical to the reference's loop-until-done. The reference's dead-lane
 compaction and narrow tail only change the lockstep width (its docstring
 says the output is bit-identical) and are not carried over.
+
+The pseudo walks (`pseudo_walk`; the reference's models/pseudo.py
+while_loops) are the same walk without an extension: a hit records its
+anchor's k-mer interval with length k and the walk jumps k columns. On CUDA
+tensors they launch the walk kernel's third build (csrc/walk.cu, no
+extension); on CPU tensors `pseudo_walk_plain` / `pseudo_walk_lanes_plain`.
 """
 
 from __future__ import annotations
@@ -55,6 +61,21 @@ class ScanHits(NamedTuple):
     e: torch.Tensor      # (R, H) interval ends
     n: torch.Tensor      # (R,)  hit counts
     truncated: torch.Tensor  # (R,) bool — hit buffer overflowed (over_budget)
+
+
+class PseudoWalkInputs(NamedTuple):
+    """What the pseudo dense phase hands the pseudo walk (models.pseudo):
+    WalkInputs without the packed read words and column offsets, which a
+    walk without an extension does not read. Strand-paired (R = 2B) or
+    explicit lanes (B = R; br/er/anch_rF are bf/ef/anch_f again, unused)."""
+
+    lens2: torch.Tensor   # (R,) int64
+    bf: torch.Tensor      # (B, S) int64 interval begins (uint32 values)
+    ef: torch.Tensor      # (B, S) int64 interval ends
+    br: torch.Tensor
+    er: torch.Tensor
+    anch_f: torch.Tensor  # (B, S) bool
+    anch_rF: torch.Tensor
 
 
 class WalkInputs(NamedTuple):
@@ -268,10 +289,13 @@ def _extend(didx, reads, lens, b0, e0, pos, active, k: int, ext_steps: int):
     return b, e, d
 
 
-def _walk_plain(db2, de2, anc2, is_rc, lens2, extend, k: int, H: int) -> ScanHits:
+def _walk_plain(db2, de2, anc2, is_rc, lens2, extend, k: int, H: int,
+                jump: int | None = None) -> ScanHits:
     """H + 1 lockstep trips over lane-aligned tables (R, S): forward lanes
     take the next anchor from anc2, rc lanes the previous one in mirrored
-    columns; extend(b0, e0, pos, active) -> (b, e, mlen)."""
+    columns; extend(b0, e0, pos, active) -> (b, e, mlen). After a hit the
+    walk skips to posc + max(mlen - k + 1, 1) (the NIP skip), or with `jump`
+    to posc + jump (the pseudo walks' jump-ahead k)."""
     R, S = db2.shape
     dev = db2.device
 
@@ -301,7 +325,8 @@ def _walk_plain(db2, de2, anc2, is_rc, lens2, extend, k: int, H: int) -> ScanHit
         write = act & ~overflow
         rows4 = torch.stack([posc, mlen, b1, e1], dim=-1)
         buf[lane, slot] = torch.where(write[:, None], rows4, buf[lane, slot])
-        pos = torch.where(act, next_anchor_pos(posc + (mlen - k + 1).clamp(min=1)), pos)
+        adv = (mlen - k + 1).clamp(min=1) if jump is None else jump
+        pos = torch.where(act, next_anchor_pos(posc + adv), pos)
         n = n + write
         trunc = trunc | overflow
     return ScanHits(
@@ -352,6 +377,90 @@ def anchor_walk_lanes_plain(
     is_rc = torch.zeros(lens2.shape, dtype=torch.bool, device=lens2.device)
     extend = _plain_extend(didx, preads, next_bad, lens2, col_off2, codes, k, ext_steps)
     return _walk_plain(bf, ef, next_anchor_table(anch_f), is_rc, lens2, extend, k, H)
+
+
+def _no_extend(k: int):
+    """The pseudo walks' extension: none, the anchor's interval at length k."""
+    return lambda b0, e0, pos, act: (b0, e0, torch.full_like(b0, k))
+
+
+def pseudo_walk_plain(lens2, bf, ef, br, er, anch_f, anch_rF, *, k: int, H: int) -> ScanHits:
+    """The strand-paired pseudo walk in PyTorch (the reference's
+    pseudo_scan_batch_paired loop), R = 2B lanes in lockstep: the anchor
+    tables, then H + 1 trips with finished lanes masked."""
+    db2, de2, anc2 = anchor_tables(bf, ef, br, er, anch_f, anch_rF)
+    is_rc = torch.arange(lens2.shape[0], device=lens2.device) >= lens2.shape[0] // 2
+    return _walk_plain(db2, de2, anc2, is_rc, lens2, _no_extend(k), k, H, jump=k)
+
+
+def pseudo_walk_lanes_plain(lens2, bf, ef, br, er, anch_f, anch_rF, *, k: int,
+                            H: int) -> ScanHits:
+    """The pseudo walk over R explicit lanes, all forward, in PyTorch (the
+    reference's pseudo_scan_batch loop); br, er, anch_rF unused."""
+    is_rc = torch.zeros(lens2.shape, dtype=torch.bool, device=lens2.device)
+    return _walk_plain(bf, ef, next_anchor_table(anch_f), is_rc, lens2, _no_extend(k), k, H,
+                       jump=k)
+
+
+def _check_pseudo_walk_inputs(w: PseudoWalkInputs, paired: bool) -> None:
+    """Raise on what the kernel's pseudo build does not take: anything but
+    contiguous int64 lengths and intervals and bool masks of one (B, S)
+    shape (B = R / 2 when paired, else R), all on one CUDA device."""
+    dev = w.lens2.device
+    for name, t in w._asdict().items():
+        if t.device != dev:
+            raise ValueError(f"pseudo_walk: {name} lies on {t.device}, lens2 on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"pseudo_walk: {name} must be contiguous")
+        want = torch.bool if name.startswith("anch") else torch.int64
+        if t.dtype != want:
+            raise TypeError(f"pseudo_walk: {name} must be {want}, got {t.dtype}")
+    R = w.lens2.shape[0]
+    if w.lens2.dim() != 1 or R == 0 or (paired and R % 2):
+        raise ValueError("pseudo_walk: lens2 must be (R,) with R >= 1, R = 2B when paired")
+    if w.bf.dim() != 2 or w.bf.shape[0] != (R // 2 if paired else R) or any(
+        t.shape != w.bf.shape for t in w[2:]
+    ):
+        raise ValueError("pseudo_walk: bf, ef, br, er, anch_f and anch_rF must share one "
+                         "(B, S) shape, B = R / 2 when paired, else R")
+    if dev.type != "cuda":
+        raise ValueError(f"pseudo_walk: no kernel for device {dev}")
+
+
+def pseudo_walk(lens2, bf, ef, br, er, anch_f, anch_rF, *, k: int, H: int,
+                paired: bool = True) -> ScanHits:
+    """The pseudo walk after the pseudo dense phase: the kernel of
+    csrc/walk.cu built without an extension for CUDA tensors (one launch,
+    one thread per lane, every output byte written by the kernel), the plain
+    version for CPU tensors. paired=True walks strand-paired lanes (kernel
+    count `pseudo_walk`), paired=False explicit lanes, all forward
+    (`pseudo_walk_lanes`). Hits are [q, k, b, e] with b, e the anchor's
+    interval as given (uint32 occurrence ids in int64)."""
+    w = PseudoWalkInputs(lens2, bf, ef, br, er, anch_f, anch_rF)
+    if all(t.device.type == "cpu" for t in w):
+        plain = pseudo_walk_plain if paired else pseudo_walk_lanes_plain
+        return plain(*w, k=k, H=H)
+    _check_pseudo_walk_inputs(w, paired)
+    R, S = lens2.shape[0], bf.shape[1]
+    if H < 1 or S < 1:
+        raise ValueError("pseudo_walk: need H >= 1 and S >= 1")
+    dev = lens2.device
+    buf = torch.empty((R, H, 4), dtype=torch.int64, device=dev)
+    n = torch.empty((R,), dtype=torch.int64, device=dev)
+    trunc = torch.empty((R,), dtype=torch.bool, device=dev)
+    fn = kernels.library("walk").tqm_pseudo_walk
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    fn.argtypes = [vp] * 7 + [i64, i64] + [i32] * 3 + [vp] * 4
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        rc = fn(*(t.data_ptr() for t in w), R, R // 2 if paired else R, S, k, H,
+                buf.data_ptr(), n.data_ptr(), trunc.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"tqm_pseudo_walk launch failed: CUDA error {rc}")
+    kernels.LAUNCHES["pseudo_walk" if paired else "pseudo_walk_lanes"] += 1
+    return ScanHits(q=buf[..., 0], l=buf[..., 1], b=buf[..., 2], e=buf[..., 3],
+                    n=n, truncated=trunc)
 
 
 def _check_walk_inputs(didx, preads, next_bad, lens2, col_off2, bf, ef, br, er, anch_f,

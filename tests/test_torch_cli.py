@@ -208,6 +208,16 @@ def test_resume_produces_identical_sam(world):
     assert st["counters"]["reads_total"] == len(reads)
 
 
+def _pseudo_index(tmp):
+    """The world's pseudo index (the port's build)."""
+    from rapmap_tpu_torch.index.builder import build_pseudo_index
+
+    dst = str(tmp / "pidx")
+    if not os.path.exists(dst):
+        build_pseudo_index(str(tmp / "txome.fa"), dst, k=11)
+    return dst
+
+
 def _retyped_index(tmp, itype):
     """A copy of the world's index whose header claims another type."""
     dst = str(tmp / f"idx_{itype}")
@@ -228,8 +238,15 @@ def _retyped_index(tmp, itype):
 REFUSALS = {
     # paired-end mapping is ported: half a pair is what is refused now
     "paired_end": (["quasimap", "-i", "IDX", "-1", "FQ"], "-1/-2 for paired-end"),
-    "pseudomap": (["pseudomap", "-i", "IDX", "-r", "FQ"], "pseudomap"),
-    "pseudoindex": (["pseudoindex", "-t", "FA", "-i", "OUT"], "pseudoindex"),
+    # pseudomap is ported: what the reference refuses, or the staged engine, is refused
+    "pseudomap_mapping_score": (["pseudomap", "-i", "PIDX", "-r", "FQ", "--mappingScore"],
+                                "--mappingScore needs the suffix-array text; quasimap only"),
+    "pseudomap_engine_staged": (["pseudomap", "-i", "PIDX", "-r", "FQ", "--engine", "staged"],
+                                "--engine staged"),
+    "pseudomap_auto_picks_staged": (["pseudomap", "-i", "PIDX", "-r", "FQ"],
+                                    "host-staged engine"),
+    "pseudomap_quasi_index": (["pseudomap", "-i", "IDX", "-r", "FQ"],
+                              "is type quasi, expected pseudo"),
     # the mapping score is ported: under the staged engine, which is not, it is refused
     "mapping_score": (["quasimap", "-i", "IDX", "-r", "FQ", "--mappingScore", "--engine",
                        "staged"], "--engine staged"),
@@ -256,11 +273,13 @@ def test_refusals_exit_1_with_one_line(world, case, monkeypatch, capfd):
     argv, message = REFUSALS[case]
     out = str(tmp / f"refused_{case}")
     subst = {"IDX": str(tmp / "idx"), "FQ": fq, "FA": str(tmp / "txome.fa"), "OUT": out}
+    if "PIDX" in argv:
+        subst["PIDX"] = _pseudo_index(tmp)
     argv = [subst.get(a) or (_retyped_index(tmp, a) if a in
                              ("quasi_map", "quasi_core", "pseudo", "no_chd") else a)
             for a in argv]
     monkeypatch.setenv("TQM_FORCE_CPU", "1")
-    if case == "engine_auto_picks_staged":
+    if case.endswith("auto_picks_staged"):
         monkeypatch.setenv("TQM_HBM_GB", "0.000001")
     records = []
 

@@ -1,10 +1,12 @@
 """rapmap_tpu_torch stands alone: with jax and rapmap_tpu refused at import,
 every module imports, a toy index builds and maps single-end reads and pairs
-on the CPU (and one without a CHD, packed and charwise), and the command line (`rapmap_tpu_torch.cli`) indexes and maps
-FASTQ to SAM, single-end and paired-end; a mapper asked
-for the default device without a CUDA card raises instead of running on the
-CPU, and the command line returns non-zero; chip_smoke.py without the package
-beside it exits non-zero."""
+on the CPU (and one without a CHD, packed and charwise), a toy pseudo index
+builds and pseudo-maps reads and pairs, and the command line
+(`rapmap_tpu_torch.cli`) indexes and maps FASTQ to SAM, single-end and
+paired-end, quasi and pseudo; a mapper asked for the default device without
+a CUDA card raises instead of running on the CPU, and the command line
+returns non-zero; chip_smoke.py without the package beside it exits
+non-zero."""
 
 import json
 import os
@@ -65,6 +67,14 @@ SCRIPT = textwrap.dedent("""
     nochd_mapped = [
         QuasiMapper(nochd, MapConfig(k=11, chunk=8, packed_extension=p), device="cpu")
         .map_se(codes, lens)[1].reads_mapped.item() for p in (True, False)]
+    # a pseudo index: reads and pairs
+    from rapmap_tpu_torch.index.builder import build_pseudo_index
+    from rapmap_tpu_torch.models.pseudo import PseudoMapper
+
+    pidx = build_pseudo_index(fa, k=11)
+    pmap = PseudoMapper(pidx, cfg, device="cpu")
+    ps = pmap.fetch(pmap.map_se_async(codes, lens))
+    ps_pe = pmap.fetch(pmap.map_pe_async(codes, lens, (5 - codes[:, ::-1]).copy(), lens))
 
     # the command line, in process: quasiindex, then quasimap FASTQ -> SAM
     import os
@@ -84,6 +94,16 @@ SCRIPT = textwrap.dedent("""
                       "--batchSize", "8", "--chunkSize", "4"])
     with open(sam + ".pe") as f:
         pe_records = sum(1 for ln in f if ln[0] != "@" and not int(ln.split("\\t")[1]) & 0x4)
+    pdir = fa + ".pidx"
+    rc_pindex = cli.main(["pseudoindex", "-t", fa, "-i", pdir, "-k", "11"])
+    rc_pmap = cli.main(["pseudomap", "-i", pdir, "-r", fq, "-o", sam + ".ps",
+                        "--batchSize", "8"])
+    rc_ppe = cli.main(["pseudomap", "-i", pdir, "-1", fq, "-2", fq, "-o", sam + ".pspe",
+                       "--batchSize", "8"])
+    with open(sam + ".ps") as f:
+        ps_sam_mapped = sum(1 for ln in f if ln[0] != "@" and not int(ln.split("\\t")[1]) & 0x104)
+    with open(sam + ".pspe") as f:
+        ps_pe_records = sum(1 for ln in f if ln[0] != "@" and not int(ln.split("\\t")[1]) & 0x4)
 
     torch.cuda.is_available = lambda: False
     try:
@@ -91,6 +111,11 @@ SCRIPT = textwrap.dedent("""
         raised = False
     except RuntimeError:
         raised = True
+    try:
+        PseudoMapper(pidx, cfg)
+        ps_raised = False
+    except RuntimeError:
+        ps_raised = True
     del os.environ["TQM_FORCE_CPU"]
     rc_no_card = cli.main(["quasimap", "-i", idir, "-r", fq, "-o", sam + ".2"])
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "rapmap_tpu"))
@@ -100,6 +125,10 @@ SCRIPT = textwrap.dedent("""
                           rc_pe=rc_pe, pe_records=pe_records,
                           raised=raised, loaded=loaded, rc_index=rc_index, rc_map=rc_map,
                           sam_mapped=sam_mapped, rc_no_card=rc_no_card,
+                          ps_mapped=ps.counters["reads_mapped"],
+                          ps_pe_mapped=ps_pe.counters["reads_mapped"], ps_raised=ps_raised,
+                          rc_pseudo=[rc_pindex, rc_pmap, rc_ppe], ps_sam_mapped=ps_sam_mapped,
+                          ps_pe_records=ps_pe_records,
                           second_sam=os.path.exists(sam + ".2"))))
 """)
 
@@ -129,6 +158,11 @@ def test_port_imports_and_maps_without_jax(tmp_path):
         assert f"rapmap_tpu_torch.{m}" in res["modules"]
     assert res["rc_pe"] == 0 and res["pe_records"] > 0
     assert res["rc_no_card"] != 0 and not res["second_sam"]
+    for m in ("models.pseudo", "oracle.pseudomap"):
+        assert f"rapmap_tpu_torch.{m}" in res["modules"]
+    assert (res["ps_mapped"], res["ps_pe_mapped"], res["ps_sam_mapped"]) == (16, 16, 16)
+    assert res["rc_pseudo"] == [0, 0, 0] and res["ps_pe_records"] > 0
+    assert res["ps_raised"], "PseudoMapper(device=None) ran without a CUDA card"
 
 
 def test_chip_smoke_alone_fails(tmp_path):

@@ -158,8 +158,9 @@ def _chd_lookup_ref(rdidx, rst, keys):
 
 def test_chd_width_test_wraps_in_int32():
     """A row whose b and e are uint32 bit patterns straddling 2^31 (as
-    big-occ tables carry): the width e - b is taken in int32, as the
-    reference takes it, so the row is found."""
+    big-occ tables carry): the reference takes the width e - b in int32, the
+    port reads b and e as their uint32 values, so both find the row with
+    width 5; the bounds equal the reference's modulo 2^32."""
     st = EngineStatic(k=11, prefix_bases=4, lookup_steps=1, pad_tail=64, use_chd=True,
                       chd_seed=3, chd_m_bits=2, chd_t_bits=2, chd_canonical=False)
     rows = np.tile(np.array([0, 5, 2**31 - 2, -(2**31) + 3], np.int32), (4, 1))
@@ -176,7 +177,9 @@ def test_chd_width_test_wraps_in_int32():
     rf, rb, re = [np.asarray(x) for x in rlookup._chd_lookup(
         rdidx, RefStatic(**dataclasses.asdict(st)), jnp.asarray(hi), jnp.asarray(lo))]
     assert rf.all() and np.array_equal(found.numpy(), rf)
-    assert np.array_equal(b.numpy(), rb) and np.array_equal(e.numpy(), re)
+    assert (b == 2**31 - 2).all() and (e == 2**31 + 3).all()
+    assert np.array_equal(b.numpy(), rb.astype(np.int64) & 0xFFFFFFFF)
+    assert np.array_equal(e.numpy(), re.astype(np.int64) & 0xFFFFFFFF)
 
 
 def test_chd_query_np_and_attach_chd(world, tmp_path):
