@@ -34,8 +34,9 @@ both are held against their plain versions; the no-CHD library path
 cli_pe_nochd_default) must give what the canonical-CHD packed path gives in
 the same run, and profile_nochd splits a no-CHD chunk's probe out. The
 mapping score's kernel (csrc/align.cu, banded_scores) is held against its
-plain version on eleven input sets (bands 1 to 40, go == ge, 150 bp reads,
-windows off transcript ends, Ns, paired-end rows, a mostly dead cap); the
+plain version on 22 input sets (bands 1 to 64 on either side of every change
+of its group layout, live rows scattered, go == ge, 150 bp reads, windows
+off transcript ends, Ns, paired-end rows, a mostly dead cap); the
 same reads then map with cfg.mapping_score on the main path's upload
 (score_path; pe_score_path for one batch of pairs), whose mappings must
 equal main_path's and pe_path's and whose sampled scores must equal the
@@ -79,7 +80,13 @@ import time
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate (NVIDIA data sheet)
-CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM non-tensor rate (data sheet, fp32)
+# 32-bit integer add, min and max issue at 64 a clock per SM on compute
+# capability 9.0 (CUDA C++ Programming Guide, throughput of native arithmetic
+# instructions); the operations bound of every kernel is taken at that rate
+# times the card's SM count and its max SM clock (int_ops_rate). The 67 T/s
+# of the data sheet is the fp32 rate with an FMA counted as two operations.
+INT_OPS_PER_CLOCK_PER_SM = 64
+INT_OPS_PER_S = 132 * 64 * 1.98e9  # H100 SXM's nominal; main() sets the card's
 READ_LEN = 76
 BATCHES = 8  # per run; each batch is 4 chunks
 PE_BATCHES = 4  # paired-end batches, of 4 chunks each
@@ -87,7 +94,7 @@ K = 31
 # the __global__ functions of csrc/*.cu, as the profiler names them
 HAND_KERNELS = ("cluster_sort_kernel", "tile_sort_kernel", "tile_merge_kernel",
                 "global_step_kernel", "anchor_walk_kernel", "extend_packed_kernel",
-                "extend_charwise_kernel", "banded_reg_kernel", "banded_scratch_kernel")
+                "extend_charwise_kernel", "banded_group_kernel", "banded_scratch_kernel")
 SCORE_FLAGS = ["--mappingScore", "--minScoreFraction", "0.65"]
 
 
@@ -101,6 +108,25 @@ def nvidia_smi_line() -> str:
         check=True, capture_output=True, text=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def int_ops_rate(cuda: bool) -> dict:
+    """The card's 32-bit integer operation rate: its SM count x 64 a clock x
+    its max SM clock (nvidia-smi clocks.max.sm); the nominal H100 SXM rate,
+    marked not measured, off the card."""
+    if not cuda:
+        return dict(ops_per_s=INT_OPS_PER_S, source="H100 SXM nominal (not measured)")
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60,
+    )
+    mhz = float(out.stdout.strip().splitlines()[0])
+    return dict(ops_per_s=sms * INT_OPS_PER_CLOCK_PER_SM * mhz * 1e6, sms=sms,
+                ops_per_clock_per_sm=INT_OPS_PER_CLOCK_PER_SM, max_sm_clock_mhz=mhz,
+                source="the card")
 
 
 class Timer:
@@ -242,7 +268,7 @@ def phase_sort_kernel(dev, timer):
     nbytes = 16 * n                         # read hi, lo once; write them once
     ops = (n // 2) * log2n * (log2n + 1) // 2  # 64-bit compare-exchanges
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
+    t_ops = ops / INT_OPS_PER_S * 1e3
     timing = dict(
         n=n, path=path(n), ms=ms, wrapper_ms=wrapper_ms, device_ms_by_kernel=ms_by,
         plain_ms=plain_ms, library_ms=library_ms, library_wrapper_ms=library_wrapper_ms,
@@ -819,7 +845,7 @@ def phase_walk_kernel(dev, timer, mapper, idx, codes, lens, C: int, seed: int, w
         nbytes = 32 * sum(sectors.values()) + out_bytes
         ops = 32 * rows  # index arithmetic and one masked word compare a row, at least
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
+        t_ops = ops / INT_OPS_PER_S * 1e3
         bound_ms = max(t_bytes, t_ops)
         bound = dict(bound_ms=bound_ms, bound_by="bytes" if t_bytes >= t_ops else "operations",
                      bytes=nbytes, output_bytes=out_bytes, input_sectors_read=sectors,
@@ -901,7 +927,7 @@ def walk_timing(didx, w, kw, plain, timer, cuda: bool) -> dict:
         # at least index arithmetic and one compare a row or a search trip
         ops = 32 * rows if kw["codes"] is None else 8 * rows
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
+        t_ops = ops / INT_OPS_PER_S * 1e3
         bound_ms = max(t_bytes, t_ops)
         bound = dict(bound_ms=bound_ms, bound_by="bytes" if t_bytes >= t_ops else "operations",
                      bytes=nbytes, output_bytes=out_bytes, input_sectors_read=sectors,
@@ -983,20 +1009,26 @@ def phase_lanes_walk_kernel(dev, timer, nmapper, idx, codes, lens, C: int, seed:
     return ok, max_err, timing
 
 
-def phase_charwise_kernel(dev, timer, cmapper, nmapper, idx, codes, lens, C: int, seed: int):
+def phase_charwise_kernel(dev, timer, cmapper, nmapper, idx, codes, lens, C: int, seed: int,
+                          work: str):
     """anchor_walk with the charwise extension (kernel anchor_walk_charwise)
     against the plain walks with the plain `_extend`, all six ScanHits
     fields, through the wrapper and on 0xFF-filled outputs: strand-paired
     lanes on the CHD index (`cmapper`, full upload) and explicit lanes on the
-    no-CHD index (`nmapper`), each on one chunk and on 150 bp reads, and each
-    also equal to the packed walk of the same reads; tqm_extend_charwise
-    alone against `_extend` at every lane's first anchor and on the whole
-    suffix array at random positions; then each mode's timing and bound on
-    the chunk."""
+    no-CHD index (`nmapper`), each on one chunk and on 150 bp reads, and
+    strand-paired lanes on the repetitive world's index (anchor intervals up
+    to 8 wide that narrow to width 1, and so into the kernel's width-1
+    shortcut, in the middle of an extension); each also equal to the packed
+    walk of the same reads; tqm_extend_charwise alone against `_extend` at
+    every lane's first anchor and on the whole suffix array at random
+    positions; then each mode's timing and bound on the chunk."""
     import dataclasses
 
     import torch
 
+    from rapmap_tpu_torch.config import MapConfig
+    from rapmap_tpu_torch.index.format import load_index
+    from rapmap_tpu_torch.ops.device_index import upload_index
     from rapmap_tpu_torch.ops.mmp import (
         _extend, anchor_walk, anchor_walk_lanes_plain, anchor_walk_plain, scan_inputs,
     )
@@ -1006,12 +1038,17 @@ def phase_charwise_kernel(dev, timer, cmapper, nmapper, idx, codes, lens, C: int
     n_small = min(C, 4096)
     c3, _ = sample_reads(idx, rng, n_small, 150, 0.01)
     l3 = np.full(n_small, 150, np.int32)
-    sets = [("paired_chunk", cmapper, codes[:C], lens[:C]), ("paired_150bp", cmapper, c3, l3),
-            ("lanes_chunk", nmapper, codes[:C], lens[:C]), ("lanes_150bp", nmapper, c3, l3)]
+    ridx = load_index(os.path.join(work, "repetitive_idx"))
+    rdidx, rst = upload_index(ridx, dev, lean=False)
+    n_rep = max(n_small, 512)
+    c4, _ = sample_reads(ridx, rng, n_rep, 120, 0.02)
+    c, n = (cmapper.didx, cmapper.st, cmapper.cfg), (nmapper.didx, nmapper.st, nmapper.cfg)
+    sets = [("paired_chunk", *c, codes[:C], lens[:C]), ("paired_150bp", *c, c3, l3),
+            ("lanes_chunk", *n, codes[:C], lens[:C]), ("lanes_150bp", *n, c3, l3),
+            ("paired_repetitive", rdidx, rst, MapConfig(k=K), c4, np.full(n_rep, 120, np.int32))]
     checks, max_err, mains = [], 0, {}
-    for name, m, cds, lns in sets:
-        didx, st = m.didx, m.st
-        cfg = dataclasses.replace(m.cfg, packed_extension=False)
+    for name, didx, st, cfg, cds, lns in sets:
+        cfg = dataclasses.replace(cfg, packed_extension=False)
         r = torch.from_numpy(cds).to(dev)
         ln = torch.from_numpy(lns.astype(np.int64)).to(dev)
         w, kw = scan_inputs(didx, st, r, ln, cfg)
@@ -1025,23 +1062,26 @@ def phase_charwise_kernel(dev, timer, cmapper, nmapper, idx, codes, lens, C: int
         pw, pkw = scan_inputs(didx, st, r, ln, dataclasses.replace(cfg, packed_extension=True))
         packed_errs = hits_err(anchor_walk(didx, *pw, **pkw), want)
         ext_errs = []
+        # each lane's first anchor interval, and how many of them narrowed to
+        # width 1 from a wider one
+        R = w.lens2.shape[0]
+        S, k, n_sa = w.bf.shape[1], prm["k"], didx.sa.shape[0]
+        first = got.q[:, 0].contiguous()
+        if kw["paired"]:
+            col = torch.where(torch.arange(R, device=dev) >= R // 2, w.lens2 - k - first,
+                              first)
+            db, de = torch.cat([w.bf, w.br]), torch.cat([w.ef, w.er])
+        else:
+            col, db, de = first, w.bf, w.ef
+        col = col.clamp(0, S - 1)[:, None]
+        b0 = torch.gather(db, 1, col)[:, 0].contiguous()
+        e0 = torch.gather(de, 1, col)[:, 0].contiguous()
+        narrowed = int(((got.n > 0) & (e0 - b0 > 1) & (got.e[:, 0] - got.b[:, 0] == 1)).sum())
         if cuda:
             raw, _, _ = walk_on_0xff(didx, w, **prm, paired=kw["paired"], codes=kw["codes"])
             errs = {f: max(v, hits_err(raw, want)[f]) for f, v in errs.items()}
             # the extension alone: at each lane's first anchor, and on the whole
             # suffix array at random positions
-            R = w.lens2.shape[0]
-            S, k, n_sa = w.bf.shape[1], prm["k"], didx.sa.shape[0]
-            first = got.q[:, 0].contiguous()
-            if kw["paired"]:
-                col = torch.where(torch.arange(R, device=dev) >= R // 2, w.lens2 - k - first,
-                                  first)
-                db, de = torch.cat([w.bf, w.br]), torch.cat([w.ef, w.er])
-            else:
-                col, db, de = first, w.bf, w.ef
-            col = col.clamp(0, S - 1)[:, None]
-            b0 = torch.gather(db, 1, col)[:, 0].contiguous()
-            e0 = torch.gather(de, 1, col)[:, 0].contiguous()
             rpos = torch.from_numpy(rng.integers(0, S, R)).to(dev)
             ract = torch.from_numpy(rng.random(R) < 0.9).to(dev)
             for b_, e_, p_, a_, steps in (
@@ -1056,18 +1096,21 @@ def phase_charwise_kernel(dev, timer, cmapper, nmapper, idx, codes, lens, C: int
         checks.append(walk_set_record(
             name, didx, w, kw, got, errs,
             dict(packed_walk_err=packed_errs, equal_packed=not any(packed_errs.values()),
-                 extend_err=ext_errs, extend_equal_plain=not any(ext_errs))))
+                 extend_err=ext_errs, extend_equal_plain=not any(ext_errs),
+                 first_hits_narrowed_to_width_1=narrowed)))
         max_err = max(max_err, *errs.values(), *packed_errs.values(), *ext_errs)
         if name.endswith("chunk"):
             mains[name] = (didx, w, kw, plain)
     covered = all(c["hits"] > 0 for c in checks) and all(
-        c["longest_mmp"] > K + 48 for c in checks if c["read_len"] == 150)
+        c["longest_mmp"] > K + 48 for c in checks if c["read_len"] == 150) and (
+        checks[-1]["first_hits_narrowed_to_width_1"] > 0 and checks[-1]["widest_interval"] > 1)
     ok = covered and all(c["equal_plain"] and c["equal_packed"] and c["extend_equal_plain"]
                          for c in checks)
     timing = {name: walk_timing(didx, w, kw, plain, timer, cuda)
               for name, (didx, w, kw, plain) in mains.items()}
     emit("kernel_vs_plain", kernel="anchor_walk_charwise", ok=ok, max_abs_err=max_err,
          covered=covered, checks=checks, timing=timing)
+    del rdidx, mains
     return ok, max_err, timing
 
 
@@ -1089,8 +1132,8 @@ def score_bound(idx, reads, lens, rows, valid, band: int) -> dict:
     live row, each referenced read row, length and txp_align row once, each
     text word that a live window's in-transcript chars lie in once, the
     output once) over the memory rate, against its DP cells (min(len, L) x
-    (2b+1) a live row) at 10 integer operations each over the non-tensor
-    rate; the larger is the bound."""
+    (2b+1) a live row) at 10 integer operations each over the card's 32-bit
+    integer rate (INT_OPS_PER_S); the larger is the bound."""
     L = reads.shape[1]
     live = rows[valid]
     rid = np.clip(live[:, 3], 0, len(lens) - 1)
@@ -1110,7 +1153,7 @@ def score_bound(idx, reads, lens, rows, valid, band: int) -> dict:
               + len(np.unique(t)) * 12 + 4 * len(words))
     cells = int(np.minimum(np.asarray(lens, np.int64)[rid], L).sum()) * (2 * band + 1)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 10 * cells / CUDA_CORE_OPS_PER_S * 1e3
+    t_ops = 10 * cells / INT_OPS_PER_S * 1e3
     return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else
                 "operations", bytes=nbytes, text_words=len(words), dp_cells=cells,
                 live_rows=len(live), rows=len(rows))
@@ -1122,9 +1165,11 @@ def phase_score_kernel(dev, timer, mapper, idx, codes, lens, res0, C: int, seed:
     an element the kernel leaves unwritten shows) and through the wrapper,
     on: one smoke chunk's real single-end record rows (the main path's
     first chunk, its cap of rows, the live ones first, read as strided
-    columns) at band 7 and at bands 1, 15, 16 and 40 (15 is the widest
-    register build, 16 and 40 take the scratch build); (ma, mp, go, ge) =
-    (1, -3, 4, 4), the go == ge edge; 150 bp reads at their true loci, half
+    columns) at band 7 and at bands 1, 15, 16 and 40, and on either side of
+    every change of the kernel's group layout (lanes a record, cells a lane:
+    ops/align.py group_layout) up to the first band of the scratch build;
+    the same rows in a random order, so that live rows lie anywhere;
+    (ma, mp, go, ge) = (1, -3, 4, 4), the go == ge edge; 150 bp reads at their true loci, half
     shifted by up to 3 bases; reads cut from transcript heads and tails
     whose windows hang off them (transcript 0's head and the last tail
     among them); the chunk with 3% of its bases N; paired-end rows over the
@@ -1132,14 +1177,16 @@ def phase_score_kernel(dev, timer, mapper, idx, codes, lens, res0, C: int, seed:
     with has = 0 on either side; the chunk's cap with 95% of its live rows
     dead. Then, on the smoke chunk at band 7: device ms with a warm L2
     (`ms`) and a flushed one (`cold_ms`), CUDA events around the wrapper's
-    calls (`wrapper_ms`), the plain version's ms, and the bound
+    calls (`wrapper_ms`), the plain version's ms, the device ms of the same
+    rows in a random order (`scattered_live_rows_ms`), and the bound
     (score_bound); no single PyTorch call computes it (`library_ms` null)."""
     import dataclasses
 
     import torch
 
     from rapmap_tpu_torch.ops.align import (
-        banded_scores_cuda, score_records, score_records_plain, stack_pe_rows,
+        REG_BAND_MAX, banded_scores_cuda, group_layout, score_records, score_records_plain,
+        stack_pe_rows,
     )
 
     cuda = dev.type == "cuda"
@@ -1157,9 +1204,13 @@ def phase_score_kernel(dev, timer, mapper, idx, codes, lens, res0, C: int, seed:
 
     chunk = (codes[:C], lens[:C])
     sets = [("smoke_chunk_band7", cfg, *chunk, rows, valid)]
-    for b in (1, 15, 16, 40):
+    edges = {b_ for b in range(2, REG_BAND_MAX + 2) if b > REG_BAND_MAX
+             or group_layout(b) != group_layout(b - 1) for b_ in (b - 1, b)}
+    for b in sorted((edges | {1, 15, 16, 40}) - {7}):  # band 7 is the first set
         sets.append((f"smoke_chunk_band{b}", dataclasses.replace(cfg, align_band=b), *chunk,
                      rows, valid))
+    perm = rng.permutation(cap)
+    sets.append(("scattered_live_rows", cfg, *chunk, rows[perm], valid[perm]))
     sets.append(("go_equals_ge", dataclasses.replace(cfg, align_ma=1, align_mp=-3,
                                                      align_go=4, align_ge=4),
                  *chunk, rows, valid))
@@ -1237,6 +1288,8 @@ def phase_score_kernel(dev, timer, mapper, idx, codes, lens, res0, C: int, seed:
         max_err = max(max_err, err)
         if name == "smoke_chunk_band7":
             main = (c, args, host)
+        if name == "scattered_live_rows":
+            scattered = (c, args)
     by = {x["set"]: x for x in checks}
     covered = (
         by["smoke_chunk_band7"]["scored_above_half"] > 0.9 * by["smoke_chunk_band7"]["live_rows"]
@@ -1244,6 +1297,8 @@ def phase_score_kernel(dev, timer, mapper, idx, codes, lens, res0, C: int, seed:
         and by["heads_and_tails"]["off_head"] > 0 and by["heads_and_tails"]["off_tail"] > 0
         and by["heads_and_tails"]["scored_above_half"] > 0.5 * n_small
         and by["pe_rows_has_0"]["live_rows"] < 2 * int(valid.sum())
+        and by["smoke_chunk_band%d" % (REG_BAND_MAX + 1)]["band"] > REG_BAND_MAX
+        and by["scattered_live_rows"]["live_rows"] == by["smoke_chunk_band7"]["live_rows"]
         and all(x["dead_rows_zero"] and x["scored_above_half"] > 0 for x in checks))
     ok = covered and all(x["equal_plain"] for x in checks)
 
@@ -1253,13 +1308,16 @@ def phase_score_kernel(dev, timer, mapper, idx, codes, lens, res0, C: int, seed:
     ms, ms_by = device_ms(run, 50, cuda)
     cold_event_ms, cold_ms = walk_cold_ms(run, 50, cuda, kernel="banded_")
     plain_ms = timer(lambda: score_records_plain(didx, c, *args), reps=2, warm=1)
+    scattered_ms, _ = device_ms(lambda: score_records(didx, scattered[0], *scattered[1]), 50,
+                                cuda)
     bound = score_bound(idx, host["reads"], host["lens"], host["rows"], host["valid"],
                         c.align_band)
     if cuda:
         bound.update(share_of_bound=bound["bound_ms"] / ms,
                      share_of_bound_cold=bound["bound_ms"] / cold_ms)
     timing = dict(ms=ms, cold_ms=cold_ms, cold_event_ms=cold_event_ms, wrapper_ms=wrapper_ms,
-                  device_ms_by_kernel=ms_by, plain_ms=plain_ms, library_ms=None, **bound)
+                  device_ms_by_kernel=ms_by, plain_ms=plain_ms, library_ms=None,
+                  scattered_live_rows_ms=scattered_ms, **bound)
     emit("kernel_vs_plain", kernel="banded_scores", ok=ok, max_abs_err=max_err,
          covered=covered, checks=checks, timing=timing)
     return ok, max_err, timing
@@ -1672,7 +1730,7 @@ def pseudo_walk_timing(w, k: int, H: int, paired: bool, timer, cuda: bool) -> di
             raise RuntimeError("the counting build of the pseudo walk disagrees with the kernel")
         nbytes = 32 * sum(sectors.values()) + out_bytes
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = 16 * trips / CUDA_CORE_OPS_PER_S * 1e3
+        t_ops = 16 * trips / INT_OPS_PER_S * 1e3
         bound_ms = max(t_bytes, t_ops)
         bound = dict(bound_ms=bound_ms, bound_by="bytes" if t_bytes >= t_ops else "operations",
                      bytes=nbytes, output_bytes=out_bytes, input_sectors_read=sectors,
@@ -1836,6 +1894,10 @@ def main() -> int:
     smi = nvidia_smi_line() if cuda else "not measured"
     emit("device", kind=kind, count=torch.cuda.device_count() if cuda else 0,
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
+    global INT_OPS_PER_S
+    rate = int_ops_rate(cuda)
+    INT_OPS_PER_S = rate["ops_per_s"]
+    emit("int_ops_rate", **rate)
 
     # ---- build -----------------------------------------------------------
     t0 = time.time()
@@ -1946,7 +2008,7 @@ def main() -> int:
         raise RuntimeError("anchor_walk_lanes kernel disagrees with its plain version, or "
                            "an input set missed what it is there to exercise")
     char_ok, char_err, char_t = phase_charwise_kernel(
-        dev, timer, cmapper, nmapper, idx, codes, lens, C, args.seed)
+        dev, timer, cmapper, nmapper, idx, codes, lens, C, args.seed, work)
     if not char_ok:
         raise RuntimeError("anchor_walk_charwise kernel disagrees with its plain version or "
                            "the packed walk, or an input set missed what it is there to "

@@ -47,6 +47,20 @@
 // transcriptome most anchors have narrow intervals, so a lane's work is a
 // chain of hops, not one wide search, and a warp per lane would idle.
 //
+// The charwise build has the same byte bound (tqm_anchor_walk_charwise_traffic
+// counts the codes, sa entries and text chars the searches decide on), but
+// the reference's per-depth narrowing is two lower-bound searches a char,
+// each trip two dependent loads (sa[mid], then text[sa[mid] + d]): as
+// written, ~35 trips a lane on the smoke chunk, one chain of ~70 dependent
+// loads at ~4 warps an SM. What the design does about it: an interval of
+// width 1 narrows at depth d iff text[clamp(sa[b] + d)] equals the read's
+// code (both searches take one trip at mid = b), whatever the trips before,
+// so a lane whose interval is, or narrows to, width 1 loads sa[b] once and
+// compares its codes with the text 16 chars a step, 16-byte vector loads of
+// both (width1_depth). On a transcriptome at k = 31 almost every anchor
+// interval is 1 wide, so a lane's chain is a handful of loads. Wider
+// intervals keep the per-depth searches until they narrow.
+//
 // The pseudo build reads only the lengths, the mask rows and one interval
 // column pair a hit, and writes the hit buffer, so its byte bound is mostly
 // the outputs; its counting build, tqm_pseudo_walk_traffic, counts those
@@ -283,9 +297,112 @@ __device__ int64_t col_lower_bound(const CharIndex& cx, int64_t lo, int64_t hi, 
   return lo;
 }
 
+// 16 bytes from p, of which the first n (1 <= n <= 16) are wanted: byte i
+// of the result is p[i] for i < n. Loads only the aligned 16-byte blocks that
+// hold those n bytes (so no load leaves the pages they lie in) and shifts
+// them into place; bytes n..15 are unspecified.
+__device__ __forceinline__ uint4 load_bytes(const int8_t* p, int n) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  const uint4* blk = reinterpret_cast<const uint4*>(a & ~uintptr_t(15));
+  const int off = static_cast<int>(a & 15);
+  const uint4 lo = __ldg(blk);
+  const uint4 hi = off + n > 16 ? __ldg(blk + 1) : make_uint4(0u, 0u, 0u, 0u);
+  uint32_t w0 = lo.x, w1 = lo.y, w2 = lo.z, w3 = lo.w, w4 = hi.x, w5 = hi.y, w6 = hi.z,
+           w7 = hi.w;
+  if (off & 8) {  // two words down
+    w0 = w2; w1 = w3; w2 = w4; w3 = w5; w4 = w6; w5 = w7;
+  }
+  if (off & 4) {  // one word down
+    w0 = w1; w1 = w2; w2 = w3; w3 = w4; w4 = w5;
+  }
+  const int sh = (off & 3) * 8;
+  return make_uint4(__funnelshift_r(w0, w1, sh), __funnelshift_r(w1, w2, sh),
+                    __funnelshift_r(w2, w3, sh), __funnelshift_r(w3, w4, sh));
+}
+
+__device__ __forceinline__ uint32_t word_of(uint4 v, int i) {
+  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
+}
+
+// The first of n (1..16) read codes q[i] that stops the narrowing, against
+// text chars t[i]: a code outside 1..4, or a char that differs -> its index
+// (n if none), with `bad` set when it stopped on the code.
+__device__ __forceinline__ int first_stop(uint4 q, uint4 t, int n, bool& bad) {
+  int s = 16;
+  uint32_t badw = 0;
+#pragma unroll
+  for (int i = 3; i >= 0; --i) {
+    const uint32_t qw = word_of(q, i);
+    const uint32_t b4 = ~(__vcmpgeu4(qw, 0x01010101u) & __vcmpleu4(qw, 0x04040404u));
+    const uint32_t x = b4 | __vcmpne4(qw, word_of(t, i));
+    if (x) {
+      s = 4 * i + ((__ffs(static_cast<int>(x)) - 1) >> 3);
+      badw = b4;
+    }
+  }
+  bad = s < n && ((badw >> (8 * (s & 3))) & 1u);
+  return s < n ? s : n;
+}
+
+// A width-1 interval [b, b + 1) from depth d: the depth at which the lane
+// stops. Each lower bound takes one trip at mid = b, giving b + (v < c) and
+// b + (v <= c) with v = text[clamp(sa[clamp(b)] + d)], so the interval
+// narrows (to itself) iff v == c, however it got to width 1. So sa[b] loads
+// once and the read's codes are compared with the text 16 chars a step, with
+// vector loads of both, where neither index needs a clamp; char by char,
+// clamped as the gathers clamp, where one does (a read running past the
+// text's end sees its last char repeated). The counting build marks what the
+// searches would read: the code of every depth reached, sa[b] and the text
+// char of every depth compared, two trips each; not the unused tail of a
+// vector load.
+template <bool kCount>
+__device__ int64_t width1_depth(const CharIndex& cx, const int8_t* row, int64_t len, int64_t pos,
+                                int64_t d, int L, int64_t b, const Traffic& tr) {
+  const int32_t* sp = cx.sa + clamp64(b, 0, cx.n_sa - 1);
+  const int64_t g = ldg(sp);
+  while (true) {
+    const int64_t ic = pos + d;
+    if (ic >= len) return d;
+    const int64_t tg = g + d;
+    int64_t m = 0;  // chars of this step that need no clamp
+    if (ic >= 0 && tg >= 0) {
+      m = len - ic;
+      m = m < 16 ? m : 16;
+      m = m < L - ic ? m : L - ic;
+      m = m < cx.n_text - tg ? m : cx.n_text - tg;
+    }
+    if (m >= 1) {
+      const int n = static_cast<int>(m);
+      bool bad;
+      const int s = first_stop(load_bytes(row + ic, n), load_bytes(cx.text + tg, n), n, bad);
+      if constexpr (kCount) {
+        touch<kCount>(tr, kCodes, row + ic, s < n ? s + 1 : n);
+        const int nt = s < n ? (bad ? s : s + 1) : n;
+        if (nt > 0) {
+          touch<kCount>(tr, kSa, sp, 4);
+          touch<kCount>(tr, kText, cx.text + tg, nt);
+          atomicAdd(tr.rows, 2ull * nt);
+        }
+      }
+      if (s < n) return d + s;
+      d += n;
+      continue;
+    }
+    const int c = load<kCount>(tr, kCodes, row + clamp64(ic, 0, L - 1));
+    if (c < 1 || c > 4) return d;
+    if constexpr (kCount) {
+      touch<kCount>(tr, kSa, sp, 4);
+      atomicAdd(tr.rows, 2ull);
+    }
+    if (load<kCount>(tr, kText, cx.text + clamp64(tg, 0, cx.n_text - 1)) != c) return d;
+    d += 1;
+  }
+}
+
 // ops/mmp.py _extend for one lane: from depth k, narrow [b, e) one char at a
 // time (two lower bounds, for c and c + 1) until a mismatch, the read's end
-// or a code outside 1..4; mlen is the final depth. row: the lane's codes.
+// or a code outside 1..4; mlen is the final depth. row: the lane's codes. An
+// interval of width 1 (with steps >= 1) finishes in width1_depth.
 template <bool kCount>
 __device__ void extend_charwise(const CharIndex& cx, const int8_t* row, int64_t len,
                                 int64_t b0, int64_t e0, int64_t pos, bool active, int k,
@@ -295,6 +412,10 @@ __device__ void extend_charwise(const CharIndex& cx, const int8_t* row, int64_t 
   e = e0;
   int64_t d = k;
   while (active) {
+    if (steps >= 1 && e - b == 1) {
+      d = width1_depth<kCount>(cx, row, len, pos, d, L, b, tr);
+      break;
+    }
     const int64_t ic = pos + d;
     if (ic >= len) break;
     const int c = load<kCount>(tr, kCodes, row + clamp64(ic, 0, L - 1));

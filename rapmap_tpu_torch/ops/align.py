@@ -8,8 +8,8 @@ transcript window [pos - band, pos + L + band).
 `score_records` is the mapping path's wrapper. On CUDA tensors it launches
 the hand-written kernel of csrc/align.cu (`tqm_banded_scores`: the read's
 orientation, the window's extraction from the 2-bit packed text and the DP
-fused into one launch, one thread per record row), or raises; on CPU
-tensors it runs `score_records_plain`, the reference's composition in
+fused into one launch, a group of lanes per record row: `group_layout`), or
+raises; on CPU tensors it runs `score_records_plain`, the reference's composition in
 PyTorch: `extract_ref_windows` (quad-row word gathers, a sub-word shift, a
 static unpack) then `banded_scores` (the closed-form Gotoh row, one step a
 read column over the (N, 2*band+1) band). Arithmetic is int32 throughout, as
@@ -38,7 +38,19 @@ from rapmap_tpu_torch.ops.encode import revcomp_batch
 
 NEG = -(1 << 20)  # -inf stand-in; safe against int32 underflow
 SCORE_BITS = 12   # wire clamp: scores ride 12 bits (reads to ~2 kb)
-REG_BAND_MAX = 15  # csrc/align.cu keeps the band in registers up to this half-width
+REG_BAND_MAX = 63  # csrc/align.cu keeps the band in its groups' registers up to this half-width
+STAGE_MAX_COLS = 16384  # ... for reads of up to this many columns, staged in shared memory
+CELLS_PER_LANE = 2  # csrc/align.cu group_lanes' target
+
+
+def group_layout(band: int) -> tuple[int, int]:
+    """(G, C): csrc/align.cu's lanes a record and cells a lane for a band
+    of half-width `band` <= REG_BAND_MAX (its group_lanes): the fewest lanes,
+    4 at least, that hold the 2*band+1 cells at CELLS_PER_LANE a lane, else
+    32; C = ceil((2*band+1) / G)."""
+    wb = 2 * band + 1
+    g = next((g for g in (4, 8, 16) if g * CELLS_PER_LANE >= wb), 32)
+    return g, -(-wb // g)
 
 
 def make_txp_align(txp_offsets, txp_lens) -> np.ndarray:
@@ -230,7 +242,7 @@ def banded_scores_cuda(didx, cfg, reads, lens, rid, t, pos, strand, valid,
         return out.zero_()
     Wb = 2 * band + 1
     scratch = None
-    if band > REG_BAND_MAX:  # wider bands keep H, E and the window in global scratch
+    if band > REG_BAND_MAX or L > STAGE_MAX_COLS:  # the scratch build: H, E, window ring
         scratch = torch.empty((3, Wb, N), dtype=torch.int32, device=dev)
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     fn = kernels.library("align").tqm_banded_scores

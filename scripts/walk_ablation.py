@@ -27,7 +27,13 @@ chip_smoke.py's world (16,384 lanes of 76 bp, H = 16), on outputs that start
 as 0xFF bytes. Then each launch is timed on the device under torch.profiler,
 warm (100 launches back to back) and cold (50 launches, each after a 1 GiB
 fill that evicts the L2), the builds in turn and in reverse turn for each
-round. Prints one JSON line; the card's name and power limit are in it.
+round. The other two builds of the kernel are timed the same way for this
+walk.cu and the parent's (the text edits touch neither): the charwise build
+(tqm_anchor_walk_charwise, strand-paired lanes of the same chunk on the full
+upload, against anchor_walk_plain with the plain _extend) and the pseudo
+build (tqm_pseudo_walk on the same chunk's intervals and masks, against
+pseudo_walk_plain). Prints one JSON line; the card's name and power limit
+are in it.
 """
 
 from __future__ import annotations
@@ -252,7 +258,10 @@ def main() -> int:
     from rapmap_tpu_torch.config import MapConfig
     from rapmap_tpu_torch.ops.device_index import upload_index
     from rapmap_tpu_torch.ops.extend_packed import ext_words
-    from rapmap_tpu_torch.ops.mmp import anchor_tables, anchor_walk_plain, dense_phase, walk_params
+    from rapmap_tpu_torch.ops.mmp import (
+        anchor_tables, anchor_walk_plain, dense_phase, pseudo_walk_plain, scan_inputs,
+        walk_params,
+    )
 
     out = os.path.join(ROOT, "build", "ablation")
     os.makedirs(out, exist_ok=True)
@@ -327,6 +336,55 @@ def main() -> int:
         res[name] = dict(equal_plain=all(bool(torch.equal(a, b)) for a, b in zip(got, want)),
                          warm_ms=[], cold_ms=[])
 
+    # the charwise and pseudo builds of this walk.cu and the parent's
+    fdidx, fst = upload_index(idx, dev)  # the full upload: flat sa and text
+    ccfg = MapConfig(k=cs.K, packed_extension=False)
+    cw, ckw = scan_inputs(fdidx, fst, torch.from_numpy(codes[:C]).to(dev),
+                          torch.from_numpy(lens[:C].astype(np.int64)).to(dev), ccfg)
+    cprm = {x: ckw[x] for x in ("k", "H", "ext_steps")}
+
+    def lanes(x):  # what the charwise and pseudo builds read of a walk's inputs
+        return [x.lens2, x.bf, x.ef, x.br, x.er, x.anch_f, x.anch_rF]
+
+    other_want = {"charwise": anchor_walk_plain(fdidx, *cw, **cprm, codes=ckw["codes"]),
+                  "pseudo": pseudo_walk_plain(*lanes(w), k=k, H=H)}
+    ctail = [fdidx.sa.data_ptr(), fdidx.sa.shape[0], fdidx.text.data_ptr(),
+             fdidx.text.shape[0], R, R // 2, L, S, k, H, cprm["ext_steps"], buf.data_ptr(),
+             n_out.data_ptr(), trunc.data_ptr(), torch.cuda.current_stream().cuda_stream]
+
+    def other_launcher(name, kind):
+        lib = libs[name]
+        if kind == "charwise":
+            fn = lib.tqm_anchor_walk_charwise
+            fn.argtypes = [vp] * 9 + [i64, vp, i64, i64, i64] + [i32] * 5 + [vp] * 4
+            args_ = [ckw["codes"].data_ptr(), *(t.data_ptr() for t in lanes(cw))] + ctail
+        else:
+            fn = lib.tqm_pseudo_walk
+            fn.argtypes = [vp] * 7 + [i64, i64] + [i32] * 3 + [vp] * 4
+            args_ = [t.data_ptr() for t in lanes(w)] + [R, R // 2, S, k, H, buf.data_ptr(),
+                                                       n_out.data_ptr(), trunc.data_ptr(),
+                                                       torch.cuda.current_stream().cuda_stream]
+        fn.restype = ctypes.c_int
+
+        def go():
+            if fn(*args_):
+                raise RuntimeError(f"{name} {kind}: launch failed")
+        return go
+
+    others = {}
+    for kind in ("charwise", "pseudo"):
+        for name in ("as_is", "parent") if args.parent else ("as_is",):
+            go = other_launcher(name, kind)
+            for t, ff in ((buf, -1), (n_out, -1), (trunc, 0xFF)):
+                t.fill_(ff)
+            go()
+            torch.cuda.synchronize()
+            got = (buf[..., 0], buf[..., 1], buf[..., 2], buf[..., 3], n_out, trunc.bool())
+            others[(kind, name)] = dict(
+                go=go, res=dict(equal_plain=all(bool(torch.equal(a, b)) for a, b in
+                                                zip(got, other_want[kind])),
+                                warm_ms=[], cold_ms=[]))
+
     flush = torch.empty(1 << 28, dtype=torch.int32, device=dev)
 
     def kernel_ms(work, key):
@@ -351,6 +409,18 @@ def main() -> int:
                     flush.fill_(1)
                     go()
             res[name]["cold_ms"].append(kernel_ms(cold, "anchor_walk_kernel"))
+        for key in (list(others) if rnd % 2 == 0 else list(others)[::-1]):
+            go = others[key]["go"]
+            others[key]["res"]["warm_ms"].append(kernel_ms(lambda: [go() for _ in range(100)],
+                                                           "anchor_walk_kernel"))
+
+            def cold():
+                for _ in range(50):
+                    flush.fill_(1)
+                    go()
+            others[key]["res"]["cold_ms"].append(kernel_ms(cold, "anchor_walk_kernel"))
+    for (kind, name), v in others.items():
+        res[f"{kind}_{name}"] = v["res"]
     if parent_tables:  # the parent's wrapper zeroed the hit buffer before each launch
         res["parent"]["fill_ms"] = [kernel_ms(lambda: [buf.zero_() for _ in range(100)],
                                               "elementwise") for _ in range(args.rounds)]

@@ -1,10 +1,10 @@
 """The mapping score of rapmap_tpu_torch (ops.align) against rapmap_tpu's
 (ops.align, JAX on the CPU) and the numpy oracle (oracle.align): the plain
 banded DP, the window extraction, score_records / score_pe_rows on a real
-uploaded index, ops.compact.rid_from_counts, a scalar per-record model of
-the control flow of csrc/align.cu (per-char word addressing, the closed-form
-row in registers or in the scratch ring, rows stopping at the read's
-length), and the wrapper's refusals. Scores are integers: every comparison
+uploaded index, ops.compact.rid_from_counts, a per-record model of the
+control flow of csrc/align.cu (the staged read and window, G lanes a record
+with the shuffle-scan prefix max, or the scratch ring of wide bands, rows
+stopping at the read's length), and the wrapper's refusals. Scores are integers: every comparison
 is exact equality (tolerance zero)."""
 
 import jax.numpy as jnp
@@ -278,21 +278,28 @@ NEG = -(1 << 20)
 
 
 class AlignKernelModel:
-    """One thread of csrc/align.cu, in Python: the record's read row and
-    orientation, window chars read one at a time from a cached text word
-    (word tw + ((goff + j) >> 4), shift 30 - 2 * ((goff + j) & 15), each
-    word index clipped, chars outside the transcript 5), the closed-form
-    row swept cell by cell (E and H of cell d written after cells d and
-    d + 1 of the previous row are read), rows stopping at min(len, L); a
-    sliding register window for bands up to 15, a ring of 2b+1 chars for
-    wider ones. Change it with the kernel."""
+    """One record of csrc/align.cu, in Python. Bands up to REG_BAND_MAX: the
+    group build, G lanes a record (align.group_layout), lane l owning cells
+    l*C .. l*C + C - 1, padding cells past 2b holding NEG and never written;
+    the stage first (the window's text words as whole quad rows of text2q
+    where the quad lies inside the table, else word by word, each index
+    clipped; the oriented read codes; the L + G*C window chars, 5 outside the
+    transcript and past the window), then each row: the next lane's first
+    cell of the previous row by a shuffle down, the in-lane prefix max, the
+    lanes' inclusive prefix max in log2(G) shuffle-up steps shifted one lane
+    up, the cells written; the best by an xor reduction; `schedule` hands
+    the rows out as the blocks do. Wider bands: the scratch build, one
+    thread sweeping a ring of 2b+1 window chars read one at a time from a
+    cached text word. Change it with the kernel."""
 
     def __init__(self, didx, reads, lens, band, ma, mp, go, ge):
-        self.words = didx.text2q[:, 0].numpy().astype(np.int64) & 0xFFFFFFFF
+        self.quads = didx.text2q.numpy().astype(np.int64) & 0xFFFFFFFF  # row i: words i..i+3
+        self.words = self.quads[:, 0]
         self.ta = didx.txp_align.numpy()
         self.reads, self.lens = reads, lens
         self.band, self.ma, self.mp, self.go, self.ge = band, ma, mp, go, ge
-        self.loads = 0
+        self.quad_loads = 0  # 16-byte quad rows staged
+        self.word_loads = 0  # single words staged (a quad off the table) or cached
 
     def record(self, rid, t, pos, strand, valid) -> int:
         if not valid:
@@ -306,18 +313,6 @@ class AlignKernelModel:
         tw, tsub, tlen = (int(x) for x in self.ta[t])
         start = int(pos) - self.band
         goff = tsub + start
-        cache = {"idx": -1, "word": 0}
-
-        def window_char(j):
-            p = start + j
-            if p < 0 or p >= tlen:
-                return 5
-            g = goff + j
-            wi = min(max(tw + (g >> 4), 0), len(self.words) - 1)
-            if wi != cache["idx"]:
-                cache["idx"], cache["word"] = wi, int(self.words[wi])
-                self.loads += 1
-            return (cache["word"] >> (30 - 2 * (g & 15))) & 3
 
         def read_code(i):
             if strand == 0:
@@ -330,57 +325,168 @@ class AlignKernelModel:
                 c = 5 - v if 1 <= v <= 4 else 5
             return c - 1 if 1 <= c <= 4 else 4
 
+        nw = len(self.words)
+        if self.band > align.REG_BAND_MAX:
+            return self._scratch(read_code, n_rows, start, goff, tw, tlen, nw)
+        G, C = align.group_layout(self.band)
+        W = L + 2 * self.band
+        # the stage: words tw + wlo + m, as whole quads where they lie inside
+        wlo = goff >> 4
+        nwords = ((goff + W - 1) >> 4) - wlo + 1
+        staged = []
+        for q in range(-(-nwords // 4)):
+            w0 = tw + wlo + 4 * q
+            if w0 >= 0 and w0 + 3 < nw:
+                staged += [int(x) for x in self.quads[w0]]
+                self.quad_loads += 1
+            else:
+                staged += [int(self.words[min(max(w0 + u, 0), nw - 1)]) for u in range(4)]
+                self.word_loads += 4
+        codes = [read_code(i) for i in range(n_rows)]
+        wc = []
+        for j in range(L + G * C):
+            p, g = start + j, goff + j
+            wc.append((staged[(g >> 4) - wlo] >> (30 - 2 * (g & 15))) & 3
+                      if j < W and 0 <= p < tlen else 5)
+        return self._group(codes, wc, n_rows, G, C)
+
+    def _group(self, codes, wc, n_rows, G, C):
         wb = 2 * self.band + 1
-        H, E = [0] * wb, [NEG] * wb
         go, ge, ma, mp = self.go, self.ge, self.ma, self.mp
-        if self.band <= align.REG_BAND_MAX:  # sliding register window
-            wc = [5] + [window_char(d) for d in range(wb - 1)]
-            for i in range(n_rows):
-                wc = wc[1:] + [window_char(i + wb - 1)]
-                cells = wc
-                self._row(H, E, cells, read_code(i), wb, ma, mp, go, ge)
-        else:  # ring of the window's chars: slot j % wb holds char j
-            ring = [0] * wb
-            for j in range(wb - 1):
-                ring[j] = window_char(j)
-            base = 0
-            for i in range(n_rows):
-                ring[base - 1 if base else wb - 1] = window_char(i + wb - 1)
-                cells = [ring[(base + d) % wb] for d in range(wb)]
-                self._row(H, E, cells, read_code(i), wb, ma, mp, go, ge)
-                base = (base + 1) % wb
-        return min(max(max(H), 0), (1 << 12) - 1)
+        real = [[lane * C + j < wb for j in range(C)] for lane in range(G)]
+        H = [[0 if real[lane][j] else NEG for j in range(C)] for lane in range(G)]
+        E = [[NEG] * C for _ in range(G)]
+        w = [[wc[lane * C + j - 1] if lane * C + j >= 1 else 5 for j in range(C)]
+             for lane in range(G)]
+        for i in range(n_rows):
+            rcode = codes[i]
+            own = [max(H[lane][0] - go, E[lane][0] - ge) for lane in range(G)]
+            nxt = [own[lane + 1] if lane + 1 < G else own[lane] for lane in range(G)]  # shfl down
+            q = [NEG] * G
+            hnf, e2, pre = [[0] * C for _ in range(G)], [[0] * C for _ in range(G)], \
+                [[0] * C for _ in range(G)]
+            for lane in range(G):
+                w[lane] = w[lane][1:] + [wc[i + lane * C + C - 1]]
+                for j in range(C):
+                    d = lane * C + j
+                    e2[lane][j] = (max(H[lane][j + 1] - go, E[lane][j + 1] - ge) if j + 1 < C
+                                   else nxt[lane])
+                    hnf[lane][j] = max(H[lane][j] + (ma if w[lane][j] == rcode else mp),
+                                       e2[lane][j])
+                    pre[lane][j] = q[lane]
+                    q[lane] = max(q[lane], hnf[lane][j] + d * ge)
+            s = 1
+            while s < G:  # shuffle-up scan of the lanes' totals
+                q = [max(q[lane], q[lane - s]) if lane >= s else q[lane] for lane in range(G)]
+                s <<= 1
+            before = [NEG] + q[:-1]
+            for lane in range(G):
+                for j in range(C):
+                    if real[lane][j]:
+                        d = lane * C + j
+                        f = max(before[lane], pre[lane][j]) - d * ge - (go - ge)
+                        E[lane][j] = e2[lane][j]
+                        H[lane][j] = max(hnf[lane][j], f)
+        best = [max([H[lane][j] for j in range(C) if real[lane][j]], default=NEG)
+                for lane in range(G)]
+        s = G // 2
+        while s:  # xor reduction
+            best = [max(best[lane], best[lane ^ s]) for lane in range(G)]
+            s //= 2
+        return min(max(best[0], 0), (1 << 12) - 1)
 
     @staticmethod
-    def _row(H, E, wc, rcode, wb, ma, mp, go, ge):
+    def schedule(valid, grid, threads, G):
+        """The group build's rows, as its blocks hand them out: block b takes
+        rows k * grid + b, a thread each a round of `threads` rows; a dead row
+        gets its 0 from that thread, the live ones go through the block's
+        list to its groups in turn -> {row: ("zero", b) or ("group", b, g)}."""
+        N = len(valid)
+        gpb = threads // G
+        done = {}
+        for b in range(grid):
+            share = (N - 1 - b) // grid + 1 if N > b else 0
+            for k0 in range(0, share, threads):
+                rows = [k * grid + b for k in range(k0, min(k0 + threads, share))]
+                live = [r for r in rows if valid[r]]  # ballot order, warp by warp
+                for r in rows:
+                    if not valid[r]:
+                        assert r not in done
+                        done[r] = ("zero", b)
+                for e, r in enumerate(live):
+                    assert r not in done
+                    done[r] = ("group", b, e % gpb)
+        return done
+
+    def _scratch(self, read_code, n_rows, start, goff, tw, tlen, nw):
+        cache = {"idx": -1, "word": 0}
+
+        def window_char(j):
+            p = start + j
+            if p < 0 or p >= tlen:
+                return 5
+            g = goff + j
+            wi = min(max(tw + (g >> 4), 0), nw - 1)
+            if wi != cache["idx"]:
+                cache["idx"], cache["word"] = wi, int(self.words[wi])
+                self.word_loads += 1
+            return (cache["word"] >> (30 - 2 * (g & 15))) & 3
+
+        wb = 2 * self.band + 1
+        H, E = [0] * wb, [NEG] * wb
+        ring = [0] * wb  # slot j % wb holds char j
+        for j in range(wb - 1):
+            ring[j] = window_char(j)
+        base = 0
+        for i in range(n_rows):
+            ring[base - 1 if base else wb - 1] = window_char(i + wb - 1)
+            self._row(H, E, [ring[(base + d) % wb] for d in range(wb)], read_code(i), wb)
+            base = (base + 1) % wb
+        return min(max(max(H), 0), (1 << 12) - 1)
+
+    def _row(self, H, E, wc, rcode, wb):
+        go, ge, ma, mp = self.go, self.ge, self.ma, self.mp
         p = NEG
         for d in range(wb):
             hs = H[d + 1] if d + 1 < wb else NEG
             es = E[d + 1] if d + 1 < wb else NEG
             e2 = max(hs - go, es - ge)
-            sub = ma if (wc[d] == rcode and rcode <= 3) else mp
-            hnf = max(H[d] + sub, e2)
+            hnf = max(H[d] + (ma if wc[d] == rcode else mp), e2)
             f = p - d * ge - (go - ge)
             p = max(p, hnf + d * ge)
             E[d] = e2
             H[d] = max(hnf, f)
 
 
+def _layout_edges():
+    """The bands on either side of each change of csrc/align.cu's group
+    layout, up to the first scratch band, less the cases listed by hand."""
+    listed = {1, 5, 7, 15, 16, 40}
+    edges = set()
+    for b in range(2, align.REG_BAND_MAX + 2):
+        before = align.group_layout(b - 1)
+        after = align.group_layout(b) if b <= align.REG_BAND_MAX else None
+        if after != before:
+            edges |= {b - 1, b}
+    return sorted(edges - listed)
+
+
 @pytest.mark.parametrize("band,params", [
     (7, (2, -4, 5, 3)),
     (1, (2, -4, 5, 3)),
-    (15, (2, -4, 5, 3)),   # the widest register band
-    (16, (2, -4, 5, 3)),   # the narrowest scratch band
+    (15, (2, -4, 5, 3)),
+    (16, (2, -4, 5, 3)),
     (40, (2, -4, 5, 3)),
     (7, (1, -3, 4, 4)),    # go == ge
     (5, (3, -2, 9, 1)),
-])
+] + [(b, (2, -4, 5, 3)) for b in _layout_edges()])
 def test_kernel_model_matches_plain(world, band, params):
     """The kernel's per-record control flow gives score_records_plain's
     scores on the toy index's records (rc strands, Ns, heads and tails off
     the transcripts, dead rows) plus ragged extra rows: read ids past B,
     a read longer than its row, a zero-length read, transcript ids past
-    the last."""
+    the last. Bands on either side of every change of the group layout
+    (lanes a record, cells a lane) and the first scratch band."""
     w = world
     ma, mp, go, ge = params
     cfg = MapConfig(k=21, mapping_score=True, align_band=band, align_ma=ma, align_mp=mp,
@@ -399,8 +505,19 @@ def test_kernel_model_matches_plain(world, band, params):
     got = np.array([model.record(*r) for r in zip(rid, t, pos, strand, valid)])
     assert np.array_equal(got, plain)
     assert (plain > 0).sum() >= B // 4 and (plain[~valid] == 0).all()
-    # the cached word serves 16 chars: ~(L + 2b) / 16 + 1 loads a record
-    assert model.loads <= valid.sum() * ((48 + 2 * band) // 16 + 2)
+    if band <= align.REG_BAND_MAX:  # every row once: live ones to a group, dead ones a 0
+        G = align.group_layout(band)[0]
+        for grid, threads in ((1, 256), (3, 32), (5, 64)):
+            sched = AlignKernelModel.schedule(valid, grid, threads, G)
+            assert sorted(sched) == list(range(len(valid)))
+            assert all((v[0] == "group") == bool(valid[r]) for r, v in sched.items())
+    W = 48 + 2 * band
+    if band <= align.REG_BAND_MAX:
+        # whole quads inside the table, single words at transcript 0's head
+        assert model.quad_loads > 0 and model.word_loads > 0
+        assert model.quad_loads + model.word_loads // 4 <= valid.sum() * ((W + 15) // 16 + 4) // 4
+    else:  # the cached word serves 16 chars: ~(L + 2b) / 16 + 1 loads a record
+        assert model.word_loads <= valid.sum() * (W // 16 + 2)
 
 
 def test_wrapper_never_falls_back_off_the_cpu(world):

@@ -145,14 +145,19 @@ def test_lane_model_lanes_mode_matches_plain(world, H):
 
 class CharLaneModel(LaneModel):
     """The charwise extension of csrc/walk.cu (extend_charwise,
-    col_lower_bound), one lane at a time: searches stop at lo == hi within
-    `steps` trips, the depth loop at the first char that does not narrow."""
+    col_lower_bound, width1_depth), one lane at a time: searches stop at lo
+    == hi within `steps` trips, the depth loop at the first char that does
+    not narrow; an interval of width 1 takes the shortcut: sa[b] once, then
+    the read's codes against the text 16 chars a step where neither index
+    needs a clamp, char by char (clamped) where one does."""
 
     def __init__(self, didx, codes, k, L, steps):
         super().__init__(didx, k, L, steps)
         self.codes = codes.numpy()
         self.sa = didx.sa.numpy()
         self.text = didx.text.numpy()
+        self.vector_steps = 0
+        self.scalar_steps = 0
 
     def col_lower_bound(self, lo, hi, d, c):
         t = 0
@@ -166,9 +171,34 @@ class CharLaneModel(LaneModel):
             t += 1
         return lo
 
+    def width1_depth(self, row, ln, pos, d, b):
+        n_text = len(self.text)
+        g = int(self.sa[clamp(b, 0, len(self.sa) - 1)])
+        while True:
+            ic = pos + d
+            if ic >= ln:
+                return d
+            tg = g + d
+            m = min(ln - ic, 16, self.L - ic, n_text - tg) if ic >= 0 and tg >= 0 else 0
+            if m >= 1:
+                self.vector_steps += 1
+                q, t = row[ic : ic + m], self.text[tg : tg + m]
+                stop = [i for i in range(m) if not 1 <= q[i] <= 4 or q[i] != t[i]]
+                if stop:
+                    return d + stop[0]
+                d += m
+                continue
+            self.scalar_steps += 1
+            c = int(row[clamp(ic, 0, self.L - 1)])
+            if c < 1 or c > 4 or int(self.text[clamp(tg, 0, n_text - 1)]) != c:
+                return d
+            d += 1
+
     def extend_char(self, row, ln, b0, e0, pos, active):
         b, e, d = b0, e0, self.k
         while active:
+            if self.steps >= 1 and e - b == 1:
+                return b, e, self.width1_depth(row, ln, pos, d, b)
             ic = pos + d
             if ic >= ln:
                 break
@@ -200,19 +230,52 @@ def _anchors(idx, didx, st, codes, lens, rng):
     return np.asarray(b0), np.asarray(e0), pos, act
 
 
-@pytest.mark.parametrize("steps", [24, 3])
-def test_extend_charwise_equals_reference_and_model(world, steps):
+def _text_end_lanes(idx, rng, R):
+    """Width-1 intervals [b, b + 1) of SA slots whose suffix starts within
+    k + 20 chars of the text's end, and reads that follow the text
+    from such a suffix as the clamped gather reads it (the last char
+    repeated past the end), a third with a wrong base or an N after the end;
+    the text cut to its real chars, so its last char is a base."""
+    n = int(idx.n_text)
+    k = idx.k
+    sa = np.asarray(idx.sa, np.int64)
+    text = np.asarray(idx.text)[:n]
+    slots = np.flatnonzero(sa >= n - k - 20)
+    b0 = rng.choice(slots, R)
+    pos = rng.integers(0, 6, R)
+    codes = rng.integers(1, 5, (R, L)).astype(np.int8)
+    for r in range(R):
+        d = np.arange(L - pos[r])
+        codes[r, pos[r]:] = text[np.minimum(sa[b0[r]] + d, n - 1)]
+        past = n - sa[b0[r]] + pos[r]  # the first read column past the text's end
+        if r % 3 == 0 and past + 2 < L:
+            codes[r, past + 2] = 5 if r % 2 else 1 + codes[r, past + 2] % 4
+    lens = rng.integers(L - 8, L + 1, R).astype(np.int32)
+    return codes, lens, b0, b0 + 1, pos, rng.random(R) < 0.95, n
+
+
+@pytest.mark.parametrize("steps,case", [(24, "anchors"), (3, "anchors"),
+                                        (24, "width1_text_end")],
+                         ids=["24", "3", "width1_text_end"])
+def test_extend_charwise_equals_reference_and_model(world, steps, case):
     """The plain `_extend` equals the reference's on real anchors (and on
     whole-SA intervals: steps = 3 stops searches short of convergence, as
-    the static trip bound does), and the kernel's scalar model equals it."""
+    the static trip bound does), and the kernel's scalar model equals it.
+    width1_text_end: width-1 intervals whose reads run past the text's end
+    (cut to its real chars), where the gathers clamp to its last char."""
     idx, _, codes, lens = world
     (rdidx, rst), (didx, st) = _uploads(idx)
-    rng = np.random.default_rng(steps)
-    b0, e0, pos, act = _anchors(idx, didx, st, codes, lens, rng)
-    n_sa = len(idx.sa)
-    wide = rng.random(len(b0)) < 0.3
-    b0 = np.where(wide, 0, b0)
-    e0 = np.where(wide, n_sa, e0)
+    rng = np.random.default_rng(steps if case == "anchors" else 61)
+    if case == "anchors":
+        b0, e0, pos, act = _anchors(idx, didx, st, codes, lens, rng)
+        n_sa = len(idx.sa)
+        wide = rng.random(len(b0)) < 0.3
+        b0 = np.where(wide, 0, b0)
+        e0 = np.where(wide, n_sa, e0)
+    else:
+        codes, lens, b0, e0, pos, act, n = _text_end_lanes(idx, rng, 48)
+        rdidx = rdidx._replace(text=rdidx.text[:n])
+        didx = didx._replace(text=didx.text[:n])
     want = jax.jit(rmmp._extend, static_argnums=(7, 8))(
         rdidx, jnp.asarray(codes), jnp.asarray(lens), jnp.asarray(b0.astype(np.int32)),
         jnp.asarray(e0.astype(np.int32)), jnp.asarray(pos.astype(np.int32)), jnp.asarray(act),
@@ -226,7 +289,12 @@ def test_extend_charwise_equals_reference_and_model(world, steps):
         m = model.extend_char(codes[r], int(lens[r]), int(b0[r]), int(e0[r]), int(pos[r]),
                               bool(act[r]))
         assert m == tuple(int(x[r]) for x in got), r
-    assert (got[2].numpy()[act] > idx.k).any()
+    mlen = got[2].numpy()
+    assert (mlen[act] > idx.k).any() and model.vector_steps > 0
+    if case == "width1_text_end":  # runs past the text's end, by clamped single chars
+        past = np.asarray(idx.sa, np.int64)[b0] + mlen > n
+        assert past[act].sum() >= 8 and model.scalar_steps > 0
+        assert (mlen[act & past] < lens[act & past] - pos[act & past]).any()
 
 
 @pytest.mark.parametrize("H", [16, 2])
