@@ -1864,6 +1864,362 @@ def pseudo_oracle_unequal(results, idx, c1, c2, lens1, lens2, cfg, B: int, n: in
 
 
 
+# ---- the host-staged engine ---------------------------------------------------
+
+STAGED_SHARDS = 8
+ANCHOR_INPUTS = ("preads", "next_bad", "lens", "col_off", "lane", "b0", "e0", "pos", "active",
+                 "sa_cmp", "text2q")
+
+
+def staged_anchor_inputs(sm, didx, codes, lens, A: int):
+    """What stage A hands the anchor-parallel extension for one shard and one
+    batch, compacted into A slots (ops as parallel/staged.py stage_a) ->
+    dict(preads, next_bad, lens, b0, e0, pos, active, lane) and the shard's
+    anchor count."""
+    import torch
+
+    from rapmap_tpu_torch.parallel import staged as stg
+
+    dev = didx.sa_cmp.device
+    lanes = np.concatenate([codes, stg._rc_lanes(codes, lens)])
+    lt = torch.from_numpy(np.ascontiguousarray(lanes, np.int8)).to(dev)
+    l2 = torch.from_numpy(np.concatenate([lens, lens]).astype(np.int64)).to(dev)
+    R, L = lt.shape
+    S = L - sm._st.k + 1
+    preads, next_bad, live, src, db, de, n = stg._dense_anchors(didx, sm._st, sm.cfg, lt, l2, A)
+    srcc = src.clamp(0, R * S - 1)
+    return dict(preads=preads, next_bad=next_bad, lens=l2,
+                b0=torch.where(live, db[srcc], 0), e0=torch.where(live, de[srcc], 0),
+                pos=torch.where(live, src % S, 0), active=live,
+                lane=torch.where(live, src // S, R).clamp(0, R - 1)), int(n)
+
+
+def extend_anchors_on_0xff(didx, a: dict, k: int, steps: int, count: bool = False):
+    """csrc/walk.cu's tqm_extend_packed_lanes called straight, on outputs that
+    start as 0xFF bytes (a byte the kernel leaves unwritten shows in the
+    comparison), or with count its counting build tqm_extend_packed_traffic
+    -> ((b, e, mlen), {input: distinct 32-byte sectors read} or None,
+    sa_cmp rows compared or None). Only this script calls them."""
+    import torch
+
+    from rapmap_tpu_torch import kernels
+    from rapmap_tpu_torch.ops.extend_packed import ext_words
+
+    R, L = a["preads"].shape
+    A = a["lane"].shape[0]
+    dev = a["preads"].device
+    outs = [torch.full((A,), -1, dtype=torch.int64, device=dev) for _ in range(3)]
+    act = a["active"].view(torch.uint8)
+    tensors = [a["preads"], a["next_bad"], a["lens"], None, a["lane"], a["b0"], a["e0"],
+               a["pos"], act, didx.sa_cmp, didx.text2q]
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    argtypes = [vp] * 10 + [i64, i32, vp, i64, i64, i64] + [i32] * 4 + [vp] * 3
+    args = [*(None if t is None else t.data_ptr() for t in tensors[:10]),
+            didx.sa_cmp.shape[0], didx.sa_cmp.shape[1] - 3, didx.text2q.data_ptr(),
+            didx.text2q.shape[0], A, R, L, k, steps, ext_words(L, k),
+            *(o.data_ptr() for o in outs)]
+    lib = kernels.library("walk")
+    if count:
+        sizes = [0 if t is None else t.numel() * t.element_size() for t in tensors]
+        words = [((n + 31) // 32 + 1 + 31) // 32 for n in sizes]
+        off = np.concatenate([[0], np.cumsum(words)]).astype(np.int64)
+        bits = torch.zeros(int(off[-1]), dtype=torch.int32, device=dev)
+        rows = torch.zeros(1, dtype=torch.int64, device=dev)
+        fn = lib.tqm_extend_packed_traffic
+        argtypes += [vp, ctypes.POINTER(i64), vp]
+        args += [bits.data_ptr(), (i64 * len(words))(*off[:-1].tolist()), rows.data_ptr()]
+    else:
+        fn = lib.tqm_extend_packed_lanes
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes + [vp]
+    with torch.cuda.device(dev):
+        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {rc}")
+    torch.cuda.synchronize(dev)
+    if not count:
+        return tuple(outs), None, None
+    marks = bits.cpu().numpy().view(np.uint8)
+    sectors = {nm: int(np.unpackbits(marks[4 * off[g] : 4 * off[g + 1]]).sum())
+               for g, nm in enumerate(ANCHOR_INPUTS) if tensors[g] is not None}
+    return tuple(outs), sectors, int(rows.cpu()[0])
+
+
+def phase_anchor_kernel(dev, timer, idx, codes, lens, B: int, seed: int):
+    """extend_anchors (csrc/walk.cu tqm_extend_packed_lanes, the host-staged
+    engine's anchor-parallel extension) against its plain version
+    extend_packed(..., lane=) on card tensors, through the wrapper and through
+    the entry on 0xFF-filled outputs, on shard 0 of the staged path's 8 of
+    the world: the compacted anchors of one 32,768-read batch at the budget
+    A_max and at the full width A_full (dead tails), the same with Ns and
+    mixed lengths, anchors that outnumber the rows 2 to 1 on repeated random
+    lanes over the whole shard (searches of ~log2(n) trips, some dead); then
+    its timing and bound at the staged path's shape (A_max)."""
+    import torch
+
+    from rapmap_tpu_torch.config import MapConfig
+    from rapmap_tpu_torch.ops.extend_packed import extend_anchors, extend_packed
+    from rapmap_tpu_torch.parallel.staged import StagedQuasiMapper
+
+    cuda = dev.type == "cuda"
+    rng = np.random.default_rng(seed + 30)
+    sq = StagedQuasiMapper(idx, MapConfig(k=K), batch=B, read_len=READ_LEN,
+                           n_shards=STAGED_SHARDS, device=dev)
+    sm = sq.sm
+    didx_np, s0 = sm._shard_arrays(0)
+    didx = sm._upload(didx_np)
+    k, steps = K, max(1, int(np.ceil(np.log2(min(sm.cfg.max_interval,
+                                                  sm._st.max_interval_idx) + 1))) + 1)
+    c2 = codes[B : 2 * B].copy()
+    c2[rng.random(c2.shape) < 0.02] = 5
+    l2 = rng.integers(20, READ_LEN + 1, B).astype(np.int32)
+    l2[::7], l2[1::7] = K, K - 3
+    c2[np.arange(READ_LEN)[None, :] >= l2[:, None]] = 5
+    sets = []
+    for name, cds, lns, A in (("shard_batch_A_max", codes[:B], lens[:B], sm.A_max),
+                              ("shard_batch_A_full", codes[:B], lens[:B], sm.A_full),
+                              ("ns_mixed_lengths", c2, l2, sm.A_max)):
+        a, n = staged_anchor_inputs(sm, didx, cds, lns, A)
+        sets.append((name, a, n, steps))
+    # anchors that outnumber the rows 2 to 1, lanes repeated at random, whole
+    # shard intervals: searches of ~log2(n) trips; 10% dead
+    a = dict(sets[0][1])
+    R = a["preads"].shape[0]
+    n_sa = int(sm.geo.slot_cuts[1] - sm.geo.slot_cuts[0])
+    A = 2 * R
+    a.update(lane=torch.from_numpy(rng.integers(0, R, A)).to(dev),
+             pos=torch.from_numpy(rng.integers(0, READ_LEN - K + 1, A)).to(dev),
+             b0=torch.zeros(A, dtype=torch.int64, device=dev),
+             e0=torch.full((A,), n_sa, dtype=torch.int64, device=dev),
+             active=torch.from_numpy(rng.random(A) < 0.9).to(dev))
+    sets.append(("repeated_lanes_whole_shard", a, A, n_sa.bit_length() + 1))
+
+    def diff(x, y):
+        return int((x - y).abs().max()) if x.numel() else 0
+
+    checks, max_err = [], 0
+    for name, a, n, st_ in sets:
+        args = [a[f] for f in ("preads", "next_bad", "lens", "b0", "e0", "pos", "active")]
+        want = extend_packed(didx, *args, k, st_, READ_LEN, lane=a["lane"])
+        got = extend_anchors(didx, *args, a["lane"], k=k, ext_steps=st_)
+        errs = [diff(g, w) for g, w in zip(got, want)]
+        if cuda:
+            raw, _, _ = extend_anchors_on_0xff(didx, a, k, st_)
+            errs = [max(e, diff(g, w)) for e, g, w in zip(errs, raw, want)]
+        live = a["active"]
+        checks.append(dict(
+            set=name, anchors=int(a["lane"].shape[0]), live=int(live.sum()), rows=R,
+            anchors_over_rows=n / R, steps=st_, field_err=dict(zip(("b", "e", "mlen"), errs)),
+            extended=int((want[2] > k).sum()),
+            widest_result=int(torch.where(live, want[1] - want[0], 0).max()),
+            equal_plain=not any(errs)))
+        max_err = max(max_err, *errs)
+    by = {c["set"]: c for c in checks}
+    covered = (by["shard_batch_A_max"]["anchors_over_rows"] > 1
+               and by["shard_batch_A_full"]["anchors"] > by["shard_batch_A_max"]["anchors"]
+               and by["repeated_lanes_whole_shard"]["extended"] > 0
+               and by["ns_mixed_lengths"]["live"] > 0)
+    ok = covered and all(c["equal_plain"] for c in checks)
+
+    # timing and bound at the staged path's shape: A_max anchors of a batch
+    _, a, n, _ = sets[0]
+    args = [a[f] for f in ("preads", "next_bad", "lens", "b0", "e0", "pos", "active")]
+    run = lambda: extend_anchors(didx, *args, a["lane"], k=k, ext_steps=steps)  # noqa: E731
+    wrapper_ms = timer(run, reps=50)
+    ms, ms_by = device_ms(run, 50, cuda)
+    cold_event_ms, cold_ms = walk_cold_ms(run, 50, cuda, kernel="extend_packed_kernel")
+    plain_ms = timer(lambda: extend_packed(didx, *args, k, steps, READ_LEN, lane=a["lane"]),
+                     reps=2, warm=1)
+    out_bytes = 3 * 8 * a["lane"].shape[0]
+    if cuda:
+        counted, sectors, rows = extend_anchors_on_0xff(didx, a, k, steps, count=True)
+        if any(diff(g, w) for g, w in zip(counted, run())):
+            raise RuntimeError("the counting build of the extension disagrees with the kernel")
+        nbytes = 32 * sum(sectors.values()) + out_bytes
+        ops = 32 * rows  # index arithmetic and one masked word compare a row, at least
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / INT_OPS_PER_S * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        bound = dict(bound_ms=bound_ms, bound_by="bytes" if t_bytes >= t_ops else "operations",
+                     bytes=nbytes, output_bytes=out_bytes, input_sectors_read=sectors,
+                     sa_cmp_rows=rows, share_of_bound=bound_ms / ms,
+                     share_of_bound_cold=bound_ms / cold_ms)
+    else:
+        bound = dict(bound_ms="not measured", bound_by="bytes")
+    timing = dict(anchors=int(a["lane"].shape[0]), live=n, rows=R, shard_slots=n_sa, ms=ms,
+                  cold_ms=cold_ms, cold_event_ms=cold_event_ms, wrapper_ms=wrapper_ms,
+                  device_ms_by_kernel=ms_by, plain_ms=plain_ms, library_ms=None, **bound)
+    emit("kernel_vs_plain", kernel="extend_packed_anchors", ok=ok, max_abs_err=max_err,
+         covered=covered, A_max=sm.A_max, A_full=sm.A_full, checks=checks, timing=timing)
+    del didx
+    if cuda:
+        torch.cuda.empty_cache()
+    return ok, max_err, timing
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def phase_artifacts(dev, idx, cfg, codes, lens, B: int, results, work: str, cuda: bool):
+    """The compact artifacts of the world's index: the core one (saved,
+    reloaded with its derived arrays checked against the save-time hashes,
+    then main_path's batches mapped from a fresh upload of the reload, every
+    wire equal to main_path's) and the mapping-only one (saved, loaded with
+    verification) -> the mapping-only index."""
+    import torch
+
+    from rapmap_tpu_torch.index.format import load_index, save_core_index, save_mapping_index
+    from rapmap_tpu_torch.models.quasi import QuasiMapper
+
+    full = dir_bytes(os.path.join(work, "idx"))
+    core_dir, map_dir = os.path.join(work, "core_idx"), os.path.join(work, "map_idx")
+    t0 = time.time()
+    info = save_core_index(idx, core_dir)
+    save_s = time.time() - t0
+    t0 = time.time()
+    cidx = load_index(core_dir)
+    load_s = time.time() - t0
+    t0 = time.time()
+    cm = QuasiMapper(cidx, cfg, device=dev)
+    if cuda:
+        torch.cuda.synchronize()
+    upload_s = time.time() - t0
+    got, wall = library_path(cm, codes, lens, B, len(results), cuda)
+    same = [same_result(a, b) for a, b in zip(got, results)]
+    emit("core_index", bytes_on_disk=dir_bytes(core_dir), per_array=info["per_array"],
+         full_index_bytes_on_disk=full, share_of_full=dir_bytes(core_dir) / full,
+         save_s=save_s, reload_verified_s=load_s, upload_s=upload_s, batches=len(results),
+         seconds=wall, reads_per_s=len(results) * B / wall, equal_main_path_batches=same)
+    if not all(same):
+        raise RuntimeError("core_index: a batch mapped from the reloaded core index differs "
+                           "from main_path's")
+    del cm, cidx, got
+    t0 = time.time()
+    info = save_mapping_index(idx, map_dir)
+    save_s = time.time() - t0
+    t0 = time.time()
+    midx = load_index(map_dir, verify=True)
+    load_s = time.time() - t0
+    emit("mapping_index", bytes_on_disk=dir_bytes(map_dir), per_array=info["per_array"],
+         full_index_bytes_on_disk=full, share_of_full=dir_bytes(map_dir) / full, save_s=save_s,
+         load_verified_s=load_s, index_type=type(midx).__name__,
+         sa_dtype=str(np.asarray(midx.sa).dtype))
+    if type(midx).__name__ != "MappingQuasiIndex":
+        raise RuntimeError("mapping_index: the artifact did not load as a mapping-only index")
+    return midx, map_dir, core_dir
+
+
+def staged_run(phase, sq, items, refs, cuda: bool, **extra):
+    """Queue `items` (("se", codes, lens) or ("pe", c1, l1, c2, l2)) on a
+    StagedQuasiMapper / StagedPseudoMapper and fetch them all: one sweep of
+    the shards serves every batch. Each WireResult must equal the replicated
+    engine's `refs` -> the phase's record (printed)."""
+    import torch
+
+    from rapmap_tpu_torch import kernels
+
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.time()
+    hs = [sq.map_se_async(it[1], it[2]) if it[0] == "se"
+          else sq.map_pe_async(it[1], it[2], it[3], it[4]) for it in items]
+    got = [sq.fetch(h) for h in hs]
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(kernels.LAUNCHES)
+    same = [same_result(a, b) for a, b in zip(got, refs)]
+    n_reads = sum(len(it[2]) for it in items)
+    timings = sq.sm.shard_timings
+    rec = dict(shards=sq.sm.n_shards, batches=len(items), batch=sq.sm.C, read_len=sq.sm.L,
+               reads=n_reads, seconds=wall, reads_per_s=n_reads / wall,
+               A_max=sq.sm.A_max, A_full=sq.sm.A_full,
+               upload_s=[t["upload_s"] for t in timings],
+               slice_s=[t["slice_s"] for t in timings],
+               device_union_s=[t["device_union_s"] for t in timings],
+               exposed_wait_s=[t["exposed_wait_s"] for t in timings],
+               upload_mb=[t["upload_mb"] for t in timings], launches=launches,
+               launches_per_shard=launches["extend_packed_anchors"] / sq.sm.n_shards,
+               max_memory_allocated=(torch.cuda.max_memory_allocated() if cuda
+                                     else "not measured"),
+               equal_replicated=same, **extra)
+    emit(phase, **rec)
+    if not all(same):
+        raise RuntimeError(f"{phase}: a batch differs from the replicated engine's")
+    return rec
+
+
+def stage_a_device_ms(sq, codes, lens, cuda: bool) -> dict:
+    """Device ms of one stage A (shard 0, one batch) and its kernels by name."""
+    import torch
+
+    from rapmap_tpu_torch.parallel import staged as stg
+
+    sm = sq.sm
+    didx = sm._upload(sm._shard_arrays(0)[0])
+    lanes = torch.from_numpy(np.concatenate([codes, stg._rc_lanes(codes, lens)])).to(sm.device)
+    l2 = torch.from_numpy(np.concatenate([lens, lens]).astype(np.int64)).to(sm.device)
+    ms, by = device_ms(lambda: sm._stage_a(didx, lanes, l2, sm.A_max), 5, cuda)
+    hand = {n: v for n, v in by.items() if "extend_packed_kernel" in n}
+    return dict(stage_a_device_ms=ms, stage_a_kernel_ms=sum(hand.values()),
+                stage_a_top=sorted(by.items(), key=lambda kv: -kv[1])[:6])
+
+
+def phase_staged(dev, idx, midx, cfg, codes, lens, B: int, refs: dict, pidx, pcfg, pc1, pc2,
+                 plens, cuda: bool) -> dict:
+    """The host-staged engine on the card, 8 shards, 76 bp reads, batches of
+    32,768: staged_path (the mapping-only artifact, two batches in one
+    sweep), staged_overlap_path (the same with the upload overlap),
+    staged_pe_path (one batch of pairs), staged_score_path (the full index,
+    --mappingScore) and staged_pseudo_path (the pseudo index), each equal to
+    the replicated engine's results on the same reads -> launch counts by
+    phase."""
+    import dataclasses
+
+    from rapmap_tpu_torch.parallel.staged import StagedPseudoMapper, StagedQuasiMapper
+
+    se = [("se", codes[i * B : (i + 1) * B], lens[i * B : (i + 1) * B]) for i in range(2)]
+    launches = {}
+    sq = StagedQuasiMapper(midx, cfg, batch=B, read_len=READ_LEN, n_shards=STAGED_SHARDS,
+                           device=dev)
+    rec = staged_run("staged_path", sq, se, refs["se"], cuda, index="quasi_map",
+                     **stage_a_device_ms(sq, codes[:B], lens[:B], cuda))
+    launches["staged_path"] = rec["launches"]
+    sq.sm.upload_overlap = True
+    rec = staged_run("staged_overlap_path", sq, se, refs["se"], cuda, index="quasi_map")
+    launches["staged_overlap_path"] = rec["launches"]
+    if any(t is None for t in rec["exposed_wait_s"]):
+        raise RuntimeError("staged_overlap_path: the sweep did not overlap its uploads")
+    sq = StagedQuasiMapper(idx, cfg, batch=B, read_len=READ_LEN, n_shards=STAGED_SHARDS,
+                           device=dev)
+    rec = staged_run("staged_pe_path", sq, [("pe", pc1[:B], plens[:B], pc2[:B], plens[:B])],
+                     [refs["pe"]], cuda, index="quasi")
+    launches["staged_pe_path"] = rec["launches"]
+    sq = StagedQuasiMapper(idx, dataclasses.replace(cfg, mapping_score=True), batch=B,
+                           read_len=READ_LEN, n_shards=STAGED_SHARDS, device=dev)
+    rec = staged_run("staged_score_path", sq, se[:1], [refs["score"]], cuda, index="quasi")
+    launches["staged_score_path"] = rec["launches"]
+    sq = StagedPseudoMapper(pidx, pcfg, batch=B, read_len=READ_LEN, n_shards=STAGED_SHARDS,
+                            device=dev)
+    rec = staged_run("staged_pseudo_path", sq, se[:1], [refs["pseudo"]], cuda, index="pseudo")
+    launches["staged_pseudo_path"] = rec["launches"]
+    quasi = ("staged_path", "staged_overlap_path", "staged_pe_path", "staged_score_path")
+    if cuda and (min(launches[p]["extend_packed_anchors"] for p in quasi) < STAGED_SHARDS
+                 or launches["staged_pseudo_path"]["extend_packed_anchors"]):
+        raise RuntimeError(f"staged paths: kernel launches {launches}")
+    return launches
+
+
+def head_of(path: str, n: int) -> list[str]:
+    """A SAM file's lines without @PG, of its first n reads (pairs) only:
+    read names start r<i>: or p<i>:."""
+    return [ln for ln in sam_body(path)
+            if ln[0] == "@" or int(ln.split(":", 1)[0][1:]) < n]
+
+
 def main() -> int:
     t_start = time.time()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2101,6 +2457,7 @@ def main() -> int:
     if not all(same) or unequal:
         raise RuntimeError("score_path: a batch's mappings differ from main_path's, or a "
                            "sampled score differs from the oracle's")
+    score_ref = s_results[0]  # the staged score path's reference
     del s_results
 
     # ---- the charwise extension (packed_extension=False), both index kinds ----
@@ -2220,6 +2577,7 @@ def main() -> int:
     if cuda and pe_score_launches["banded_scores"] < PB // C:
         raise RuntimeError(f"pe_score_path: kernel launches {pe_score_launches} for "
                            f"{PB // C} chunks")
+    pe_ref = pe_first  # the staged paired-end path's reference
     del got, pe_first
     # the command line's paired-end inputs: every pair with its true locus in
     # its name, and the head of them for the card-against-CPU runs
@@ -2265,6 +2623,7 @@ def main() -> int:
     n_main_mapped = ctr["reads_mapped"]
     if not cuda:
         del nmapper, smapper
+    main_results = results  # the artifact and staged paths' reference
     del results, nidx  # idx stays: the oracle recomputes sampled AS:i tags
 
     def sam(name):
@@ -2600,6 +2959,7 @@ def main() -> int:
             raise RuntimeError(f"{name}: the batch differs from pseudo_path's first batch, or "
                                f"kernel launches {ps_other[name]}")
         del got
+    ps_ref = ps_results[0]  # the staged pseudo path's reference
     del ps_results, npmap, bpmap
 
     # pairs: unchunked batches of 4,096 (the reference has no chunked pseudo
@@ -2683,6 +3043,63 @@ def main() -> int:
         if not all(c["equal"] and not c["cpu_launches"] for c in checks):
             raise RuntimeError("cli_pseudo_card_equals_cpu: the card's SAM differs from the "
                                "CPU's on the same reads, or the CPU launched a kernel")
+    # ---- the host-staged engine and the compact index artifacts -------------
+    # the anchor-parallel extension against its plain version; the core and
+    # mapping-only artifacts of the world's index; the staged engine on the
+    # card (8 shards, batches of 32,768) against the replicated engine's
+    # results; then the command line on the artifacts and the staged engine,
+    # on the head reads, against the replicated runs' SAM of the same reads
+    if cuda:
+        torch.cuda.empty_cache()
+    anch_ok, anch_err, anch_t = phase_anchor_kernel(dev, timer, idx, codes, lens, B, args.seed)
+    if not anch_ok:
+        raise RuntimeError("extend_packed_anchors kernel disagrees with its plain version, or "
+                           "an input set missed what it is there to exercise")
+    midx, map_dir, _ = phase_artifacts(dev, idx, cfg, codes, lens, B, main_results, work, cuda)
+    staged_launches = phase_staged(
+        dev, idx, midx, cfg, codes, lens, B,
+        dict(se=main_results[:2], pe=pe_ref, score=score_ref, pseudo=ps_ref),
+        pidx, pcfg, pc1, pc2, plens, cuda)
+    del midx, main_results, pe_ref, score_ref, ps_ref
+    from rapmap_tpu_torch import cli as port_cli
+
+    rep_core = os.path.join(work, "repetitive_core_idx")
+    t0 = time.time()
+    if port_cli.main(["quasiindex", "-t", os.path.join(work, "repetitive.fa"), "-i", rep_core,
+                      "-k", str(K), "--coreIndex"]) != 0:
+        raise RuntimeError("cli_core_default: quasiindex --coreIndex failed")
+    core_build_s = time.time() - t0
+    staged_cli = {}
+    for phase, argv, cmd, want in (
+            ("cli_core_default", ["-i", rep_core, "-r", rep_fq, *default_bs,
+                                  "--expandBudget", "64"], "quasimap",
+             sam_body(sam("rep_ample.sam"))),
+            ("cli_map_artifact", ["-i", map_dir, "-r", head_fq], "quasimap",
+             head_of(sam("a.sam"), n_head)),
+            ("cli_staged_default", ["-i", idx_dir, "-r", head_fq, "--engine", "staged"],
+             "quasimap", head_of(sam("a.sam"), n_head)),
+            ("cli_pe_staged_default", ["-i", idx_dir, "-1", head_pe_fq[0], "-2", head_pe_fq[1],
+                                       "--engine", "staged"], "quasimap",
+             head_of(sam("pa.sam"), n_head_pe)),
+            ("cli_pseudo_staged_default", ["-i", pidx_dir, "-r", head_fq, "--engine", "staged"],
+             "pseudomap", head_of(sam("q.sam"), n_head))):
+        r = run_cli(phase, [*argv, "-o", sam(f"{phase}.sam")], work, force_cpu, cmd=cmd)
+        same = sam_body(sam(f"{phase}.sam")) == want
+        staged_cli[phase] = r["launches"]
+        emit(f"{phase}_checks", sam_equals_replicated=same,
+             **(dict(core_index_build_s=core_build_s, core_bytes=dir_bytes(rep_core))
+                if phase == "cli_core_default" else {}))
+        if not same:
+            raise RuntimeError(f"{phase}: SAM differs from the replicated engine's")
+        quasi_staged = phase in ("cli_map_artifact", "cli_staged_default",
+                                 "cli_pe_staged_default")
+        if cuda and quasi_staged != bool(r["launches"]["extend_packed_anchors"]):
+            raise RuntimeError(f"{phase}: kernel launches {r['launches']}")
+    staged_path_launches = {**staged_launches, **staged_cli}
+
+    def on_staged(kernel):
+        return {path: n[kernel] for path, n in staged_path_launches.items()}
+
     cli_launches = {"cli_default": cli_default["launches"], "cli_chunked": cli_chunked["launches"],
                     "cli_fallback_starved": rep["starved"]["launches"],
                     "cli_fallback_ample": rep["ample"]["launches"],
@@ -2787,6 +3204,18 @@ def main() -> int:
         "launches": ps_other["pseudo_nochd_path"]["pseudo_walk_lanes"],
         "launches_on_pseudo_paths": on_ps("pseudo_walk_lanes"), "max_abs_err": ps_err,
         "matches_plain": ps_ok, **{x: ps_t["lanes"][x] for x in (
+            "ms", "cold_ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+    }, {
+        "name": "extend_packed_anchors", "route": "cuda",
+        "source": "rapmap_tpu_torch/csrc/walk.cu",
+        "replaces": "rapmap_tpu/ops/extend_packed.py:286",
+        "launches": staged_launches["staged_path"]["extend_packed_anchors"],
+        "launches_on_staged_paths": on_staged("extend_packed_anchors"),
+        "launches_on_cli_paths": on_cli("extend_packed_anchors"),
+        "launches_on_pe_paths": on_pe("extend_packed_anchors"),
+        "launches_on_pseudo_paths": on_ps("extend_packed_anchors"), "max_abs_err": anch_err,
+        "matches_plain": anch_ok, **{x: anch_t[x] for x in (
             "ms", "cold_ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
     }]}), flush=True)

@@ -5,10 +5,11 @@ Port of rapmap_tpu.cli: the same subcommands, flag names and defaults, so a
 parity harness can drive either tool with the same argv. `quasimap` of
 single-end (-r) and paired-end (-1/-2) reads on a quasi index, with or without
 the canonical CHD, with or without --mappingScore (AS:i tags, the
---minScoreFraction filter), and `pseudomap` of either on a pseudo index, run
-end to end (FASTQ in, SAM out); what is not ported yet (the host-staged
-engine, --worldSize > 1, the quasi_map / quasi_core artifacts) is refused
-with one log line and exit code 1.
+--minScoreFraction filter), on the replicated or the host-staged engine
+(--engine, or auto by size; a mapping-only quasi_map artifact always maps
+staged, a quasi_core one reloads into a full index), and `pseudomap` of
+either on a pseudo index, run end to end (FASTQ in, SAM out); what is not
+ported yet (--worldSize > 1) is refused with one log line and exit code 1.
 
 The mapping runs on the CUDA card. TQM_FORCE_CPU=1 runs every kernel's plain
 PyTorch version on the CPU instead; without it and without a card the command
@@ -281,8 +282,6 @@ def run_map(args, pseudo: bool) -> int:
 
     if args.worldSize > 1:
         return _refuse("--worldSize > 1", "the data-parallel and multi-process slice")
-    if args.engine == "staged":
-        return _refuse("--engine staged", "the host-staged slice")
     if not (args.reads or (args.mates1 and args.mates2)):
         log.error("provide -r for single-end or -1/-2 for paired-end reads")
         return 1
@@ -290,27 +289,49 @@ def run_map(args, pseudo: bool) -> int:
     header = load_header(args.index)
     itype = header["index_type"]
     want = "pseudo" if pseudo else "quasi"
+    # quasi_core reloads into a FULL QuasiIndex (k-mer table rederived and
+    # hash-verified), so every engine and flag works on it unchanged
+    mapping_only = (not pseudo) and itype == "quasi_map"
     if itype not in ({"pseudo"} if pseudo else {"quasi", "quasi_map", "quasi_core"}):
         log.error("index at %s is type %s, expected %s", args.index, itype, want)
         return 1
     if pseudo and args.mappingScore:
         log.error("--mappingScore needs the suffix-array text; quasimap only")
         return 1
-    if itype != want:
-        return _refuse(f"index type {itype}", "the index-artifact slice")
+    if mapping_only and args.mappingScore:
+        log.error("--mappingScore needs the transcript text; the mapping-only "
+                  "artifact (quasi_map) drops it — map with the full index")
+        return 1
+    if mapping_only and args.engine == "replicated":
+        log.error("the mapping-only artifact (quasi_map) has no replicated-"
+                  "engine arrays; use --engine auto or staged")
+        return 1
     device = _pick_device(args.cmd)
     if device is None:
         return 1
     idx = load_index(args.index)
     cfg = _cfg_from_args(args, idx.k)
-    choose = _choose_pseudo_engine if pseudo else _choose_quasi_engine
-    if choose(args, idx, device) == "staged":
-        return _refuse("the host-staged engine", "the host-staged slice")
 
     if pseudo:
-        from rapmap_tpu_torch.models.pseudo import PseudoMapper
+        if _choose_pseudo_engine(args, idx, device) == "staged":
+            from rapmap_tpu_torch.parallel.staged import StagedPseudoMapper
 
-        mapper = PseudoMapper(idx, cfg, device=device)
+            mapper = StagedPseudoMapper(idx, cfg, batch=args.batchSize,
+                                        read_len=args.maxReadLen, device=device)
+        else:
+            from rapmap_tpu_torch.models.pseudo import PseudoMapper
+
+            mapper = PseudoMapper(idx, cfg, device=device)
+    elif mapping_only or _choose_quasi_engine(args, idx, device) == "staged":
+        from rapmap_tpu_torch.ops.device_index import SA_CMP_WORDS
+        from rapmap_tpu_torch.parallel.staged import StagedQuasiMapper
+
+        cap = idx.k + 16 * SA_CMP_WORDS
+        if args.maxReadLen > cap:
+            log.info("staged engine caps reads at %d bases (k=%d); "
+                     "longer reads will be refused", cap, idx.k)
+        mapper = StagedQuasiMapper(idx, cfg, batch=args.batchSize,
+                                   read_len=min(args.maxReadLen, cap), device=device)
     else:
         from rapmap_tpu_torch.models.quasi import QuasiMapper
 
@@ -532,14 +553,18 @@ def main(argv: list[str] | None = None) -> int:
     logging.basicConfig(level=logging.INFO, format="[tqm] %(message)s", stream=sys.stderr)
     args = build_parser().parse_args(argv)
     if args.cmd == "quasiindex":
-        if args.coreIndex:
-            return _refuse("--coreIndex", "the index-artifact slice")
         from rapmap_tpu_torch.index.builder import build_quasi_index
 
-        build_quasi_index(
-            args.transcripts, args.index, k=args.kmerLen, seed=args.seed,
-            dedup=not args.keepDuplicates, require_chd=args.perfectHash,
+        idx = build_quasi_index(
+            args.transcripts, None if args.coreIndex else args.index, k=args.kmerLen,
+            seed=args.seed, dedup=not args.keepDuplicates, require_chd=args.perfectHash,
         )
+        if args.coreIndex:
+            from rapmap_tpu_torch.index.format import save_core_index
+
+            info = save_core_index(idx, args.index)
+            log.info("core index written to %s (%.2f GB on disk)",
+                     args.index, info["bytes"] / 2**30)
         return 0
     if args.cmd == "pseudoindex":
         from rapmap_tpu_torch.index.builder import build_pseudo_index

@@ -107,6 +107,18 @@
 // is branched around, and __clz(0) == 32 gives diffpos 16 on equal words as
 // clz32 does.
 //
+// The extension alone has two entries: tqm_extend_packed (one anchor a read
+// row, for locating a fault in the walk) and tqm_extend_packed_lanes, the
+// anchor-parallel mode of the host-staged engine's stage A
+// (rapmap_tpu/ops/extend_packed.py:286-307 with lane=, called from
+// rapmap_tpu/parallel/staged.py:218-222): anchors outnumber read rows and
+// anchor i reads row lane[i]. One thread an anchor runs extend_lane as the
+// walk does; an inactive anchor (the compaction's dead tail) writes its
+// inputs back without reading its row. Staged shards carry a 1-row text2q
+// placeholder, so the wrapper refuses reads whose compares could reach
+// past the fused sa_cmp words. tqm_extend_packed_traffic is its counting
+// build, for the byte bound.
+//
 // C interface for ctypes: every pointer and the stream are void* on the
 // Python side; every entry returns the CUDA error code (0 = success).
 
@@ -133,7 +145,8 @@ struct Index {
 // The input tensors, as the traffic count names them.
 enum Region {
   kPreads, kNextBad, kLens, kColOff, kBf, kEf, kBr, kEr, kAnchF, kAnchR, kSaCmp, kText2q,
-  kCodes, kSa, kText,  // the charwise extension's
+  kCodes, kSa, kText,                   // the charwise extension's
+  kLane, kB0, kE0, kPos, kActive,       // the extension alone's per-anchor inputs
   kRegions
 };
 
@@ -751,22 +764,36 @@ __global__ void __launch_bounds__(kMaxLanes) anchor_walk_kernel(
   }
 }
 
+// The extension alone, one thread an anchor: anchor i reads preads,
+// next_bad, lens and col_off (0 when null) at row lane[i] (row i when lane is
+// null; a lane index is clamped to [0, R) as ops/gather.py clamps) and b0,
+// e0, pos and active at i. An inactive anchor keeps (b0, e0) with length k,
+// what extend_lane gives it, without reading its row.
+template <bool kCount>
 __global__ void extend_packed_kernel(
     const int64_t* __restrict__ preads, const int64_t* __restrict__ next_bad,
     const int64_t* __restrict__ lens, const int64_t* __restrict__ col_off,
-    const int64_t* __restrict__ b0, const int64_t* __restrict__ e0,
-    const int64_t* __restrict__ pos, const uint8_t* __restrict__ active, Index ix,
-    int64_t R, int L, int k, int steps, int W, int64_t* __restrict__ b_out,
-    int64_t* __restrict__ e_out, int64_t* __restrict__ mlen_out) {
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (r >= R) return;
-  const Traffic tr{};
-  int64_t b, e, mlen;
-  extend_lane<false>(ix, preads + r * L, next_bad + r * L, lens[r], col_off[r], b0[r], e0[r],
-                     pos[r], active[r] != 0, k, steps, L, W, b, e, mlen, tr);
-  b_out[r] = b;
-  e_out[r] = e;
-  mlen_out[r] = mlen;
+    const int64_t* __restrict__ lane, const int64_t* __restrict__ b0,
+    const int64_t* __restrict__ e0, const int64_t* __restrict__ pos,
+    const uint8_t* __restrict__ active, Index ix, int64_t A, int64_t R, int L, int k,
+    int steps, int W, int64_t* __restrict__ b_out, int64_t* __restrict__ e_out,
+    int64_t* __restrict__ mlen_out, Traffic tr) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= A) return;
+  const int64_t b_in = load<kCount>(tr, kB0, b0 + i);
+  const int64_t e_in = load<kCount>(tr, kE0, e0 + i);
+  int64_t b = b_in, e = e_in, mlen = k;
+  touch<kCount>(tr, kActive, active + i, 1);
+  if (active[i] != 0) {
+    const int64_t r = lane == nullptr ? i : clamp64(load<kCount>(tr, kLane, lane + i), 0, R - 1);
+    const int64_t off = col_off == nullptr ? 0 : load<kCount>(tr, kColOff, col_off + r);
+    extend_lane<kCount>(ix, preads + r * L, next_bad + r * L, load<kCount>(tr, kLens, lens + r),
+                        off, b_in, e_in, load<kCount>(tr, kPos, pos + i), true, k, steps, L, W,
+                        b, e, mlen, tr);
+  }
+  b_out[i] = b;
+  e_out[i] = e;
+  mlen_out[i] = mlen;
 }
 
 __global__ void extend_charwise_kernel(
@@ -806,6 +833,26 @@ CharIndex make_char_index(const void* codes, const void* sa, int64_t n_sa, const
                           int64_t n_text) {
   return CharIndex{static_cast<const int8_t*>(codes), static_cast<const int32_t*>(sa), n_sa,
                    static_cast<const int8_t*>(text), n_text};
+}
+
+// The launch of the extension alone (tqm_extend_packed*).
+template <bool kCount>
+int launch_extend(const void* preads, const void* next_bad, const void* lens,
+                  const void* col_off, const void* lane, const void* b0, const void* e0,
+                  const void* pos, const void* active, const Index& ix, int64_t A, int64_t R,
+                  int L, int k, int steps, int W, void* b_out, void* e_out, void* mlen_out,
+                  const Traffic& tr, void* stream) {
+  if (A <= 0 || R <= 0 || L <= 0 || W < 1) return static_cast<int>(cudaErrorInvalidValue);
+  extend_packed_kernel<kCount><<<static_cast<unsigned>((A + kMaxLanes - 1) / kMaxLanes),
+                                 kMaxLanes, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(preads), static_cast<const int64_t*>(next_bad),
+      static_cast<const int64_t*>(lens), static_cast<const int64_t*>(col_off),
+      static_cast<const int64_t*>(lane), static_cast<const int64_t*>(b0),
+      static_cast<const int64_t*>(e0), static_cast<const int64_t*>(pos),
+      static_cast<const uint8_t*>(active), ix, A, R, L, k, steps, W,
+      static_cast<int64_t*>(b_out), static_cast<int64_t*>(e_out),
+      static_cast<int64_t*>(mlen_out), tr);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The launch of a walk of any extension kind; the inputs of the others are
@@ -993,17 +1040,51 @@ extern "C" int tqm_extend_packed(
     const void* sa_cmp, int64_t n_sa, int F, const void* text2q, int64_t nw, int64_t R,
     int L, int k, int steps, int W, void* b_out, void* e_out, void* mlen_out,
     void* stream) {
-  if (R <= 0 || !index_ok(sa_cmp, n_sa, F, nw) || L <= 0 || W < 1)
+  if (!index_ok(sa_cmp, n_sa, F, nw)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_extend<false>(preads, next_bad, lens, col_off, nullptr, b0, e0, pos, active,
+                              make_index(sa_cmp, n_sa, F, text2q, nw), R, R, L, k, steps, W,
+                              b_out, e_out, mlen_out, Traffic{}, stream);
+}
+
+// The extension in anchor-parallel mode (ops/extend_packed.py extend_packed
+// with lane=, the host-staged engine's stage A): A anchors over R read rows,
+// anchor i reading row lane[i] of preads, next_bad (R, L), lens and col_off
+// (R,) (col_off may be null: every row left-aligned) at its own b0, e0, pos
+// (A,) int64 and active (A,) bytes. Writes every byte of b_out, e_out and
+// mlen_out (A,) int64.
+extern "C" int tqm_extend_packed_lanes(
+    const void* preads, const void* next_bad, const void* lens, const void* col_off,
+    const void* lane, const void* b0, const void* e0, const void* pos, const void* active,
+    const void* sa_cmp, int64_t n_sa, int F, const void* text2q, int64_t nw, int64_t A,
+    int64_t R, int L, int k, int steps, int W, void* b_out, void* e_out, void* mlen_out,
+    void* stream) {
+  if (!index_ok(sa_cmp, n_sa, F, nw) || lane == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  extend_packed_kernel<<<static_cast<unsigned>((R + kMaxLanes - 1) / kMaxLanes), kMaxLanes, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(preads), static_cast<const int64_t*>(next_bad),
-      static_cast<const int64_t*>(lens), static_cast<const int64_t*>(col_off),
-      static_cast<const int64_t*>(b0), static_cast<const int64_t*>(e0),
-      static_cast<const int64_t*>(pos), static_cast<const uint8_t*>(active),
-      make_index(sa_cmp, n_sa, F, text2q, nw), R, L, k, steps, W, static_cast<int64_t*>(b_out),
-      static_cast<int64_t*>(e_out), static_cast<int64_t*>(mlen_out));
-  return static_cast<int>(cudaGetLastError());
+  return launch_extend<false>(preads, next_bad, lens, col_off, lane, b0, e0, pos, active,
+                              make_index(sa_cmp, n_sa, F, text2q, nw), A, R, L, k, steps, W,
+                              b_out, e_out, mlen_out, Traffic{}, stream);
+}
+
+// tqm_extend_packed_lanes counting what it reads, as tqm_anchor_walk_traffic:
+// the bitmaps follow the order preads, next_bad, lens, col_off, lane, b0, e0,
+// pos, active, sa_cmp, text2q (col_off's is unused when it is null), and
+// `rows` receives the number of sa_cmp rows compared.
+extern "C" int tqm_extend_packed_traffic(
+    const void* preads, const void* next_bad, const void* lens, const void* col_off,
+    const void* lane, const void* b0, const void* e0, const void* pos, const void* active,
+    const void* sa_cmp, int64_t n_sa, int F, const void* text2q, int64_t nw, int64_t A,
+    int64_t R, int L, int k, int steps, int W, void* b_out, void* e_out, void* mlen_out,
+    void* bits, const int64_t* word_off, void* rows, void* stream) {
+  if (!index_ok(sa_cmp, n_sa, F, nw) || lane == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* tensors[] = {preads, next_bad, lens, col_off, lane, b0,
+                           e0,     pos,      active, sa_cmp, text2q};
+  const Region regions[] = {kPreads, kNextBad, kLens, kColOff, kLane, kB0,
+                            kE0,     kPos,     kActive, kSaCmp, kText2q};
+  return launch_extend<true>(preads, next_bad, lens, col_off, lane, b0, e0, pos, active,
+                             make_index(sa_cmp, n_sa, F, text2q, nw), A, R, L, k, steps, W,
+                             b_out, e_out, mlen_out,
+                             make_traffic(tensors, regions, 11, bits, word_off, rows), stream);
 }
 
 // The charwise extension alone, once per lane on given (b0, e0, pos, active):

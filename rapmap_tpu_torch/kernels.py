@@ -38,6 +38,7 @@ LAUNCHES: dict[str, int] = {
     "banded_scores": 0,         # csrc/align.cu, the mapping score of record rows
     "pseudo_walk": 0,           # csrc/walk.cu, no extension, strand-paired lanes
     "pseudo_walk_lanes": 0,     # csrc/walk.cu, no extension, explicit lanes
+    "extend_packed_anchors": 0,  # csrc/walk.cu, the extension alone, anchor-parallel
 }
 
 _lock = threading.Lock()

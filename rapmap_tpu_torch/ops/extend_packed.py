@@ -15,12 +15,21 @@ the reference's loop-until-all-converged: per-lane results are identical,
 and the host never waits on the device to decide whether to loop. The
 reference's staged quarter-width tail is a lockstep optimisation with the
 same output (its docstring says so) and is not carried over.
+
+`extend_anchors` is the anchor-parallel mode of the host-staged engine's
+stage A (anchors outnumber read rows, anchor i reads row lane[i]): on CUDA
+tensors one launch of csrc/walk.cu's tqm_extend_packed_lanes (one thread an
+anchor, counter `extend_packed_anchors`), on CPU tensors `extend_packed`
+with `lane=`.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from rapmap_tpu_torch import kernels
 from rapmap_tpu_torch.ops.bits import M32, clz32, shl32, u32
 from rapmap_tpu_torch.ops.device_index import DeviceQuasiIndex
 from rapmap_tpu_torch.ops.gather import row_gather_nd
@@ -156,19 +165,24 @@ def extend_packed(
     next_bad: torch.Tensor,  # (R, L) from encode.next_bad_batch
     lens: torch.Tensor,      # (R,)
     b0, e0, pos, active, k: int, ext_steps: int, L: int,
-    col_off: torch.Tensor,   # (R,) per-lane column offset for right-aligned
-    #                          rows (encode.comp_flip_batch rc lanes)
+    col_off: torch.Tensor | None = None,  # (R,) per-ROW column offset for
+    #                          right-aligned rows (encode.comp_flip_batch rc lanes)
+    lane: torch.Tensor | None = None,     # (A,) per-anchor read-row indices
 ):
-    """Returns (b, e, mlen) per lane (one anchor per read row). Lane r's
-    data starts at column col_off[r] (position p -> column p + col_off[r])
-    and ends at column col_off[r] + lens[r]."""
+    """Returns (b, e, mlen) per anchor. By default anchor i is read row i
+    (one anchor per row); with `lane` (the anchor-parallel mode of the
+    host-staged engine) anchors may outnumber rows and anchor i reads row
+    lane[i] at pos[i]. Row r's data starts at column col_off[r] (position p
+    -> column p + col_off[r]; 0 without col_off) and ends at column
+    col_off[r] + lens[r]."""
     W = ext_words(L, k)
-    base = pos + k + col_off
+    rows = torch.arange(pos.shape[0], device=pos.device) if lane is None else lane
+    off = col_off[rows] if col_off is not None else torch.zeros_like(pos)
+    base = pos + k + off
     base_c = base.clamp(0, L - 1)
-    rows = torch.arange(pos.shape[0], device=pos.device)
     # valid query chars beyond depth k: up to the next N and the read end
     nb = torch.where(base < L, next_bad[rows, base_c], base)
-    qlen = (torch.minimum(nb, lens + col_off) - base).clamp(0, L - k)
+    qlen = (torch.minimum(nb, lens[rows] + off) - base).clamp(0, L - k)
     qwords = [
         torch.where(
             base + 16 * j < L, preads[rows, (base + 16 * j).clamp(0, L - 1)], 0
@@ -205,3 +219,85 @@ def extend_packed(
         torch.where(ok, mlen, k),
     )
 
+
+def _check_anchor_inputs(didx, preads, next_bad, lens, b0, e0, pos, active, lane) -> None:
+    """Raise on what tqm_extend_packed_lanes does not take: anything but
+    contiguous int64 rows and anchors, bool `active`, an int32 sa_cmp of
+    whole 8-byte pairs with at most 8 fused words and a (nw, 4) text2q, all
+    on one CUDA device."""
+    dev = preads.device
+    named = dict(preads=preads, next_bad=next_bad, lens=lens, b0=b0, e0=e0, pos=pos,
+                 active=active, lane=lane, sa_cmp=didx.sa_cmp, text2q=didx.text2q)
+    for name, t in named.items():
+        if t.device != dev:
+            raise ValueError(f"extend_anchors: {name} lies on {t.device}, preads on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"extend_anchors: {name} must be contiguous")
+        want = (torch.bool if name == "active"
+                else torch.int32 if name in ("sa_cmp", "text2q") else torch.int64)
+        if t.dtype != want:
+            raise TypeError(f"extend_anchors: {name} must be {want}, got {t.dtype}")
+    R, L = preads.shape
+    A = lane.shape[0]
+    if next_bad.shape != (R, L) or lens.shape != (R,) or R == 0:
+        raise ValueError("extend_anchors: preads and next_bad must be (R, L), lens (R,)")
+    if any(t.shape != (A,) for t in (b0, e0, pos, active)):
+        raise ValueError("extend_anchors: lane, b0, e0, pos and active must be (A,)")
+    if (didx.sa_cmp.dim() != 2 or didx.sa_cmp.shape[1] % 2
+            or not 3 < didx.sa_cmp.shape[1] <= 11 or didx.sa_cmp.data_ptr() % 8):
+        raise ValueError("extend_anchors: sa_cmp must be (n, 3 + F), F odd and <= 8, "
+                         "on an 8-byte boundary")
+    if didx.text2q.dim() != 2 or didx.text2q.shape[1] != 4:
+        raise ValueError("extend_anchors: text2q must be (nw, 4)")
+    if dev.type != "cuda":
+        raise ValueError(f"extend_anchors: no kernel for device {dev}")
+
+
+def extend_anchors(
+    didx: DeviceQuasiIndex,
+    preads: torch.Tensor,    # (R, L) packed read words, left-aligned rows
+    next_bad: torch.Tensor,  # (R, L)
+    lens: torch.Tensor,      # (R,)
+    b0, e0, pos, active,     # (A,) each: the anchors' intervals, positions, liveness
+    lane: torch.Tensor,      # (A,) the anchors' read rows
+    *, k: int, ext_steps: int,
+):
+    """The extension in anchor-parallel mode -> (b, e, mlen), (A,) int64
+    each: `extend_packed(..., lane=lane)`, which it runs on CPU tensors; on
+    CUDA tensors one launch of the kernel, which writes every output byte.
+
+    A compare may read only the sa_cmp rows' fused words: the host-staged
+    engine uploads a 1-row placeholder for text2q, so reads longer than
+    k + 16 F (F fused words) are refused here, on either device."""
+    L = preads.shape[1]
+    W = ext_words(L, k)
+    F = didx.sa_cmp.shape[1] - 3
+    if W > F:
+        raise ValueError(
+            f"extend_anchors: reads of {L} columns need {W} words past depth k={k}, "
+            f"more than the {F} fused sa_cmp words (reads cap at k + {16 * F})")
+    args = (preads, next_bad, lens, b0, e0, pos, active, lane)
+    if all(t.device.type == "cpu" for t in (*args, didx.sa_cmp)):
+        return extend_packed(didx, preads, next_bad, lens, b0, e0, pos, active, k, ext_steps,
+                             L, lane=lane)
+    _check_anchor_inputs(didx, *args)
+    A, R = lane.shape[0], preads.shape[0]
+    dev = preads.device
+    b, e, mlen = (torch.empty(A, dtype=torch.int64, device=dev) for _ in range(3))
+    act = active.view(torch.uint8)
+    fn = kernels.library("walk").tqm_extend_packed_lanes
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    fn.argtypes = [vp] * 10 + [i64, i32, vp, i64, i64, i64] + [i32] * 4 + [vp] * 4
+    fn.restype = ctypes.c_int
+    if A:
+        with torch.cuda.device(dev):
+            rc = fn(preads.data_ptr(), next_bad.data_ptr(), lens.data_ptr(), None,
+                    lane.data_ptr(), b0.data_ptr(), e0.data_ptr(), pos.data_ptr(),
+                    act.data_ptr(), didx.sa_cmp.data_ptr(), didx.sa_cmp.shape[0], F,
+                    didx.text2q.data_ptr(), didx.text2q.shape[0], A, R, L, k, ext_steps, W,
+                    b.data_ptr(), e.data_ptr(), mlen.data_ptr(),
+                    torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"tqm_extend_packed_lanes launch failed: CUDA error {rc}")
+        kernels.LAUNCHES["extend_packed_anchors"] += 1
+    return b, e, mlen

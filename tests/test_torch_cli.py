@@ -238,26 +238,22 @@ def _retyped_index(tmp, itype):
 REFUSALS = {
     # paired-end mapping is ported: half a pair is what is refused now
     "paired_end": (["quasimap", "-i", "IDX", "-1", "FQ"], "-1/-2 for paired-end"),
-    # pseudomap is ported: what the reference refuses, or the staged engine, is refused
+    # pseudomap is ported: what the reference refuses is refused
     "pseudomap_mapping_score": (["pseudomap", "-i", "PIDX", "-r", "FQ", "--mappingScore"],
                                 "--mappingScore needs the suffix-array text; quasimap only"),
-    "pseudomap_engine_staged": (["pseudomap", "-i", "PIDX", "-r", "FQ", "--engine", "staged"],
-                                "--engine staged"),
-    "pseudomap_auto_picks_staged": (["pseudomap", "-i", "PIDX", "-r", "FQ"],
-                                    "host-staged engine"),
     "pseudomap_quasi_index": (["pseudomap", "-i", "IDX", "-r", "FQ"],
                               "is type quasi, expected pseudo"),
-    # the mapping score is ported: under the staged engine, which is not, it is refused
-    "mapping_score": (["quasimap", "-i", "IDX", "-r", "FQ", "--mappingScore", "--engine",
-                       "staged"], "--engine staged"),
-    "engine_staged": (["quasimap", "-i", "IDX", "-r", "FQ", "--engine", "staged"],
-                      "--engine staged"),
-    "engine_auto_picks_staged": (["quasimap", "-i", "IDX", "-r", "FQ"], "host-staged engine"),
+    # the mapping score and the artifacts are ported: the mapping-only
+    # artifact refuses the score and the replicated engine, as tqm's does,
+    # and pseudomap refuses the core artifact
+    "mapping_score": (["quasimap", "-i", "quasi_map", "-r", "FQ", "--mappingScore"],
+                      "mapping-only"),
     "world_size": (["quasimap", "-i", "IDX", "-r", "FQ", "--worldSize", "2", "-o", "OUT"],
                    "--worldSize > 1"),
-    "core_index": (["quasiindex", "-t", "FA", "-i", "OUT", "--coreIndex"], "--coreIndex"),
-    "index_quasi_map": (["quasimap", "-i", "quasi_map", "-r", "FQ"], "index type quasi_map"),
-    "index_quasi_core": (["quasimap", "-i", "quasi_core", "-r", "FQ"], "index type quasi_core"),
+    "index_quasi_map": (["quasimap", "-i", "quasi_map", "-r", "FQ", "--engine", "replicated"],
+                        "has no replicated-engine arrays"),
+    "index_quasi_core": (["pseudomap", "-i", "quasi_core", "-r", "FQ"],
+                         "is type quasi_core, expected pseudo"),
     "index_pseudo": (["quasimap", "-i", "pseudo", "-r", "FQ"], "is type pseudo, expected quasi"),
     "no_reads": (["quasimap", "-i", "IDX"], "provide -r"),
 }
@@ -265,8 +261,9 @@ REFUSALS = {
 
 @pytest.mark.parametrize("case", list(REFUSALS))
 def test_refusals_exit_1_with_one_line(world, case, monkeypatch, capfd):
-    """What is not ported yet is refused in process: return code 1, one
-    error line that names it, no exception, nothing written."""
+    """What is not ported yet, or what tqm refuses too, is refused in
+    process: return code 1, one error line that names it, no exception,
+    nothing written."""
     from rapmap_tpu_torch import cli
 
     tmp, _, _, fq = world
@@ -279,8 +276,6 @@ def test_refusals_exit_1_with_one_line(world, case, monkeypatch, capfd):
                              ("quasi_map", "quasi_core", "pseudo", "no_chd") else a)
             for a in argv]
     monkeypatch.setenv("TQM_FORCE_CPU", "1")
-    if case.endswith("auto_picks_staged"):
-        monkeypatch.setenv("TQM_HBM_GB", "0.000001")
     records = []
 
     class Keep(logging.Handler):

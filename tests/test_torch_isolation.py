@@ -1,7 +1,9 @@
 """rapmap_tpu_torch stands alone: with jax and rapmap_tpu refused at import,
 every module imports, a toy index builds and maps single-end reads and pairs
 on the CPU (and one without a CHD, packed and charwise), a toy pseudo index
-builds and pseudo-maps reads and pairs, and the command line
+builds and pseudo-maps reads and pairs, the host-staged engine maps from
+the mapping-only artifact and from the pseudo index, a core artifact
+reloads and maps, and the command line
 (`rapmap_tpu_torch.cli`) indexes and maps FASTQ to SAM, single-end and
 paired-end, quasi and pseudo; a mapper asked for the default device without
 a CUDA card raises instead of running on the CPU, and the command line
@@ -14,6 +16,8 @@ import shutil
 import subprocess
 import sys
 import textwrap
+
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -94,6 +98,19 @@ SCRIPT = textwrap.dedent("""
                       "--batchSize", "8", "--chunkSize", "4"])
     with open(sam + ".pe") as f:
         pe_records = sum(1 for ln in f if ln[0] != "@" and not int(ln.split("\\t")[1]) & 0x4)
+    # the host-staged engine on the mapping-only and core artifacts
+    from rapmap_tpu_torch.index.format import load_index, save_core_index, save_mapping_index
+    from rapmap_tpu_torch.parallel.staged import StagedPseudoMapper, StagedQuasiMapper
+
+    save_mapping_index(idx, fa + ".map")
+    save_core_index(idx, fa + ".core")
+    staged = StagedQuasiMapper(load_index(fa + ".map"), cfg, batch=16, read_len=40,
+                               n_shards=2, device="cpu")
+    staged_mapped = staged.fetch(staged.map_se_async(codes, lens)).counters["reads_mapped"]
+    core_mapped = QuasiMapper(load_index(fa + ".core"), cfg, device="cpu").map_se(
+        codes, lens)[1].reads_mapped.item()
+    pstaged = StagedPseudoMapper(pidx, cfg, batch=16, read_len=40, n_shards=2, device="cpu")
+    pstaged_mapped = pstaged.fetch(pstaged.map_se_async(codes, lens)).counters["reads_mapped"]
     pdir = fa + ".pidx"
     rc_pindex = cli.main(["pseudoindex", "-t", fa, "-i", pdir, "-k", "11"])
     rc_pmap = cli.main(["pseudomap", "-i", pdir, "-r", fq, "-o", sam + ".ps",
@@ -128,7 +145,8 @@ SCRIPT = textwrap.dedent("""
                           ps_mapped=ps.counters["reads_mapped"],
                           ps_pe_mapped=ps_pe.counters["reads_mapped"], ps_raised=ps_raised,
                           rc_pseudo=[rc_pindex, rc_pmap, rc_ppe], ps_sam_mapped=ps_sam_mapped,
-                          ps_pe_records=ps_pe_records,
+                          ps_pe_records=ps_pe_records, staged_mapped=staged_mapped,
+                          core_mapped=core_mapped, pstaged_mapped=pstaged_mapped,
                           second_sam=os.path.exists(sam + ".2"))))
 """)
 
@@ -163,6 +181,38 @@ def test_port_imports_and_maps_without_jax(tmp_path):
     assert (res["ps_mapped"], res["ps_pe_mapped"], res["ps_sam_mapped"]) == (16, 16, 16)
     assert res["rc_pseudo"] == [0, 0, 0] and res["ps_pe_records"] > 0
     assert res["ps_raised"], "PseudoMapper(device=None) ran without a CUDA card"
+    assert "rapmap_tpu_torch.parallel.staged" in res["modules"]
+    assert (res["staged_mapped"], res["core_mapped"], res["pstaged_mapped"]) == (16, 16, 16)
+
+
+def _imports(path: str) -> set[str]:
+    """The top-level names of every module a Python file imports, at any depth."""
+    import ast
+
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module.split(".")[0])
+    return names
+
+
+@pytest.mark.parametrize("where", ["parallel", "chip_smoke.py"])
+def test_no_jax_imports(where):
+    """The host-staged subpackage and chip_smoke.py name neither jax nor
+    rapmap_tpu in any import statement (the run above refuses them at
+    import; this reads the source, so an import on a path the run does not
+    take counts too)."""
+    root = os.path.join(REPO, "rapmap_tpu_torch", where) if where == "parallel" else REPO
+    files = ([os.path.join(root, f) for f in os.listdir(root) if f.endswith(".py")]
+             if where == "parallel" else [os.path.join(REPO, where)])
+    assert files
+    for path in files:
+        bad = _imports(path) & {"jax", "jaxlib", "rapmap_tpu"}
+        assert not bad, (path, bad)
 
 
 def test_chip_smoke_alone_fails(tmp_path):
