@@ -55,7 +55,20 @@ pseudo oracle), 32,768 pairs in unchunked batches of 4,096 (pseudo_pe_path,
 500 sampled pairs), one batch each without the CHD (binary-search probe,
 explicit lanes) and in the big-occ layout, both equal to pseudo_path's, and
 the command line's pseudomap, single-end and paired-end, on the card and on
-the CPU (SAM equal apart from @PG). Every phase prints one JSON line; the last line is
+the CPU (SAM equal apart from @PG). Then the host-staged engine and the
+compact artifacts (see phase_anchor_kernel, phase_artifacts, phase_staged).
+Then data parallel and the SA-sharded engine: two replicas on the card
+(parallel/dp.py) against the single-device program on a batch of reads and
+one of pairs (dp_path, dp_pe_path); the sharded walk (csrc/walk.cu's
+sharded build, sharded_walk and sharded_walk_lanes) against its plain
+version on 0xFF-filled outputs (both lane kinds, Ns and mixed lengths, a
+shard whose slots nobody owns, slot64 globals past 2^31); the world's index
+in 4 shards on the card (a (2, 4) mesh sharing one upload) against the
+replicated engine (sharded_path, sharded_lanes_path, sharded_pe_path,
+sharded_score_path, sharded_slot64_path); and two command-line ranks as
+processes sharing the card (--worldSize 2), single-end and paired-end, whose
+record unions and global counters must equal the single-process runs'
+(cli_world2_se, cli_world2_pe). Every phase prints one JSON line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It exits non-zero, printing no result, without a CUDA card or without the
 rest of the repository beside it.
@@ -2057,6 +2070,481 @@ def phase_anchor_kernel(dev, timer, idx, codes, lens, B: int, seed: int):
     return ok, max_err, timing
 
 
+SHARDED_INPUTS = WALK_INPUTS + ("slot_base",)
+SHARDS = 4  # n_idx of the sharded phases: the world's index in 4 shards on one card
+
+
+def sharded_walk_on_0xff(stack, w, k: int, H: int, ext_steps: int, paired: bool,
+                         count: bool = False):
+    """csrc/walk.cu's tqm_sharded_walk called straight, on outputs that start
+    as 0xFF bytes (a byte the kernel leaves unwritten shows in the
+    comparison with the plain version), or with count its counting build
+    tqm_sharded_walk_traffic -> (ScanHits, {input: distinct 32-byte sectors
+    read} or None, sa_cmp rows compared or None). Only this script calls
+    them."""
+    import torch
+
+    from rapmap_tpu_torch import kernels
+    from rapmap_tpu_torch.ops.mmp import ScanHits
+    from rapmap_tpu_torch.parallel.sharded import sharded_walk_args
+
+    R = w.preads.shape[0]
+    dev = w.lens2.device
+    buf = torch.full((R, H, 4), -1, dtype=torch.int64, device=dev)
+    n = torch.full((R,), -1, dtype=torch.int64, device=dev)
+    trunc = torch.full((R,), 0xFF, dtype=torch.uint8, device=dev)
+    tensors = [*w, stack.sa_cmp, stack.text2q, stack.slot_base]
+    argtypes, args = sharded_walk_args(stack, w, (buf, n, trunc), k=k, H=H,
+                                       ext_steps=ext_steps, paired=paired)
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib = kernels.library("walk")
+    if count:
+        words = [((t.numel() * t.element_size() + 31) // 32 + 1 + 31) // 32 for t in tensors]
+        off = np.concatenate([[0], np.cumsum(words)]).astype(np.int64)
+        bits = torch.zeros(int(off[-1]), dtype=torch.int32, device=dev)
+        rows = torch.zeros(1, dtype=torch.int64, device=dev)
+        fn = lib.tqm_sharded_walk_traffic
+        argtypes += [vp, ctypes.POINTER(i64), vp]
+        args += [bits.data_ptr(), (i64 * len(words))(*off[:-1].tolist()), rows.data_ptr()]
+    else:
+        fn = lib.tqm_sharded_walk
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes + [vp]
+    with torch.cuda.device(dev):
+        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {rc}")
+    torch.cuda.synchronize(dev)
+    hits = ScanHits(q=buf[..., 0], l=buf[..., 1], b=buf[..., 2], e=buf[..., 3],
+                    n=n, truncated=trunc)
+    if not count:
+        return hits, None, None
+    marks = bits.cpu().numpy().view(np.uint8)
+    sectors = {nm: int(np.unpackbits(marks[4 * off[g] : 4 * off[g + 1]]).sum())
+               for g, nm in enumerate(SHARDED_INPUTS)}
+    return hits, sectors, int(rows.cpu()[0])
+
+
+def sharded_world(idx, dev, slot64: bool = False, canonical: bool = True):
+    """The world's index cut into SHARDS shards (host arrays, seconds to cut)
+    and stacked on `dev` -> (arrays, EngineStatic, ShardStack, seconds)."""
+    from rapmap_tpu_torch.parallel import sharded
+
+    t0 = time.time()
+    arrays, st = sharded.shard_quasi_index(idx, SHARDS, slot64=slot64, canonical=canonical)
+    cut_s = time.time() - t0
+    (stack,) = sharded.upload_sharded(arrays, [[dev] * SHARDS])
+    return arrays, st, stack, cut_s
+
+
+def owner_gap(stack, p: int):
+    """The stack with shard p's true slot count set to 0, so that no shard
+    owns an anchor in p's slot range: the walk must then record (0, 0, 0)
+    and step one column, as the reference's psum of nothing does."""
+    import torch
+
+    base = stack.slot_base.clone()
+    base[p, 1] = 0
+    bases = tuple((b, 0 if i == p else n) for i, (b, n) in enumerate(stack.bases))
+    return stack._replace(slot_base=base, bases=bases)
+
+
+def shifted(arrays, B0: int):
+    """slot64 arrays with every global carrier moved up by B0 (slot_base col
+    0 and the class rows' intervals): the genome-geometry rehearsal of the
+    reference's tests, global slots past 2^31 through the whole path."""
+    sb = arrays.slot_base.copy()
+    sb[:, 0] += B0
+    rows = arrays.chd_rows.copy()
+    real = rows[..., 0] != -1
+    for c in range(2, 6):
+        rows[..., c] = np.where(real, rows[..., c] + B0, rows[..., c])
+    return arrays._replace(slot_base=sb, chd_rows=rows)
+
+
+def phase_sharded_kernel(dev, timer, idx, codes, lens, C: int, B: int, seed: int):
+    """sharded_walk (csrc/walk.cu tqm_sharded_walk, the sharded engine's
+    walk) against its plain version sharded_walk_plain on card tensors,
+    through the wrapper and through the entry on 0xFF-filled outputs: one
+    data row's program of phase_sharded (B / 2 reads) and one chunk of C
+    reads on the canonical-class shards (strand-paired lanes) and on
+    per-strand CHD shards (explicit lanes), the chunk with Ns and mixed
+    lengths, the paired chunk with shard 1's slots owned by no shard, and
+    under slot64 with every global slot moved past 2^31; then its timing
+    and bound on each lane kind's data-row program, the shape of most of
+    its launches on the sharded paths."""
+    import torch
+
+    from rapmap_tpu_torch.config import MapConfig
+    from rapmap_tpu_torch.parallel import sharded
+    from rapmap_tpu_torch.parallel.sharded import (
+        scan_inputs, sharded_walk, sharded_walk_plain, upload_sharded,
+    )
+
+    cuda = dev.type == "cuda"
+    rng = np.random.default_rng(seed + 40)
+    cfg = MapConfig(k=K)
+    arr_c, st_c, stack_c, cut_s = sharded_world(idx, dev)
+    arr_l, st_l, stack_l, _ = sharded_world(idx, dev, canonical=False)
+    arr_64, st_64, _, _ = sharded_world(idx, "cpu", slot64=True)
+    (stack_64,) = upload_sharded(shifted(arr_64, 2**31 + 12345), [[dev] * SHARDS])
+    c2 = codes[C : 2 * C].copy()
+    c2[rng.random(c2.shape) < 0.02] = 5
+    l2 = rng.integers(20, READ_LEN + 1, C).astype(np.int32)
+    l2[::7], l2[1::7] = K, K - 3
+    c2[np.arange(READ_LEN)[None, :] >= l2[:, None]] = 5
+
+    def batch(c, ln):
+        return (torch.from_numpy(np.ascontiguousarray(c)).to(dev),
+                torch.from_numpy(ln.astype(np.int64)).to(dev))
+
+    chunk, mixed = batch(codes[:C], lens[:C]), batch(c2, l2)
+    row = batch(codes[: B // 2], lens[: B // 2])
+    sets = [("paired_row", stack_c, st_c, row), ("lanes_row", stack_l, st_l, row),
+            ("paired_chunk", stack_c, st_c, chunk), ("lanes_chunk", stack_l, st_l, chunk),
+            ("paired_ns_mixed_lengths", stack_c, st_c, mixed),
+            ("lanes_ns_mixed_lengths", stack_l, st_l, mixed),
+            ("paired_no_owner", owner_gap(stack_c, 1), st_c, chunk),
+            ("paired_slot64_past_2pow31", stack_64, st_c, chunk)]
+    checks, max_err, inputs = [], 0, {}
+    for name, stack, st, (r, ln) in sets:
+        w, kw = scan_inputs(stack, st, r, ln, cfg)
+        want = sharded_walk_plain(stack, *w, **kw)
+        got = sharded_walk(stack, w, **kw)
+        errs = hits_err(got, want)
+        if cuda:
+            raw, _, _ = sharded_walk_on_0xff(stack, w, **kw)
+            errs = {f: max(errs[f], v) for f, v in hits_err(raw, want).items()}
+        hit = torch.arange(want.q.shape[1], device=dev)[None, :] < want.n[:, None]
+        unowned = hit & (want.l == 0)
+        checks.append(dict(
+            set=name, lanes=w.lens2.shape[0], paired=kw["paired"], slot64=stack.slot64,
+            hits=int(want.n.sum()), truncated_lanes=int(want.truncated.sum()),
+            unowned_hits=int(unowned.sum()), extended=int((want.l > K).sum()),
+            largest_slot=int(torch.where(hit, want.e, 0).max()), field_err=errs,
+            equal_plain=not any(errs.values())))
+        max_err = max(max_err, *errs.values())
+        inputs[name] = (stack, w, kw)
+    by = {c["set"]: c for c in checks}
+    covered = (by["paired_no_owner"]["unowned_hits"] > 0
+               and by["paired_chunk"]["unowned_hits"] == 0
+               and by["paired_slot64_past_2pow31"]["largest_slot"] > 2**31
+               and by["lanes_ns_mixed_lengths"]["hits"] > 0
+               and all(c["extended"] > 0 for c in checks))
+    ok = covered and all(c["equal_plain"] for c in checks)
+
+    timing = {}
+    for kind in ("paired_row", "lanes_row"):
+        stack, w, kw = inputs[kind]
+        run = lambda: sharded_walk(stack, w, **kw)  # noqa: E731
+        wrapper_ms = timer(run, reps=50)
+        ms, ms_by = device_ms(run, 50, cuda)
+        cold_event_ms, cold_ms = walk_cold_ms(run, 50, cuda)
+        plain_ms = timer(lambda: sharded_walk_plain(stack, *w, **kw), reps=2, warm=1)
+        hits = run()
+        out_bytes = sum(t.numel() * t.element_size() for t in hits)
+        if cuda:
+            counted, sectors, rows = sharded_walk_on_0xff(stack, w, **kw, count=True)
+            if any(hits_err(counted, hits).values()):
+                raise RuntimeError("the counting build of the sharded walk disagrees with "
+                                   "the kernel")
+            nbytes = 32 * sum(sectors.values()) + out_bytes
+            ops = 32 * rows  # index arithmetic and one masked word compare a row, at least
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / INT_OPS_PER_S * 1e3
+            bound_ms = max(t_bytes, t_ops)
+            bound = dict(bound_ms=bound_ms,
+                         bound_by="bytes" if t_bytes >= t_ops else "operations",
+                         bytes=nbytes, output_bytes=out_bytes, input_sectors_read=sectors,
+                         sa_cmp_rows=rows, share_of_bound=bound_ms / ms,
+                         share_of_bound_cold=bound_ms / cold_ms)
+        else:
+            bound = dict(bound_ms="not measured", bound_by="bytes")
+        timing[kind] = dict(lanes=w.lens2.shape[0], shards=SHARDS, ms=ms, cold_ms=cold_ms,
+                            cold_event_ms=cold_event_ms, wrapper_ms=wrapper_ms,
+                            device_ms_by_kernel=ms_by, plain_ms=plain_ms, library_ms=None,
+                            **bound)
+    emit("kernel_vs_plain", kernel="sharded_walk", ok=ok, max_abs_err=max_err,
+         covered=covered, shard_cut_s=cut_s, shard_slots=[n for _, n in stack_c.bases],
+         checks=checks, timing=timing)
+    del inputs, stack_64, arr_c, arr_l
+    if cuda:
+        torch.cuda.empty_cache()
+    return ok, max_err, timing, dict(paired=(st_c, stack_c), lanes=(st_l, stack_l),
+                                     slot64=(st_64, arr_64))
+
+
+def to_dev(dev, *arrays):
+    """numpy read codes and lengths -> card tensors (int8 codes, int64 lengths)."""
+    import torch
+
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, np.int8 if a.ndim == 2 else np.int64))
+                 .to(dev) for a in arrays)
+
+
+def tuples_equal(a, b) -> bool:
+    """Two NamedTuples of tensors are equal, field for field."""
+    import torch
+
+    return all(x.shape == y.shape and bool(torch.equal(x.to(torch.int64), y.to(torch.int64)))
+               for x, y in zip(a, b))
+
+
+def counters_of(ctr) -> dict:
+    return {f: int(v) for f, v in ctr._asdict().items()}
+
+
+def timed(fn, cuda: bool):
+    """fn() with the launch counts zeroed before it and read after, ending in
+    a synchronize -> (result, seconds, launches)."""
+    import torch
+
+    from rapmap_tpu_torch import kernels
+
+    if cuda:
+        torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.time()
+    out = fn()
+    if cuda:
+        torch.cuda.synchronize()
+    return out, time.time() - t0, dict(kernels.LAUNCHES)
+
+
+def phase_dp(dev, mapper, codes, lens, pc1, pc2, plens, B: int, cuda: bool) -> dict:
+    """Data parallel on one card (parallel/dp.py): two replicas on the same
+    device over B reads (dp_path) and B pairs (dp_pe_path), each equal to
+    the single-device program on the same batch, MapOut, PairOut and
+    counters alike -> {phase: launches}."""
+    import torch
+
+    from rapmap_tpu_torch.models.quasi import map_batch_pe, map_batch_se
+    from rapmap_tpu_torch.parallel import dp
+
+    mesh = dp.make_mesh(2, devices=[dev, dev])
+    nv = dp.split_valid(B, 2, B // 2)
+    nv_all = torch.tensor(B, device=dev)
+    r, ln = to_dev(dev, codes[:B], lens[:B])
+    p1, p2, pl = to_dev(dev, pc1[:B], pc2[:B], plens[:B])
+    out = {}
+    for phase, single, parallel in (
+            ("dp_path", lambda: map_batch_se(mapper.didx, mapper.st, r, ln, nv_all, mapper.cfg),
+             lambda: dp.map_batch_se_dp(mapper.didx, mapper.st, r, ln, nv, mapper.cfg, mesh)),
+            ("dp_pe_path",
+             lambda: map_batch_pe(mapper.didx, mapper.st, p1, pl, p2, pl, nv_all, mapper.cfg),
+             lambda: dp.map_batch_pe_dp(mapper.didx, mapper.st, p1, pl, p2, pl, nv, mapper.cfg,
+                                        mesh))):
+        want, want_s, _ = timed(single, cuda)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        got, got_s, launches = timed(parallel, cuda)
+        same = all(tuples_equal(a, b) for a, b in zip(got, want))
+        emit(phase, replicas=len(mesh), devices=[str(d) for d in mesh], rows=B, seconds=got_s,
+             rows_per_s=B / got_s, single_device_seconds=want_s,
+             equal_single_device=same, counters=counters_of(got[-1]), launches=launches,
+             max_memory_allocated=torch.cuda.max_memory_allocated() if cuda else "not measured")
+        if not same:
+            raise RuntimeError(f"{phase}: the replicas' result differs from the single "
+                               "device's on the same batch")
+        if cuda and launches["anchor_walk"] < (2 if phase == "dp_path" else 4):
+            raise RuntimeError(f"{phase}: kernel launches {launches}")
+        out[phase] = launches
+    return out
+
+
+def phase_sharded(dev, mapper, worlds: dict, codes, lens, pc1, pc2, plens, B: int,
+                  cuda: bool) -> dict:
+    """The SA-sharded engine on one card (parallel/sharded.py): the world's
+    index in SHARDS shards on `dev`, a (2, SHARDS) mesh sharing one upload.
+    sharded_path maps two batches of B reads, each equal to the replicated
+    single-device MapOut of the same batch; sharded_lanes_path the first
+    batch on the per-strand CHD cut (explicit lanes, sharded_walk_lanes),
+    equal to sharded_path's; sharded_pe_path one batch of B / 2 pairs; sharded_score_path one batch with the mapping score, whose
+    scores equal the replicated wire path's; sharded_slot64_path one batch
+    on the slot64 cut (global slots in int64), equal to sharded_path's ->
+    {phase: launches}."""
+    import dataclasses
+
+    import torch
+
+    from rapmap_tpu_torch.models.quasi import map_batch_pe, map_batch_se
+    from rapmap_tpu_torch.parallel import sharded
+
+    st_sh, stack = worlds["paired"]
+    cfg = mapper.cfg
+    mesh = sharded.make_mesh_2d(2, SHARDS, devices=[dev])
+    stacks = [stack, stack]  # both data rows on the one card: one upload
+    nv = np.array([B // 2, B // 2], np.int32)
+    nv_all = torch.tensor(B, device=dev)
+    out, firsts = {}, []
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    seconds, launches_all, same = 0.0, {}, []
+    for b in range(2):
+        r, ln = to_dev(dev, codes[b * B : (b + 1) * B], lens[b * B : (b + 1) * B])
+        want, _, _ = timed(lambda: map_batch_se(mapper.didx, mapper.st, r, ln, nv_all, cfg),
+                           cuda)
+        got, s, launches = timed(
+            lambda: sharded.map_batch_se_sharded(stacks, st_sh, r, ln, nv, cfg, mesh), cuda)
+        seconds += s
+        launches_all = {k: launches_all.get(k, 0) + v for k, v in launches.items()}
+        same.append(tuples_equal(got[0], want[0]) and counters_of(got[1]) == counters_of(want[1]))
+        firsts.append(got[0])
+    emit("sharded_path", shards=SHARDS, data_rows=len(mesh), reads=2 * B, batches=2, batch=B,
+         shard_slots=[n for _, n in stack.bases], seconds=seconds, reads_per_s=2 * B / seconds,
+         equal_replicated_batches=same, launches=launches_all,
+         launches_per_program=launches_all["sharded_walk"] / (2 * len(mesh)),
+         stack_bytes=didx_bytes([t for t in stack[:-1] if t is not None]),
+         max_memory_allocated=torch.cuda.max_memory_allocated() if cuda else "not measured")
+    if not all(same):
+        raise RuntimeError("sharded_path: a batch differs from the replicated engine's")
+    if cuda and launches_all["sharded_walk"] != 2 * len(mesh):
+        raise RuntimeError(f"sharded_path: kernel launches {launches_all}")
+    out["sharded_path"] = launches_all
+
+    # explicit lanes: the per-strand CHD cut, the first batch
+    st_l, stack_l = worlds["lanes"]
+    r, ln = to_dev(dev, codes[:B], lens[:B])
+    got, s, launches = timed(lambda: sharded.map_batch_se_sharded(
+        [stack_l, stack_l], st_l, r, ln, nv, cfg, mesh), cuda)
+    same = tuples_equal(got[0], firsts[0])
+    emit("sharded_lanes_path", shards=SHARDS, reads=B, chd_canonical=st_l.chd_canonical,
+         seconds=s, reads_per_s=B / s, equal_sharded_path=same, launches=launches)
+    if not same or (cuda and launches["sharded_walk_lanes"] != len(mesh)):
+        raise RuntimeError(f"sharded_lanes_path: unequal to sharded_path's first batch, or "
+                           f"kernel launches {launches}")
+    out["sharded_lanes_path"] = launches
+
+    # pairs
+    P2 = B // 2
+    p1, p2, pl = to_dev(dev, pc1[:P2], pc2[:P2], plens[:P2])
+    pv = np.array([P2 // 2, P2 // 2], np.int32)
+    want, _, _ = timed(lambda: map_batch_pe(mapper.didx, mapper.st, p1, pl, p2, pl,
+                                            torch.tensor(P2, device=dev), cfg), cuda)
+    got, s, launches = timed(lambda: sharded.map_batch_pe_sharded(
+        stacks, st_sh, p1, pl, p2, pl, pv, cfg, mesh), cuda)
+    same = all(tuples_equal(a, b) for a, b in zip(got[:3], want[:3])) and \
+        counters_of(got[3]) == counters_of(want[3])
+    emit("sharded_pe_path", shards=SHARDS, pairs=P2, seconds=s, pairs_per_s=P2 / s,
+         concordant_share=float(got[2].concordant.float().mean()),
+         equal_replicated=same, launches=launches)
+    if not same or (cuda and launches["sharded_walk"] != 2 * len(mesh)):
+        raise RuntimeError(f"sharded_pe_path: unequal to the replicated engine's, or kernel "
+                           f"launches {launches}")
+    out["sharded_pe_path"] = launches
+
+    # the mapping score, against the replicated wire path's scored records
+    cfg_s = dataclasses.replace(cfg, mapping_score=True)
+    smapper = copy.copy(mapper)
+    smapper.cfg = cfg_s
+    wr = smapper.fetch(smapper.map_se_async(codes[:B], lens[:B]))
+    r, ln = to_dev(dev, codes[:B], lens[:B])
+    got, s, launches = timed(
+        lambda: sharded.map_batch_se_sharded(stacks, st_sh, r, ln, nv, cfg_s, mesh), cuda)
+    mo = [x.cpu().numpy() for x in (got[0].t, got[0].pos, got[0].strand, got[0].score)]
+    MO = mo[0].shape[1]
+    checked, unequal, base = 0, 0, 0
+    for i in range(B):
+        cnt = int(wr.counts[i])
+        for j in range(min(cnt, MO)):
+            rec = wr.recs[base + j]
+            checked += 1
+            unequal += any(int(m[i, j]) != int(v) for m, v in zip(mo, rec[:4]))
+        base += cnt
+    emit("sharded_score_path", shards=SHARDS, reads=B, seconds=s, reads_per_s=B / s,
+         records_checked=checked, unequal_to_wire=unequal, launches=launches)
+    if unequal or checked < B // 2 or (cuda and not launches["banded_scores"]):
+        raise RuntimeError("sharded_score_path: scores unequal to the replicated wire path's, "
+                           f"too few records, or kernel launches {launches}")
+    out["sharded_score_path"] = launches
+    del smapper, wr
+
+    # slot64: the same first batch on the int64 cut
+    st64, arr64 = worlds["slot64"]
+    (stack64,) = sharded.upload_sharded(arr64, [[dev] * SHARDS])
+    r, ln = to_dev(dev, codes[:B], lens[:B])
+    got, s, launches = timed(lambda: sharded.map_batch_se_sharded(
+        [stack64, stack64], st64, r, ln, nv, cfg, mesh), cuda)
+    same = tuples_equal(got[0], firsts[0])
+    emit("sharded_slot64_path", shards=SHARDS, reads=B, slot_base_dtype=str(arr64.slot_base.dtype),
+         seconds=s, reads_per_s=B / s, equal_sharded_path=same, launches=launches)
+    if not same or (cuda and launches["sharded_walk"] != len(mesh)):
+        raise RuntimeError(f"sharded_slot64_path: unequal to sharded_path's first batch, or "
+                           f"kernel launches {launches}")
+    out["sharded_slot64_path"] = launches
+    del stack64
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def sam_records(path: str) -> list[str]:
+    with open(path) as f:
+        return sorted(ln for ln in f.read().splitlines() if ln and not ln.startswith("@"))
+
+
+def phase_cli_world2(idx_dir: str, work: str, single: dict, force_cpu: bool) -> None:
+    """Two command-line ranks as processes sharing the card (--worldSize 2,
+    coordinator on localhost), on the default runs' reads and pairs at their
+    batch size: each record union must equal the single-process SAM, and
+    every rank's global counters the single process's. single: {"se"|"pe":
+    (the reads' argv, the single-process SAM, its --statsJson, batch size)}."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env.pop("TQM_FORCE_CPU", None)
+    if force_cpu:
+        env["TQM_FORCE_CPU"] = "1"
+    for ends, (reads_argv, single_sam, single_stats, bs) in single.items():
+        port = free_port()
+        out = os.path.join(work, f"world2_{ends}.sam")
+        t0 = time.time()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "rapmap_tpu_torch.cli", "quasimap", "-i", idx_dir,
+             *reads_argv, "-o", out, "--batchSize", str(bs),
+             "--statsJson", os.path.join(work, f"world2_{ends}_{rank}.json"),
+             "--worldSize", "2", "--rank", str(rank), "--coordinator", f"localhost:{port}"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=repo)
+            for rank in range(2)]
+        errs = []
+        for p in procs:
+            try:
+                _, err = p.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                _, err = p.communicate()
+            errs.append(err)
+        wall = time.time() - t0
+        if any(p.returncode for p in procs):
+            raise RuntimeError(f"cli_world2 {ends}: a rank failed: "
+                               + " | ".join(e[-600:] for e in errs))
+        shards = [sam_records(f"{out}.{rank:04d}") for rank in range(2)]
+        with open(single_stats) as f:
+            want = json.load(f)
+        stats = []
+        for rank in range(2):
+            with open(os.path.join(work, f"world2_{ends}_{rank}.json")) as f:
+                stats.append(json.load(f))
+        keys = ("reads_total", "reads_mapped", "records", "too_ambiguous")
+        union_equal = sorted(shards[0] + shards[1]) == sam_records(single_sam)
+        counters_equal = all(s[k] == want[k] for s in stats for k in keys)
+        emit(f"cli_world2_{ends}", ranks=2, batch=bs, records_per_rank=[len(s) for s in shards],
+             seconds=wall, union_equals_single=union_equal,
+             global_counters_equal_single=counters_equal,
+             counters={k: stats[0][k] for k in keys})
+        if not (union_equal and counters_equal and all(shards)):
+            raise RuntimeError(f"cli_world2 {ends}: the ranks' union or counters differ from "
+                               "the single process's, or a rank wrote no record")
+
+
 def dir_bytes(path: str) -> int:
     return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
 
@@ -3097,6 +3585,33 @@ def main() -> int:
             raise RuntimeError(f"{phase}: kernel launches {r['launches']}")
     staged_path_launches = {**staged_launches, **staged_cli}
 
+    # ---- data parallel, the SA-sharded engine, two command-line ranks -------
+    # two replicas on the card against the single-device program; the
+    # sharded walk against its plain version; the world's index in SHARDS
+    # shards on the card against the replicated engine; then two ranks of
+    # the command line as processes against the single-process runs above
+    if cuda:
+        torch.cuda.empty_cache()
+    qm = QuasiMapper(idx, cfg, device=dev)
+    dp_launches = phase_dp(dev, qm, codes, lens, pc1, pc2, plens, B, cuda)
+    k8_ok, k8_err, k8_t, sh_worlds = phase_sharded_kernel(dev, timer, idx, codes, lens, C, B,
+                                                          args.seed)
+    if not k8_ok:
+        raise RuntimeError("sharded_walk kernel disagrees with its plain version, or an input "
+                           "set missed what it is there to exercise")
+    sh_launches = phase_sharded(dev, qm, sh_worlds, codes, lens, pc1, pc2, plens, B, cuda)
+    del qm, sh_worlds
+    if cuda:
+        torch.cuda.empty_cache()
+    phase_cli_world2(idx_dir, work, {
+        "se": (["-r", reads_fq], sam("a.sam"), os.path.join(work, "cli_default.json"), cli_bs),
+        "pe": (["-1", pe_fq[0], "-2", pe_fq[1]], sam("pa.sam"),
+               os.path.join(work, "cli_pe_default.json"), cli_bs)}, force_cpu)
+    par_path_launches = {**dp_launches, **sh_launches}
+
+    def on_par(kernel):
+        return {path: n[kernel] for path, n in par_path_launches.items()}
+
     def on_staged(kernel):
         return {path: n[kernel] for path, n in staged_path_launches.items()}
 
@@ -3216,6 +3731,24 @@ def main() -> int:
         "launches_on_pe_paths": on_pe("extend_packed_anchors"),
         "launches_on_pseudo_paths": on_ps("extend_packed_anchors"), "max_abs_err": anch_err,
         "matches_plain": anch_ok, **{x: anch_t[x] for x in (
+            "ms", "cold_ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+    }, {
+        "name": "sharded_walk", "route": "cuda",
+        "source": "rapmap_tpu_torch/csrc/walk.cu",
+        "replaces": "rapmap_tpu/parallel/sharded.py:619",
+        "launches": sh_launches["sharded_path"]["sharded_walk"],
+        "launches_on_parallel_paths": on_par("sharded_walk"),
+        "max_abs_err": k8_err, "matches_plain": k8_ok, **{x: k8_t["paired_row"][x] for x in (
+            "ms", "cold_ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+    }, {
+        "name": "sharded_walk_lanes", "route": "cuda",
+        "source": "rapmap_tpu_torch/csrc/walk.cu",
+        "replaces": "rapmap_tpu/parallel/sharded.py:469",
+        "launches": sh_launches["sharded_lanes_path"]["sharded_walk_lanes"],
+        "launches_on_parallel_paths": on_par("sharded_walk_lanes"),
+        "max_abs_err": k8_err, "matches_plain": k8_ok, **{x: k8_t["lanes_row"][x] for x in (
             "ms", "cold_ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
     }]}), flush=True)

@@ -8,8 +8,10 @@ the canonical CHD, with or without --mappingScore (AS:i tags, the
 --minScoreFraction filter), on the replicated or the host-staged engine
 (--engine, or auto by size; a mapping-only quasi_map artifact always maps
 staged, a quasi_core one reloads into a full index), and `pseudomap` of
-either on a pseudo index, run end to end (FASTQ in, SAM out); what is not
-ported yet (--worldSize > 1) is refused with one log line and exit code 1.
+either on a pseudo index, run end to end (FASTQ in, SAM out). With
+--worldSize > 1 each of the cooperating processes maps every worldSize-th
+batch into its own SAM shard <out>.<rank:04d>, and the counters are summed
+across them (parallel/multihost.py).
 
 The mapping runs on the CUDA card. TQM_FORCE_CPU=1 runs every kernel's plain
 PyTorch version on the CPU instead; without it and without a card the command
@@ -268,20 +270,38 @@ def _pick_device(cmd: str):
     return torch.device("cuda")
 
 
-def _refuse(what: str, when: str) -> int:
-    log.error("%s is not ported to rapmap_tpu_torch yet: it comes with %s", what, when)
-    return 1
-
-
 def run_map(args, pseudo: bool) -> int:
+    """Map one read file or pair of files; with --worldSize > 1, as rank
+    --rank of that many processes joined at --coordinator."""
+    world = max(1, args.worldSize)
+    if world == 1:
+        return _map(args, pseudo, 1, 0)
+    rank = args.rank
+    if not (0 <= rank < world):
+        log.error("--rank must be in [0, worldSize)")
+        return 1
+    from rapmap_tpu_torch.parallel import multihost
+
+    multihost.init_distributed(args.coordinator, world, rank)
+    try:
+        if args.output == "-":
+            log.error("--worldSize > 1 needs a file output (-o), not stdout")
+            return 1
+        args.output = f"{args.output}.{rank:04d}"
+        return _map(args, pseudo, world, rank)
+    finally:
+        multihost.shutdown()
+
+
+def _map(args, pseudo: bool, world: int, rank: int) -> int:
+    """The run of one process: batch bi is this process's when
+    bi % world == rank."""
     import contextlib
     import json
 
     from rapmap_tpu_torch.index.format import load_header, load_index
     from rapmap_tpu_torch.io import fastx, sam
 
-    if args.worldSize > 1:
-        return _refuse("--worldSize > 1", "the data-parallel and multi-process slice")
     if not (args.reads or (args.mates1 and args.mates2)):
         log.error("provide -r for single-end or -1/-2 for paired-end reads")
         return 1
@@ -489,19 +509,21 @@ def run_map(args, pseudo: bool) -> int:
         with device_trace(args.traceDir):
             if args.numThreads >= 2:
                 it = fastx.prefetch(it, depth=max(2, args.pipelineDepth))
-            bi = 0
+            bi = my_bi = 0
             while True:
                 with timers.stage("parse"):
                     batch = next(it, None)
                 if batch is None:
                     break
-                if bi >= skip_batches:
-                    with timers.stage("dispatch"):
-                        fut = dispatch(batch)
-                    q.append((batch, fut))
-                    if len(q) >= depth:
-                        drain(q.popleft())
-                        drained()
+                if bi % world == rank:
+                    if my_bi >= skip_batches:
+                        with timers.stage("dispatch"):
+                            fut = dispatch(batch)
+                        q.append((batch, fut))
+                        if len(q) >= depth:
+                            drain(q.popleft())
+                            drained()
+                    my_bi += 1
                 bi += 1
             while q:
                 drain(q.popleft())
@@ -511,6 +533,10 @@ def run_map(args, pseudo: bool) -> int:
 
     dt = time.time() - t0
     totals["wall_s"] = round(dt, 3)
+    if world > 1:
+        from rapmap_tpu_torch.parallel import multihost
+
+        totals = multihost.global_counter_sum(totals)  # also a barrier
     if totals.get("out_truncated"):
         log.warning(
             "%d reads had mapping records dropped by the per-read output cap "

@@ -29,9 +29,10 @@
 // [fwd; revcomp] lanes of scan_batch and pseudo_scan_batch). Extensions:
 // the kernel is built once per extension kind (template parameter kExt):
 // packed words (extend_lane), the charwise per-depth narrowing over the
-// lanes' int8 codes and the flat sa/text arrays (extend_charwise), or none
-// (the pseudo walks). The packed instantiation is the code the kernel had
-// before the other two were added (if constexpr).
+// lanes' int8 codes and the flat sa/text arrays (extend_charwise), none
+// (the pseudo walks), or packed words on the owning shard of a sharded
+// index (extend_sharded, the sharded walks). The packed instantiation is
+// the code the kernel had before the others were added (if constexpr).
 //
 // What bounds it on the card. The byte bound is the hit buffer written once
 // (R x H x 32 bytes, three quarters of the bytes at H = 16) plus the 32-byte
@@ -119,6 +120,23 @@
 // past the fused sa_cmp words. tqm_extend_packed_traffic is its counting
 // build, for the byte bound.
 //
+// The sharded walks (rapmap_tpu/parallel/sharded.py _sharded_scan_paired,
+// while_loop :619, and _sharded_scan, :469) are the packed build over an
+// SA-sharded index: the reference runs the walk replicated on every idx
+// shard, and each trip extends a lane only on the shard that owns its global
+// anchor interval, then unions the step's (b, e, mlen) with three psums over
+// the idx axis. With every shard of a data row on one card there is nothing
+// to exchange: a lane's thread picks the owner by the shards' [offset, true
+// count] (tqm_sharded_walk, kExt kSharded) and extends over that shard's
+// stacked sa_cmp rows at local slots, rebased to global ones; a lane no
+// shard owns records (0, 0, 0) as the psum of nothing does. The bound is
+// the packed walk's (tqm_sharded_walk_traffic counts its sectors, the shard
+// table included), and so is the design; the owner test adds P small loads
+// a trip that stay in L1. Global slots are int64 in the intervals and hits
+// (the reference's int32 globals below 2^31, its int64 ones past it);
+// slot_base is read in the type it was cut in, int32 or int64 (template
+// parameter Slot).
+//
 // C interface for ctypes: every pointer and the stream are void* on the
 // Python side; every entry returns the CUDA error code (0 = success).
 
@@ -132,7 +150,7 @@ constexpr int kMaskRegWords = 4;   // anchor-mask words in registers: S <= 128
 constexpr int kRegWords = 8;       // query words and fused sa_cmp words in registers
 
 // The extension a build of the walk runs at each anchor.
-enum class Ext { kPacked, kCharwise, kNone };
+enum class Ext { kPacked, kCharwise, kNone, kSharded };
 
 struct Index {
   const int32_t* sa_cmp;  // (n_sa, 3 + F) [wi, sub, tleft, w0..w_{F-1}], 8-byte aligned rows
@@ -147,6 +165,7 @@ enum Region {
   kPreads, kNextBad, kLens, kColOff, kBf, kEf, kBr, kEr, kAnchF, kAnchR, kSaCmp, kText2q,
   kCodes, kSa, kText,                   // the charwise extension's
   kLane, kB0, kE0, kPos, kActive,       // the extension alone's per-anchor inputs
+  kSlotBase,                            // the sharded walk's shard offsets and counts
   kRegions
 };
 
@@ -158,6 +177,21 @@ struct CharIndex {
   int64_t n_sa;
   const int8_t* text;   // (n_text,)
   int64_t n_text;
+};
+
+// The sharded index of the sharded walks: P shard tables of s_pad sa_cmp rows
+// each (rows as in Index), stacked, over one text2q (replicated content), and
+// each shard's [global slot offset, true slot count] in the global slot type
+// (int32, or int64 past 2^31 total slots).
+template <typename Slot>
+struct Shards {
+  const int32_t* sa_cmp;  // (P, s_pad, 3 + F), 8-byte aligned rows
+  int P;
+  int64_t s_pad;
+  int F;
+  const int32_t* text2q;  // (nw, 4)
+  int64_t nw;
+  const Slot* slot_base;  // (P, 2)
 };
 
 // What a launch read, for the byte bound of a run: one bitmap per input
@@ -650,6 +684,37 @@ __device__ void extend_lane(const Index& ix, const int64_t* words, const int64_t
   mlen = ok ? k + ext : k;
 }
 
+// One trip's extension on the sharded index (rapmap_tpu/parallel/sharded.py
+// _sharded_scan :437-451): every shard that owns the global anchor interval
+// [b0, e0) -- b0 - base in [0, true count), tested in global coordinates
+// before the rebase -- extends it over its own rows at local slots, and the
+// step's (b, e, mlen) is the sum of the owners' results rebased to global
+// slots, as the reference's psum over the idx axis. Shards own disjoint slot
+// ranges, so one shard answers; a lane no shard owns gets (0, 0, 0).
+template <bool kCount, typename Slot>
+__device__ void extend_sharded(const Shards<Slot>& sh, const int64_t* words, const int64_t* nbad,
+                               int64_t len, int64_t col_off, int64_t b0, int64_t e0,
+                               int64_t pos, int k, int steps, int L, int W, int64_t& b,
+                               int64_t& e, int64_t& mlen, const Traffic& tr) {
+  b = 0;
+  e = 0;
+  mlen = 0;
+  for (int p = 0; p < sh.P; ++p) {
+    const int64_t base = load<kCount>(tr, kSlotBase, sh.slot_base + 2 * p);
+    const int64_t n_local = load<kCount>(tr, kSlotBase, sh.slot_base + 2 * p + 1);
+    const int64_t lb = b0 - base;
+    if (lb < 0 || lb >= n_local) continue;
+    const Index ix{sh.sa_cmp + static_cast<int64_t>(p) * sh.s_pad * (3 + sh.F), sh.s_pad, sh.F,
+                   sh.text2q, sh.nw};
+    int64_t bl, el, ml;
+    extend_lane<kCount>(ix, words, nbad, len, col_off, lb, clamp64(e0 - base, 0, n_local), pos,
+                        true, k, steps, L, W, bl, el, ml, tr);
+    b += bl + base;
+    e += el + base;
+    mlen += ml;
+  }
+}
+
 // ---- the walk ------------------------------------------------------------------
 
 __device__ __forceinline__ void put_slot(int64_t* slot, int64_t a, int64_t b, int64_t c,
@@ -663,8 +728,10 @@ __device__ __forceinline__ void put_slot(int64_t* slot, int64_t a, int64_t b, in
 // kExt kCharwise: the charwise extension over cx (preads, next_bad, col_off2
 // and ix unused); kPacked: the packed one (cx unused); kNone: no extension
 // (the pseudo walks: a hit is the anchor's own interval, with length k, and
-// the walk jumps k columns; only lens2, the intervals and the masks are read).
-template <bool kCount, Ext kExt>
+// the walk jumps k columns; only lens2, the intervals and the masks are read);
+// kSharded: the packed one on the owning shard of sh (the sharded walks:
+// intervals and hits in global slots; ix and cx unused).
+template <bool kCount, Ext kExt, typename Slot = int64_t>
 __global__ void __launch_bounds__(kMaxLanes) anchor_walk_kernel(
     const int64_t* __restrict__ preads, const int64_t* __restrict__ next_bad,
     const int64_t* __restrict__ lens2, const int64_t* __restrict__ col_off2,
@@ -673,7 +740,7 @@ __global__ void __launch_bounds__(kMaxLanes) anchor_walk_kernel(
     const uint8_t* __restrict__ anch_f, const uint8_t* __restrict__ anch_r, Index ix,
     CharIndex cx, int64_t R, int64_t B, int L, int S, int k, int H, int steps, int W, bool staged,
     int64_t* __restrict__ buf, int64_t* __restrict__ n_out, uint8_t* __restrict__ trunc_out,
-    Traffic tr) {
+    Traffic tr, Shards<Slot> sh) {
   // staged: the block's lanes x H slots x [pos, mlen, b, e], laid out as in buf
   extern __shared__ __align__(16) int64_t stage[];
   const int64_t r0 = static_cast<int64_t>(blockIdx.x) * blockDim.x;
@@ -682,7 +749,8 @@ __global__ void __launch_bounds__(kMaxLanes) anchor_walk_kernel(
   const bool is_rc = r >= B;
   const int64_t rr = is_rc ? r - B : r;
   const int64_t len = load<kCount>(tr, kLens, lens2 + r);
-  const int64_t col_off = kExt != Ext::kPacked ? 0 : load<kCount>(tr, kColOff, col_off2 + r);
+  constexpr bool kWords = kExt == Ext::kPacked || kExt == Ext::kSharded;  // packed read words
+  const int64_t col_off = kWords ? load<kCount>(tr, kColOff, col_off2 + r) : 0;
   AnchorMask<kCount> mask;
   mask.init((is_rc ? anch_r : anch_f) + rr * S, S, is_rc ? kAnchR : kAnchF);
   // Each warp zeroes, stages and writes out its own lanes' part of buf, so
@@ -736,6 +804,10 @@ __global__ void __launch_bounds__(kMaxLanes) anchor_walk_kernel(
         extend_lane<kCount>(ix, preads + r * L, next_bad + r * L, len, col_off,
                             load<kCount>(tr, gb, db + col), load<kCount>(tr, ge, de + col),
                             posc, true, k, steps, L, W, b, e, mlen, tr);
+      } else if constexpr (kExt == Ext::kSharded) {
+        extend_sharded<kCount>(sh, preads + r * L, next_bad + r * L, len, col_off,
+                               load<kCount>(tr, gb, db + col), load<kCount>(tr, ge, de + col),
+                               posc, k, steps, L, W, b, e, mlen, tr);
       } else {
         if constexpr (kCount) atomicAdd(tr.rows, 1ull);  // a trip of the walk
         b = load<kCount>(tr, gb, db + col);
@@ -856,14 +928,14 @@ int launch_extend(const void* preads, const void* next_bad, const void* lens,
 }
 
 // The launch of a walk of any extension kind; the inputs of the others are
-// not read (ix or cx default, null lane pointers).
-template <bool kCount, Ext kExt>
+// not read (ix, cx or sh default, null lane pointers).
+template <bool kCount, Ext kExt, typename Slot = int64_t>
 int launch_walk(const void* preads, const void* next_bad, const void* lens2,
                 const void* col_off2, const void* bf, const void* ef, const void* br,
                 const void* er, const void* anch_f, const void* anch_r, const Index& ix,
                 const CharIndex& cx, int64_t R, int64_t B, int L, int S, int k, int H,
                 int steps, int W, void* buf, void* n_out, void* trunc_out, const Traffic& tr,
-                void* stream) {
+                void* stream, const Shards<Slot>& sh = Shards<Slot>{}) {
   if (R <= 0 || B <= 0 || R > 2 * B || L <= 0 || S <= 0 || H <= 0 || W < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0;
@@ -880,20 +952,21 @@ int launch_walk(const void* preads, const void* next_bad, const void* lens2,
                            : kMaxLanes;
   const size_t smem = staged ? static_cast<size_t>(lanes * lane_bytes) : 0;
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(anchor_walk_kernel<kCount, kExt>,
+    err = cudaFuncSetAttribute(anchor_walk_kernel<kCount, kExt, Slot>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const unsigned blocks = static_cast<unsigned>((R + lanes - 1) / lanes);
-  anchor_walk_kernel<kCount, kExt><<<blocks, lanes, smem, static_cast<cudaStream_t>(stream)>>>(
+  anchor_walk_kernel<kCount, kExt, Slot><<<blocks, lanes, smem,
+                                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(preads), static_cast<const int64_t*>(next_bad),
       static_cast<const int64_t*>(lens2), static_cast<const int64_t*>(col_off2),
       static_cast<const int64_t*>(bf), static_cast<const int64_t*>(ef),
       static_cast<const int64_t*>(br), static_cast<const int64_t*>(er),
       static_cast<const uint8_t*>(anch_f), static_cast<const uint8_t*>(anch_r), ix, cx, R, B, L,
       S, k, H, steps, W, staged, static_cast<int64_t*>(buf), static_cast<int64_t*>(n_out),
-      static_cast<uint8_t*>(trunc_out), tr);
+      static_cast<uint8_t*>(trunc_out), tr, sh);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -908,6 +981,35 @@ Traffic make_traffic(const void* const* tensors, const Region* regions, int n, v
   }
   tr.rows = static_cast<unsigned long long*>(rows);
   return tr;
+}
+
+bool shards_ok(const void* sa_cmp, int P, int64_t s_pad, int F, const void* text2q, int64_t nw,
+               const void* slot_base) {
+  return P >= 1 && s_pad >= 1 && text2q != nullptr && slot_base != nullptr &&
+         index_ok(sa_cmp, s_pad, F, nw);
+}
+
+template <typename Slot>
+Shards<Slot> make_shards(const void* sa_cmp, int P, int64_t s_pad, int F, const void* text2q,
+                         int64_t nw, const void* slot_base) {
+  return Shards<Slot>{static_cast<const int32_t*>(sa_cmp), P, s_pad, F,
+                      static_cast<const int32_t*>(text2q), nw,
+                      static_cast<const Slot*>(slot_base)};
+}
+
+// The sharded walk at one global slot type.
+template <bool kCount, typename Slot>
+int launch_sharded(const void* preads, const void* next_bad, const void* lens2,
+                   const void* col_off2, const void* bf, const void* ef, const void* br,
+                   const void* er, const void* anch_f, const void* anch_r, const void* sa_cmp,
+                   int P, int64_t s_pad, int F, const void* text2q, int64_t nw,
+                   const void* slot_base, int64_t R, int64_t B, int L, int S, int k, int H,
+                   int steps, int W, void* buf, void* n_out, void* trunc_out, const Traffic& tr,
+                   void* stream) {
+  return launch_walk<kCount, Ext::kSharded, Slot>(
+      preads, next_bad, lens2, col_off2, bf, ef, br, er, anch_f, anch_r, Index{}, CharIndex{}, R,
+      B, L, S, k, H, steps, W, buf, n_out, trunc_out, tr, stream,
+      make_shards<Slot>(sa_cmp, P, s_pad, F, text2q, nw, slot_base));
 }
 
 }  // namespace
@@ -1105,4 +1207,53 @@ extern "C" int tqm_extend_charwise(
       k, steps, static_cast<int64_t*>(b_out), static_cast<int64_t*>(e_out),
       static_cast<int64_t*>(mlen_out));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The sharded walks (rapmap_tpu/parallel/sharded.py _sharded_scan_paired,
+// while_loop :619, and _sharded_scan, :469): lanes as in tqm_anchor_walk,
+// strand-paired (R = 2B, the canonical-class sharded scan) or explicit
+// (B = R, the [fwd; revcomp] lanes of the per-strand and binary-search
+// scans), with bf, ef, br, er GLOBAL slot intervals (int64) of the sharded
+// dense phase. Each trip extends the anchor on the shard that owns it:
+// sa_cmp (P, s_pad, 3 + F) int32 holds the shards' rows stacked, text2q
+// (nw, 4) the replicated packed text, slot_base (P, 2) each shard's [global
+// offset, true slot count], int32 (slot64 = 0) or int64 (slot64 = 1). Hits
+// are [pos, mlen, b, e] in global slots. Writes every output byte as
+// tqm_anchor_walk does.
+extern "C" int tqm_sharded_walk(
+    const void* preads, const void* next_bad, const void* lens2, const void* col_off2,
+    const void* bf, const void* ef, const void* br, const void* er, const void* anch_f,
+    const void* anch_r, const void* sa_cmp, int P, int64_t s_pad, int F, const void* text2q,
+    int64_t nw, const void* slot_base, int slot64, int64_t R, int64_t B, int L, int S, int k,
+    int H, int steps, int W, void* buf, void* n_out, void* trunc_out, void* stream) {
+  if (!shards_ok(sa_cmp, P, s_pad, F, text2q, nw, slot_base))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto run = slot64 ? &launch_sharded<false, int64_t> : &launch_sharded<false, int32_t>;
+  return run(preads, next_bad, lens2, col_off2, bf, ef, br, er, anch_f, anch_r, sa_cmp, P, s_pad,
+             F, text2q, nw, slot_base, R, B, L, S, k, H, steps, W, buf, n_out, trunc_out,
+             Traffic{}, stream);
+}
+
+// The sharded walk counting what it reads, as tqm_anchor_walk_traffic: the
+// bitmaps follow the order preads, next_bad, lens2, col_off2, bf, ef, br, er,
+// anch_f, anch_r, sa_cmp, text2q, slot_base, and `rows` receives the number
+// of sa_cmp rows compared.
+extern "C" int tqm_sharded_walk_traffic(
+    const void* preads, const void* next_bad, const void* lens2, const void* col_off2,
+    const void* bf, const void* ef, const void* br, const void* er, const void* anch_f,
+    const void* anch_r, const void* sa_cmp, int P, int64_t s_pad, int F, const void* text2q,
+    int64_t nw, const void* slot_base, int slot64, int64_t R, int64_t B, int L, int S, int k,
+    int H, int steps, int W, void* buf, void* n_out, void* trunc_out, void* bits,
+    const int64_t* word_off, void* rows, void* stream) {
+  if (!shards_ok(sa_cmp, P, s_pad, F, text2q, nw, slot_base))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* tensors[] = {preads, next_bad, lens2,  col_off2, bf,     ef,     br,
+                           er,     anch_f,   anch_r, sa_cmp,   text2q, slot_base};
+  const Region regions[] = {kPreads, kNextBad, kLens,  kColOff, kBf,     kEf,      kBr,
+                            kEr,     kAnchF,   kAnchR, kSaCmp,  kText2q, kSlotBase};
+  const Traffic tr = make_traffic(tensors, regions, 13, bits, word_off, rows);
+  auto run = slot64 ? &launch_sharded<true, int64_t> : &launch_sharded<true, int32_t>;
+  return run(preads, next_bad, lens2, col_off2, bf, ef, br, er, anch_f, anch_r, sa_cmp, P, s_pad,
+             F, text2q, nw, slot_base, R, B, L, S, k, H, steps, W, buf, n_out, trunc_out, tr,
+             stream);
 }

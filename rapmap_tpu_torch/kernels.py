@@ -39,6 +39,8 @@ LAUNCHES: dict[str, int] = {
     "pseudo_walk": 0,           # csrc/walk.cu, no extension, strand-paired lanes
     "pseudo_walk_lanes": 0,     # csrc/walk.cu, no extension, explicit lanes
     "extend_packed_anchors": 0,  # csrc/walk.cu, the extension alone, anchor-parallel
+    "sharded_walk": 0,          # csrc/walk.cu, sharded index, strand-paired lanes
+    "sharded_walk_lanes": 0,    # csrc/walk.cu, sharded index, explicit lanes
 }
 
 _lock = threading.Lock()

@@ -157,7 +157,8 @@ def _collate_core(
     occurrence; None is the quasi resolution through didx.sa_meta. The pseudo
     path passes its CSR resolver (models.pseudo.csr_expand_fn) with didx and
     st None: then there is no pair pool and no packed key (the vote sorts
-    through _lexsort)."""
+    through _lexsort). The sharded engine's GLOBAL int64 slots (slot64) need
+    no path of their own: the int64 carriers here resolve wide begins."""
     R, H = hits.q.shape
     B = R // 2
     H2 = 2 * H
@@ -354,7 +355,7 @@ def collate_batch(
     expand_fn=None,
 ) -> MapOut:
     """Winners scattered into the slotted (B, MAX_OUT) MapOut layout (used by
-    the unchunked wire path and the library API)."""
+    the unchunked wire path, the library API and the sharded engine)."""
     B = hits.q.shape[0] // 2
     MO = cfg.out_slots
     c = _collate_core(didx, st, hits, lens, cfg, expand_fn)

@@ -54,7 +54,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 INTERLEAVED = (
     "// Binary search in [lo, hi)",
-    "// ---- the walk",
+    "// One trip's extension on the sharded index",
     """// Binary search in [lo, hi) for the first S_p >= Q, with the lcps of the
 // last "less" and the last "not less" compare.
 template <bool kCount>

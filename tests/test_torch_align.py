@@ -25,6 +25,7 @@ from rapmap_tpu_torch.ops import align
 from rapmap_tpu_torch.ops.compact import rid_from_counts
 from rapmap_tpu_torch.ops.device_index import upload_index
 from tests.util import toy_index
+from tests.test_torch_pe import jax_cache_off  # noqa: F401
 
 
 def t_(a):

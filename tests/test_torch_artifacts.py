@@ -27,6 +27,7 @@ from rapmap_tpu_torch.parallel.staged import StagedMapper
 from tests.test_device_parity import batch_of
 from tests.test_torch_staged import _one_thread  # noqa: F401
 from tests.util import random_transcriptome, sample_reads, write_fasta
+from tests.test_torch_pe import jax_cache_off  # noqa: F401
 
 _DERIVED = ["text2b", "sa_txp", "sa_tpos", "kmer_hi", "kmer_lo",
             "kmer_b", "kmer_e", "prefix_lut"]

@@ -24,6 +24,7 @@ from rapmap_tpu_torch.models.pseudo import PseudoMapper
 from rapmap_tpu_torch.ops import lookup
 from tests.test_device_parity import batch_of
 from tests.util import random_transcriptome, sample_reads, write_fasta
+from tests.test_torch_pe import jax_cache_off  # noqa: F401
 
 M32 = 0xFFFFFFFF
 

@@ -248,8 +248,10 @@ REFUSALS = {
     # and pseudomap refuses the core artifact
     "mapping_score": (["quasimap", "-i", "quasi_map", "-r", "FQ", "--mappingScore"],
                       "mapping-only"),
-    "world_size": (["quasimap", "-i", "IDX", "-r", "FQ", "--worldSize", "2", "-o", "OUT"],
-                   "--worldSize > 1"),
+    # --worldSize > 1 is ported: a rank outside the world is refused before
+    # any process group is joined, as tqm refuses it
+    "world_size": (["quasimap", "-i", "IDX", "-r", "FQ", "--worldSize", "2", "--rank", "2",
+                    "-o", "OUT"], "--rank must be in [0, worldSize)"),
     "index_quasi_map": (["quasimap", "-i", "quasi_map", "-r", "FQ", "--engine", "replicated"],
                         "has no replicated-engine arrays"),
     "index_quasi_core": (["pseudomap", "-i", "quasi_core", "-r", "FQ"],

@@ -24,6 +24,7 @@ from rapmap_tpu_torch.ops.mmp import scan_dispatch
 from rapmap_tpu_torch.ops.wire import rec_spec_se
 from tests.test_device_parity import batch_of
 from tests.util import BASES, sample_reads, toy_index
+from tests.test_torch_pe import jax_cache_off  # noqa: F401
 
 B = 64  # reads; with expand_budget 8 the voting pool is 512, a power of two
 

@@ -22,6 +22,7 @@ from tests.test_device_parity import batch_of
 from tests.test_fallback import _repetitive_world
 from tests.test_torch_cli import body, port
 from tests.util import write_fastq
+from tests.test_torch_pe import jax_cache_off  # noqa: F401
 
 
 def test_fallback_restores_oracle_results(tmp_path, rng):

@@ -19,6 +19,7 @@ from rapmap_tpu_torch.ops.device_index import (
     EngineStatic, device_bytes_estimate, upload_index,
 )
 from tests.util import random_transcriptome, write_fasta
+from tests.test_torch_pe import jax_cache_off  # noqa: F401
 
 
 def assert_index_equal(a, b):

@@ -22,6 +22,7 @@ from rapmap_tpu_torch.ops.collate import MapOut
 from rapmap_tpu_torch.oracle import quasimap as oracle
 from tests.test_device_parity import codes_of
 from tests.util import BASES, sample_reads, toy_index
+from tests.test_torch_pe import jax_cache_off  # noqa: F401
 
 
 @pytest.fixture(scope="module")

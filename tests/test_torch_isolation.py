@@ -3,7 +3,9 @@ every module imports, a toy index builds and maps single-end reads and pairs
 on the CPU (and one without a CHD, packed and charwise), a toy pseudo index
 builds and pseudo-maps reads and pairs, the host-staged engine maps from
 the mapping-only artifact and from the pseudo index, a core artifact
-reloads and maps, and the command line
+reloads and maps, a toy batch maps data-parallel over two CPU entries
+(parallel/dp.py) and on the SA-sharded index (parallel/sharded.py; the
+walk's plain version), parallel/multihost.py imports, and the command line
 (`rapmap_tpu_torch.cli`) indexes and maps FASTQ to SAM, single-end and
 paired-end, quasi and pseudo; a mapper asked for the default device without
 a CUDA card raises instead of running on the CPU, and the command line
@@ -111,6 +113,17 @@ SCRIPT = textwrap.dedent("""
         codes, lens)[1].reads_mapped.item()
     pstaged = StagedPseudoMapper(pidx, cfg, batch=16, read_len=40, n_shards=2, device="cpu")
     pstaged_mapped = pstaged.fetch(pstaged.map_se_async(codes, lens)).counters["reads_mapped"]
+    # data parallel over two CPU entries, and the SA-sharded engine
+    from rapmap_tpu_torch.parallel import dp, multihost, sharded
+
+    tc, tl = torch.from_numpy(codes), torch.from_numpy(lens.astype(np.int64))
+    _, dp_ctr = dp.map_batch_se_dp(res.didx, res.st, tc, tl, dp.split_valid(16, 2, 8), res.cfg,
+                                   dp.make_mesh(2, devices=["cpu", "cpu"]))
+    sh_arr, sh_st = sharded.shard_quasi_index(idx, 2)
+    _, sh_ctr = sharded.map_batch_se_sharded(sh_arr, sh_st, tc, tl, np.array([8, 8]), res.cfg,
+                                             sharded.make_mesh_2d(2, 2, ["cpu"]))
+    par_mapped = [int(dp_ctr.reads_mapped), int(sh_ctr.reads_mapped),
+                  callable(multihost.global_counter_sum)]
     pdir = fa + ".pidx"
     rc_pindex = cli.main(["pseudoindex", "-t", fa, "-i", pdir, "-k", "11"])
     rc_pmap = cli.main(["pseudomap", "-i", pdir, "-r", fq, "-o", sam + ".ps",
@@ -147,6 +160,7 @@ SCRIPT = textwrap.dedent("""
                           rc_pseudo=[rc_pindex, rc_pmap, rc_ppe], ps_sam_mapped=ps_sam_mapped,
                           ps_pe_records=ps_pe_records, staged_mapped=staged_mapped,
                           core_mapped=core_mapped, pstaged_mapped=pstaged_mapped,
+                          par_mapped=par_mapped,
                           second_sam=os.path.exists(sam + ".2"))))
 """)
 
@@ -183,6 +197,9 @@ def test_port_imports_and_maps_without_jax(tmp_path):
     assert res["ps_raised"], "PseudoMapper(device=None) ran without a CUDA card"
     assert "rapmap_tpu_torch.parallel.staged" in res["modules"]
     assert (res["staged_mapped"], res["core_mapped"], res["pstaged_mapped"]) == (16, 16, 16)
+    for m in ("dp", "multihost", "sharded"):
+        assert f"rapmap_tpu_torch.parallel.{m}" in res["modules"]
+    assert res["par_mapped"] == [16, 16, True]
 
 
 def _imports(path: str) -> set[str]:
@@ -202,8 +219,8 @@ def _imports(path: str) -> set[str]:
 
 @pytest.mark.parametrize("where", ["parallel", "chip_smoke.py"])
 def test_no_jax_imports(where):
-    """The host-staged subpackage and chip_smoke.py name neither jax nor
-    rapmap_tpu in any import statement (the run above refuses them at
+    """The parallel subpackage (staged, dp, multihost, sharded) and
+    chip_smoke.py name neither jax nor rapmap_tpu in any import statement (the run above refuses them at
     import; this reads the source, so an import on a path the run does not
     take counts too)."""
     root = os.path.join(REPO, "rapmap_tpu_torch", where) if where == "parallel" else REPO

@@ -34,6 +34,7 @@ from rapmap_tpu_torch.ops.lookup import _chd_lookup, _prefix_of, kmer_lookup
 from tests.test_chd import _key_space
 from tests.test_device_parity import batch_of
 from tests.util import random_transcriptome, sample_reads, toy_index, write_fasta
+from tests.test_torch_pe import jax_cache_off  # noqa: F401
 
 M32 = 0xFFFFFFFF
 

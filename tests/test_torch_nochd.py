@@ -17,6 +17,7 @@ from rapmap_tpu_torch.index.format import index_from_reference
 from rapmap_tpu_torch.models.quasi import QuasiMapper
 from tests.test_device_parity import batch_of, parity_cfg
 from tests.util import BASES, random_transcriptome, sample_reads, write_fasta
+from tests.test_torch_pe import jax_cache_off  # noqa: F401
 
 B, L, CHUNK = 32, 48, 16
 COMP = bytes.maketrans(b"ACGT", b"TGCA")

@@ -35,6 +35,7 @@ from rapmap_tpu_torch.ops.mmp import scan_dispatch
 from rapmap_tpu_torch.ops.sort2 import bitonic_sort_pairs, bitonic_sort_pairs_plain
 from tests.test_device_parity import batch_of
 from tests.util import BASES, random_transcriptome, sample_reads, toy_index, write_fasta
+from tests.test_torch_pe import jax_cache_off  # noqa: F401
 
 
 def t_(a):

@@ -12,12 +12,24 @@ and `pe_direct_eligible`'s verdict; tests/test_torch_pe_constraints.py and
 tests/test_torch_pe_corner.py hold the other configurations.
 
 `map_pe` compares the whole PairOut, empty slots included: their payloads
-come from the stable sorts of `merge_pairs_batch`, ordered alike in both."""
+come from the stable sorts of `merge_pairs_batch`, ordered alike in both.
 
+`jax_cache_off` (autouse, module scope) keeps JAX's compilation cache off
+while a module's tests run, whatever an earlier test of the same worker
+process turned on (tests/test_mapping_score.py runs rapmap_tpu.cli.main in
+process, and its jaxenv.setup() sets a persistent cache directory), and
+drops the worker's compiled programs before and after the module, so that
+their memory mappings do not pile up past the kernel's limit. Every
+tests/test_torch_*.py file that calls into rapmap_tpu in process imports it.
+"""
+
+import gc
 from types import SimpleNamespace
 
+import jax
 import numpy as np
 import pytest
+from jax._src import compilation_cache
 
 import rapmap_tpu.ops.pairs as ref_pairs
 import rapmap_tpu_torch.models.quasi as port_quasi
@@ -33,6 +45,54 @@ from tests.util import BASES, random_transcriptome, write_fasta
 
 B, L, CHUNK = 32, 40, 8  # one padded shape for every set: one compile per config
 COMP = bytes.maketrans(b"ACGT", b"TGCA")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_cache_off():
+    """JAX's compilation cache off for the module, the old state back after,
+    and the worker's compiled programs dropped before and after the module.
+
+    A compile takes the cache's path (compiler._compile_and_write_cache)
+    whenever `jax_enable_compilation_cache` is on when compilation_cache
+    first checks it, with or without a cache directory; that verdict and an
+    initialised file cache are module state of jax._src.compilation_cache,
+    which reset_cache() drops. So: both config values off, the module state
+    reset, and at teardown the values restored and the state reset again
+    (it re-initialises from them at the next compile).
+
+    Every XLA:CPU executable keeps its code in memory mappings, ~1,300-1,500
+    for one of the reference's mapping programs, and the jit caches keep
+    every executable a worker process compiled: past vm.max_map_count
+    (65,530) the next compile's mapping fails and the worker dies with a
+    segmentation fault in backend_compile_and_load. So before and after the
+    module, once the process holds more than MAPS_HIGH mappings,
+    jax.clear_caches() and a collection release them (below that the
+    programs stay, for the next module that runs the same ones)."""
+    old = (jax.config.jax_compilation_cache_dir, jax.config.jax_enable_compilation_cache)
+    jax.config.update("jax_compilation_cache_dir", None)
+    jax.config.update("jax_enable_compilation_cache", False)
+    compilation_cache.reset_cache()
+    _release_programs()
+    yield
+    _MAPPERS.clear()
+    _release_programs()
+    jax.config.update("jax_compilation_cache_dir", old[0])
+    jax.config.update("jax_enable_compilation_cache", old[1])
+    compilation_cache.reset_cache()
+
+
+MAPS_HIGH = 16_000  # of vm.max_map_count's 65,530: room for the largest module's programs
+
+
+def _release_programs():
+    try:
+        with open("/proc/self/maps") as f:
+            n_maps = sum(1 for _ in f)
+    except OSError:  # no /proc: release every time
+        n_maps = MAPS_HIGH + 1
+    if n_maps > MAPS_HIGH:
+        jax.clear_caches()
+        gc.collect()
 
 
 def rc(seq: bytes) -> bytes:
@@ -100,6 +160,25 @@ def _same_wire(ref, rh, port, res):
     return want
 
 
+_MAPPERS: dict = {}
+
+
+def mappers(idx, kw: dict, chunk: int):
+    """The reference's and the port's mapper of (index, config, chunk), made
+    once for the whole session: a reference mapper uploads its index and
+    traces its programs on first use, so one per config and chunk, not one
+    per path and case, keeps a worker's compile count down."""
+    key = (id(idx), chunk, tuple(sorted(kw.items())))
+    if key not in _MAPPERS:
+        _MAPPERS[key] = (
+            idx,  # keeps id(idx) from being reused while the entry lives
+            RefMapper(idx, RefConfig(k=idx.k, chunk=chunk, **kw)),
+            QuasiMapper(index_from_reference(vars(idx)), MapConfig(k=idx.k, chunk=chunk, **kw),
+                        device="cpu"),
+        )
+    return _MAPPERS[key][1:]
+
+
 def assert_pe_parity(idx, pairs, kw, paths=("unchunked", "chunked", "map_pe"),
                      pad_to=B, pad_len=L):
     """The port against the reference on one batch of `pad_to` pairs with
@@ -114,9 +193,7 @@ def assert_pe_parity(idx, pairs, kw, paths=("unchunked", "chunked", "map_pe"),
     out = {}
     for path in paths:
         chunk = C if path == "chunked" else 0
-        ref = RefMapper(idx, RefConfig(k=idx.k, chunk=chunk, **kw))
-        port = QuasiMapper(index_from_reference(vars(idx)),
-                           MapConfig(k=idx.k, chunk=chunk, **kw), device="cpu")
+        ref, port = mappers(idx, kw, chunk)
         assert port.cfg == MapConfig(**vars(ref.cfg))
         if path == "map_pe":
             want = ref.map_pe(c1, l1, c2, l2, n_valid=n)

@@ -8,7 +8,7 @@ which then fall back to orphan records."""
 
 import pytest
 
-from tests.test_torch_pe import assert_pe_parity, world  # noqa: F401
+from tests.test_torch_pe import assert_pe_parity, jax_cache_off, world  # noqa: F401
 
 
 @pytest.mark.parametrize(

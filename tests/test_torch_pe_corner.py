@@ -10,7 +10,7 @@ reference's test asks of the reference."""
 import numpy as np
 import pytest
 
-from tests.test_torch_pe import assert_pe_parity, world  # noqa: F401
+from tests.test_torch_pe import assert_pe_parity, jax_cache_off, world  # noqa: F401
 
 
 def test_pe_no_orphans(world):

@@ -7,7 +7,7 @@ the unchunked and the chunked wire and `map_pe`."""
 import numpy as np
 import pytest
 
-from tests.test_torch_pe import assert_pe_parity
+from tests.test_torch_pe import assert_pe_parity, jax_cache_off  # noqa: F401
 from tests.util import BASES, toy_index
 
 

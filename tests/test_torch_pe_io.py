@@ -21,6 +21,7 @@ from rapmap_tpu_torch.native import bindings
 from rapmap_tpu_torch.ops.pairs import PairOut
 from tests.test_torch_io import same_batches
 from tests.util import BASES
+from tests.test_torch_pe import jax_cache_off  # noqa: F401
 
 
 def _records(rng, n, tag):

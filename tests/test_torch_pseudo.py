@@ -41,6 +41,7 @@ from rapmap_tpu_torch.oracle import pseudomap as pm
 from tests.test_device_parity import batch_of
 from tests.test_torch_walk import MaskModel, clamp, next_anchor_pos
 from tests.util import BASES, random_transcriptome, sample_reads, write_fasta
+from tests.test_torch_pe import jax_cache_off  # noqa: F401
 
 M32 = 0xFFFFFFFF
 ARRAYS = ("kmer_hi", "kmer_lo", "kmer_off", "occ_txp", "occ_pos", "txp_offsets", "txp_lens",

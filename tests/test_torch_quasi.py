@@ -17,6 +17,7 @@ from rapmap_tpu_torch.index.format import index_from_reference
 from rapmap_tpu_torch.models.quasi import QuasiMapper
 from tests.test_device_parity import batch_of
 from tests.util import BASES, random_transcriptome, sample_reads, toy_index, write_fasta
+from tests.test_torch_pe import jax_cache_off  # noqa: F401
 
 B, L, CHUNK = 64, 72, 32  # one padded shape for every set: one compile per config
 

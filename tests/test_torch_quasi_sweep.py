@@ -6,6 +6,7 @@ starved budgets: `map_se` (MapOut, counters) and the wire buffer of
 import pytest
 
 from tests.test_torch_quasi import L, assert_unchunked_parity, world  # noqa: F401
+from tests.test_torch_pe import jax_cache_off  # noqa: F401
 
 
 @pytest.mark.parametrize(

@@ -36,6 +36,7 @@ from tests.test_device_parity import batch_of
 from tests.test_torch_lookup import legacy_chd, without_chd
 from tests.test_torch_walk import LaneModel, clamp
 from tests.util import BASES, sample_reads, toy_index
+from tests.test_torch_pe import jax_cache_off  # noqa: F401
 
 L = 60  # k = 11: W = ceil(49 / 16) = 4 > 3 fused words, so text2q tails run
 

@@ -36,6 +36,7 @@ from rapmap_tpu_torch.oracle.align import score_mapping_np
 from tests.test_device_parity import batch_of
 from tests.test_fallback import _repetitive_world
 from tests.util import random_transcriptome, sample_reads, write_fasta
+from tests.test_torch_pe import jax_cache_off  # noqa: F401
 
 B, L, C = 64, 64, 16      # single-end: 4 chunks of 16
 PB, PL, PC = 32, 56, 16   # paired-end: 2 chunks of 16 (8 for the slotted branch)

@@ -28,6 +28,7 @@ from rapmap_tpu_torch.ops.wire import FLAG_MAPPED
 from rapmap_tpu_torch.parallel.staged import StagedMapper, StagedQuasiMapper
 from tests.test_device_parity import batch_of
 from tests.util import random_transcriptome, sample_reads, write_fasta
+from tests.test_torch_pe import jax_cache_off  # noqa: F401
 
 L = 40
 

@@ -20,6 +20,7 @@ import torch
 from tests.test_torch_cli import ENV, REPO, body
 from tests.test_torch_staged import _one_thread  # noqa: F401
 from tests.util import BASES, random_transcriptome, sample_reads, write_fasta, write_fastq
+from tests.test_torch_pe import jax_cache_off  # noqa: F401
 
 COMP = bytes.maketrans(b"ACGT", b"TGCA")
 SE = ["--maxReadLen", "36", "--batchSize", "16"]

@@ -27,6 +27,7 @@ from rapmap_tpu_torch.parallel.staged import (
 from tests.test_device_parity import batch_of
 from tests.test_torch_staged import _lists, _one_thread  # noqa: F401
 from tests.util import BASES, random_transcriptome, sample_reads, write_fasta
+from tests.test_torch_pe import jax_cache_off  # noqa: F401
 
 L = 40
 

@@ -23,6 +23,7 @@ from rapmap_tpu_torch.ops.mmp import (
 )
 from tests.test_device_parity import batch_of
 from tests.util import BASES, sample_reads, toy_index
+from tests.test_torch_pe import jax_cache_off  # noqa: F401
 
 M32 = 0xFFFFFFFF
 L_MAX = 90  # k = 11: W = ceil(79 / 16) = 5 > 3 fused words, so text2q tails run
