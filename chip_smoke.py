@@ -691,9 +691,12 @@ def walk_cold_ms(fn, reps: int, cuda: bool, kernel: str = "anchor_walk_kernel"):
             flush.fill_(1)
             fn()
 
-    by_name = device_kernels(work)
-    walk = [v for n, v in by_name.items() if kernel in n]
-    if sum(v[1] for v in walk) < reps // 2:
+    for _ in range(3):  # a profiled window now and then records no device event at all
+        by_name = device_kernels(work)
+        walk = [v for n, v in by_name.items() if kernel in n]
+        if sum(v[1] for v in walk) >= reps // 2:
+            break
+    else:
         raise RuntimeError(f"the cold {kernel} timing saw {by_name} for {reps} launches")
     del flush
     torch.cuda.empty_cache()
@@ -2149,6 +2152,62 @@ def owner_gap(stack, p: int):
     return stack._replace(slot_base=base, bases=bases)
 
 
+def one_shard_stack(didx):
+    """The replicated upload as a one-shard ShardStack, no copy: shard 0 at
+    global offset 0 holding every slot, so K8 over it walks the packed walk's
+    rows at the same slots and must give the packed walk's hits on the same
+    walk inputs."""
+    import torch
+
+    from rapmap_tpu_torch.parallel.sharded import ShardStack
+
+    n = didx.sa_cmp.shape[0]
+    dev = didx.sa_cmp.device
+    none = torch.zeros((1, 0, 4), dtype=torch.int32, device=dev)  # no probe tables: walk only
+    return ShardStack(
+        text2q=didx.text2q, sa_cmp=didx.sa_cmp[None], sa_meta=didx.sa_meta[None],
+        kmer_rows=none, lut_rows=none[..., :2],
+        slot_base=torch.tensor([[0, n]], dtype=torch.int64 if n >= 2**31 else torch.int32,
+                               device=dev),
+        chd_dir=None, chd_rows=None, txp_align=didx.txp_align, bases=((0, n),))
+
+
+def shard_edge_reads(idx, stack, fill_codes, fill_lens, C: int):
+    """C reads whose first k-mer's SA interval begins at chosen global
+    slots of the stack: each shard's first and last owned k-mer interval
+    and, for each short shard (true count < S_pad) but the last, the first
+    two and the last k-mer starts in its padding range (the next shard's
+    slots); each read is the text from that slot's suffix, up to READ_LEN
+    bases or the transcript's end; the rest of the chunk is fill_codes ->
+    (codes (C, READ_LEN) int8, lens (C,), {"first", "last", "padding":
+    target slots}, each shard's last owned slot less its last target)."""
+    kb = np.unique(np.asarray(idx.kmer_b, dtype=np.int64))
+    sa = np.asarray(idx.sa, dtype=np.int64)
+    text = np.asarray(idx.text)
+    s_pad = stack.sa_cmp.shape[1]
+    targets = {"first": [], "last": [], "padding": []}
+    last_gap = []
+    for p, (base, n) in enumerate(stack.bases):
+        lo, hi = np.searchsorted(kb, [base, base + n])
+        targets["first"].append(int(kb[lo]))
+        targets["last"].append(int(kb[hi - 1]))
+        last_gap.append(base + n - 1 - int(kb[hi - 1]))
+        if n < s_pad and p + 1 < len(stack.bases):
+            plo, phi = np.searchsorted(kb, [base + n, base + s_pad])
+            targets["padding"] += sorted({int(kb[i]) for i in (plo, plo + 1, phi - 1)
+                                          if plo <= i < phi})
+    codes = np.ascontiguousarray(fill_codes[:C]).copy()
+    lens = np.asarray(fill_lens[:C], dtype=np.int32).copy()
+    for i, t in enumerate(t for v in targets.values() for t in v):
+        win = text[sa[t] : sa[t] + READ_LEN]
+        bad = np.flatnonzero((win < 1) | (win > 4))
+        ln = int(bad[0]) if len(bad) else len(win)
+        codes[i] = 5
+        codes[i, :ln] = win[:ln]
+        lens[i] = ln
+    return codes, lens, targets, last_gap
+
+
 def shifted(arrays, B0: int):
     """slot64 arrays with every global carrier moved up by B0 (slot_base col
     0 and the class rows' intervals): the genome-geometry rehearsal of the
@@ -2162,21 +2221,42 @@ def shifted(arrays, B0: int):
     return arrays._replace(slot_base=sb, chd_rows=rows)
 
 
-def phase_sharded_kernel(dev, timer, idx, codes, lens, C: int, B: int, seed: int):
+def sharded_bound(stack, w, kw, hits) -> dict:
+    """K8's byte bound on one launch, from its counting build (every 32-byte
+    input sector the walk uses, once, the shard table included, plus the
+    outputs written once), with the operations it must at least do."""
+    counted, sectors, rows = sharded_walk_on_0xff(stack, w, **kw, count=True)
+    if any(hits_err(counted, hits).values()):
+        raise RuntimeError("the counting build of the sharded walk disagrees with the kernel")
+    out_bytes = sum(t.numel() * t.element_size() for t in hits)
+    nbytes = 32 * sum(sectors.values()) + out_bytes
+    ops = 32 * rows  # index arithmetic and one masked word compare a row, at least
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=nbytes,
+                output_bytes=out_bytes, input_sectors_read=sectors, sa_cmp_rows=rows)
+
+
+def phase_sharded_kernel(dev, timer, idx, mapper, codes, lens, C: int, B: int, seed: int):
     """sharded_walk (csrc/walk.cu tqm_sharded_walk, the sharded engine's
     walk) against its plain version sharded_walk_plain on card tensors,
     through the wrapper and through the entry on 0xFF-filled outputs: one
     data row's program of phase_sharded (B / 2 reads) and one chunk of C
     reads on the canonical-class shards (strand-paired lanes) and on
     per-strand CHD shards (explicit lanes), the chunk with Ns and mixed
-    lengths, the paired chunk with shard 1's slots owned by no shard, and
-    under slot64 with every global slot moved past 2^31; then its timing
-    and bound on each lane kind's data-row program, the shape of most of
-    its launches on the sharded paths."""
+    lengths, the paired chunk with shard 1's slots owned by no shard, under
+    slot64 with every global slot moved past 2^31, over a one-shard stack
+    of the mapper's replicated upload (whose hits must also equal the packed
+    walk's on the same inputs), and a chunk whose anchors begin at each
+    shard's first and last owned k-mer interval and inside the short
+    shards' padding; then its timing and bound on each lane kind's data-row
+    program, the shape of most of its launches on the sharded paths, beside
+    K8 over the one-shard stack and the packed walk on that row."""
     import torch
 
     from rapmap_tpu_torch.config import MapConfig
-    from rapmap_tpu_torch.parallel import sharded
+    from rapmap_tpu_torch.ops import mmp
     from rapmap_tpu_torch.parallel.sharded import (
         scan_inputs, sharded_walk, sharded_walk_plain, upload_sharded,
     )
@@ -2188,15 +2268,21 @@ def phase_sharded_kernel(dev, timer, idx, codes, lens, C: int, B: int, seed: int
     arr_l, st_l, stack_l, _ = sharded_world(idx, dev, canonical=False)
     arr_64, st_64, _, _ = sharded_world(idx, "cpu", slot64=True)
     (stack_64,) = upload_sharded(shifted(arr_64, 2**31 + 12345), [[dev] * SHARDS])
+    stack_1 = one_shard_stack(mapper.didx)
     c2 = codes[C : 2 * C].copy()
     c2[rng.random(c2.shape) < 0.02] = 5
     l2 = rng.integers(20, READ_LEN + 1, C).astype(np.int32)
     l2[::7], l2[1::7] = K, K - 3
     c2[np.arange(READ_LEN)[None, :] >= l2[:, None]] = 5
+    c3, l3, edges, last_gap = shard_edge_reads(idx, stack_c, codes[2 * C :], lens[2 * C :], C)
 
     def batch(c, ln):
         return (torch.from_numpy(np.ascontiguousarray(c)).to(dev),
                 torch.from_numpy(ln.astype(np.int64)).to(dev))
+
+    def replicated(r, ln):  # the packed walk's inputs and arguments (strand-paired)
+        w, kw = mmp.scan_inputs(mapper.didx, mapper.st, r, ln, cfg)
+        return w, {x: kw[x] for x in ("k", "H", "ext_steps", "paired")}
 
     chunk, mixed = batch(codes[:C], lens[:C]), batch(c2, l2)
     row = batch(codes[: B // 2], lens[: B // 2])
@@ -2205,10 +2291,12 @@ def phase_sharded_kernel(dev, timer, idx, codes, lens, C: int, B: int, seed: int
             ("paired_ns_mixed_lengths", stack_c, st_c, mixed),
             ("lanes_ns_mixed_lengths", stack_l, st_l, mixed),
             ("paired_no_owner", owner_gap(stack_c, 1), st_c, chunk),
-            ("paired_slot64_past_2pow31", stack_64, st_c, chunk)]
+            ("paired_slot64_past_2pow31", stack_64, st_c, chunk),
+            ("paired_one_shard", stack_1, None, chunk),
+            ("paired_shard_edges", stack_c, st_c, batch(c3, l3))]
     checks, max_err, inputs = [], 0, {}
     for name, stack, st, (r, ln) in sets:
-        w, kw = scan_inputs(stack, st, r, ln, cfg)
+        w, kw = scan_inputs(stack, st, r, ln, cfg) if st is not None else replicated(r, ln)
         want = sharded_walk_plain(stack, *w, **kw)
         got = sharded_walk(stack, w, **kw)
         errs = hits_err(got, want)
@@ -2217,19 +2305,32 @@ def phase_sharded_kernel(dev, timer, idx, codes, lens, C: int, B: int, seed: int
             errs = {f: max(errs[f], v) for f, v in hits_err(raw, want).items()}
         hit = torch.arange(want.q.shape[1], device=dev)[None, :] < want.n[:, None]
         unowned = hit & (want.l == 0)
+        extra = {}
+        if name == "paired_one_shard":  # global slots are local ones: the packed walk's hits
+            packed = mmp.anchor_walk(mapper.didx, *w, **kw)
+            extra["equal_packed_walk"] = not any(hits_err(packed, want).values())
+        if name == "paired_shard_edges":  # anchors at the edges, from the dense phase's output
+            at = lambda t: int(((w.bf[:, 0] == t) & w.anch_f[:, 0]).sum())  # noqa: E731
+            extra.update(edge_targets=edges, last_owned_slot_minus_last_target=last_gap,
+                         edge_anchors={c: [at(t) for t in v] for c, v in edges.items()})
+        if cuda and name in ("paired_chunk", "lanes_chunk"):
+            extra["bound"] = sharded_bound(stack, w, kw, got)
         checks.append(dict(
-            set=name, lanes=w.lens2.shape[0], paired=kw["paired"], slot64=stack.slot64,
-            hits=int(want.n.sum()), truncated_lanes=int(want.truncated.sum()),
-            unowned_hits=int(unowned.sum()), extended=int((want.l > K).sum()),
-            largest_slot=int(torch.where(hit, want.e, 0).max()), field_err=errs,
-            equal_plain=not any(errs.values())))
+            set=name, lanes=w.lens2.shape[0], paired=kw["paired"], shards=len(stack.bases),
+            slot64=stack.slot64, hits=int(want.n.sum()),
+            truncated_lanes=int(want.truncated.sum()), unowned_hits=int(unowned.sum()),
+            extended=int((want.l > K).sum()), largest_slot=int(torch.where(hit, want.e, 0).max()),
+            field_err=errs, equal_plain=not any(errs.values()), **extra))
         max_err = max(max_err, *errs.values())
         inputs[name] = (stack, w, kw)
     by = {c["set"]: c for c in checks}
+    edge_counts = [n for v in by["paired_shard_edges"]["edge_anchors"].values() for n in v]
     covered = (by["paired_no_owner"]["unowned_hits"] > 0
                and by["paired_chunk"]["unowned_hits"] == 0
                and by["paired_slot64_past_2pow31"]["largest_slot"] > 2**31
                and by["lanes_ns_mixed_lengths"]["hits"] > 0
+               and by["paired_one_shard"]["equal_packed_walk"]
+               and len(edges["padding"]) > 0 and min(edge_counts) > 0
                and all(c["extended"] > 0 for c in checks))
     ok = covered and all(c["equal_plain"] for c in checks)
 
@@ -2241,33 +2342,34 @@ def phase_sharded_kernel(dev, timer, idx, codes, lens, C: int, B: int, seed: int
         ms, ms_by = device_ms(run, 50, cuda)
         cold_event_ms, cold_ms = walk_cold_ms(run, 50, cuda)
         plain_ms = timer(lambda: sharded_walk_plain(stack, *w, **kw), reps=2, warm=1)
-        hits = run()
-        out_bytes = sum(t.numel() * t.element_size() for t in hits)
         if cuda:
-            counted, sectors, rows = sharded_walk_on_0xff(stack, w, **kw, count=True)
-            if any(hits_err(counted, hits).values()):
-                raise RuntimeError("the counting build of the sharded walk disagrees with "
-                                   "the kernel")
-            nbytes = 32 * sum(sectors.values()) + out_bytes
-            ops = 32 * rows  # index arithmetic and one masked word compare a row, at least
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = ops / INT_OPS_PER_S * 1e3
-            bound_ms = max(t_bytes, t_ops)
-            bound = dict(bound_ms=bound_ms,
-                         bound_by="bytes" if t_bytes >= t_ops else "operations",
-                         bytes=nbytes, output_bytes=out_bytes, input_sectors_read=sectors,
-                         sa_cmp_rows=rows, share_of_bound=bound_ms / ms,
-                         share_of_bound_cold=bound_ms / cold_ms)
+            bound = sharded_bound(stack, w, kw, run())
+            bound.update(share_of_bound=bound["bound_ms"] / ms,
+                         share_of_bound_cold=bound["bound_ms"] / cold_ms)
         else:
             bound = dict(bound_ms="not measured", bound_by="bytes")
         timing[kind] = dict(lanes=w.lens2.shape[0], shards=SHARDS, ms=ms, cold_ms=cold_ms,
                             cold_event_ms=cold_event_ms, wrapper_ms=wrapper_ms,
                             device_ms_by_kernel=ms_by, plain_ms=plain_ms, library_ms=None,
                             **bound)
+    # the yardsticks on the same row: K8 over one shard, and the packed walk
+    w, kw = replicated(*row)
+    yard = {}
+    for what, run in (("one_shard", lambda: sharded_walk(stack_1, w, **kw)),
+                      ("packed_walk", lambda: mmp.anchor_walk(mapper.didx, *w, **kw))):
+        ms, _ = device_ms(run, 50, cuda)
+        _, cold_ms = walk_cold_ms(run, 50, cuda)
+        yard[what] = dict(ms=ms, cold_ms=cold_ms)
+    if cuda:
+        p4, one = timing["paired_row"], yard["one_shard"]["ms"]
+        yard.update(lanes=w.lens2.shape[0], paired_row_over_one_shard=p4["ms"] / one,
+                    paired_row_over_packed_walk=p4["ms"] / yard["packed_walk"]["ms"],
+                    one_shard_share_of_paired_row_bound=p4["bound_ms"] / one)
+    timing["row_yardsticks"] = yard
     emit("kernel_vs_plain", kernel="sharded_walk", ok=ok, max_abs_err=max_err,
          covered=covered, shard_cut_s=cut_s, shard_slots=[n for _, n in stack_c.bases],
          checks=checks, timing=timing)
-    del inputs, stack_64, arr_c, arr_l
+    del inputs, stack_64, stack_1, arr_c, arr_l
     if cuda:
         torch.cuda.empty_cache()
     return ok, max_err, timing, dict(paired=(st_c, stack_c), lanes=(st_l, stack_l),
@@ -3594,8 +3696,8 @@ def main() -> int:
         torch.cuda.empty_cache()
     qm = QuasiMapper(idx, cfg, device=dev)
     dp_launches = phase_dp(dev, qm, codes, lens, pc1, pc2, plens, B, cuda)
-    k8_ok, k8_err, k8_t, sh_worlds = phase_sharded_kernel(dev, timer, idx, codes, lens, C, B,
-                                                          args.seed)
+    k8_ok, k8_err, k8_t, sh_worlds = phase_sharded_kernel(dev, timer, idx, qm, codes, lens, C,
+                                                          B, args.seed)
     if not k8_ok:
         raise RuntimeError("sharded_walk kernel disagrees with its plain version, or an input "
                            "set missed what it is there to exercise")

@@ -129,13 +129,24 @@
 // to exchange: a lane's thread picks the owner by the shards' [offset, true
 // count] (tqm_sharded_walk, kExt kSharded) and extends over that shard's
 // stacked sa_cmp rows at local slots, rebased to global ones; a lane no
-// shard owns records (0, 0, 0) as the psum of nothing does. The bound is
-// the packed walk's (tqm_sharded_walk_traffic counts its sectors, the shard
-// table included), and so is the design; the owner test adds P small loads
-// a trip that stay in L1. Global slots are int64 in the intervals and hits
-// (the reference's int32 globals below 2^31, its int64 ones past it);
-// slot_base is read in the type it was cut in, int32 or int64 (template
-// parameter Slot).
+// shard owns records (0, 0, 0) as the psum of nothing does. What bounds it:
+// the packed walk's bytes (tqm_sharded_walk_traffic counts its sectors, the
+// shard table included), and in practice the same latency, a lane's chain
+// of dependent row loads with only 4-8 warps an SM to hide it. So a trip
+// must cost the warp no more than the packed walk's: the 32 lanes of a warp
+// hold anchors of random reads, which lie on different shards, and a loop
+// over the shards with the extension inside each owner's branch ran the
+// whole extension once per shard, a quarter of the lanes active each time.
+// What the design does about it: each block copies the shard table into
+// shared memory once; the shards' ranges ascend and do not overlap (the
+// wrapper checks), so the only shard that can own a lane's b0 is the last
+// one whose base is <= b0, which a branch-free search of the table finds
+// without touching global memory; and every lane then makes ONE call of the
+// extension on its owner's rows, the warp converged whatever shards its
+// lanes own (an unowned lane takes part inactive and loads nothing). Global
+// slots are int64 in the intervals and hits (the reference's int32 globals
+// below 2^31, its int64 ones past it); slot_base is read in the type it was
+// cut in, int32 or int64 (template parameter Slot).
 //
 // C interface for ctypes: every pointer and the stream are void* on the
 // Python side; every entry returns the CUDA error code (0 = success).
@@ -146,6 +157,7 @@
 namespace {
 
 constexpr int kMaxLanes = 64;      // lanes (threads) per block: 16,384 lanes -> 256 blocks
+constexpr int kMaxShards = 1024;   // shard table in shared memory: 16 KB at most
 constexpr int kMaskRegWords = 4;   // anchor-mask words in registers: S <= 128
 constexpr int kRegWords = 8;       // query words and fused sa_cmp words in registers
 
@@ -182,11 +194,13 @@ struct CharIndex {
 // The sharded index of the sharded walks: P shard tables of s_pad sa_cmp rows
 // each (rows as in Index), stacked, over one text2q (replicated content), and
 // each shard's [global slot offset, true slot count] in the global slot type
-// (int32, or int64 past 2^31 total slots).
+// (int32, or int64 past 2^31 total slots), the offsets ascending and the
+// ranges disjoint.
 template <typename Slot>
 struct Shards {
   const int32_t* sa_cmp;  // (P, s_pad, 3 + F), 8-byte aligned rows
-  int P;
+  int P;                  // 1..kMaxShards
+  int top;                // the owner search's first step: the largest power of 2 <= P - 1, or 0
   int64_t s_pad;
   int F;
   const int32_t* text2q;  // (nw, 4)
@@ -659,11 +673,13 @@ __device__ void extend_lane(const Index& ix, const int64_t* words, const int64_t
   q.L = L;
   q.W = W;
   // valid query chars beyond depth k: up to the next N and the read end; the
-  // query words are loaded beside next_bad, up to the read end alone
+  // query words are loaded beside next_bad, up to the read end alone (an
+  // inactive lane loads neither: its searches run no trip)
   const int64_t end = len + col_off;
-  load_query(q, static_cast<int>(clamp64(end - q.base, 0, L - k)));
-  const int64_t nb =
-      q.base < L ? load<kCount>(tr, kNextBad, nbad + clamp64(q.base, 0, L - 1)) : q.base;
+  load_query(q, active ? static_cast<int>(clamp64(end - q.base, 0, L - k)) : 0);
+  const int64_t nb = active && q.base < L
+                         ? load<kCount>(tr, kNextBad, nbad + clamp64(q.base, 0, L - 1))
+                         : q.base;
   const int qlen = static_cast<int>(clamp64((nb < end ? nb : end) - q.base, 0, L - k));
   const int64_t b0a = active ? b0 : 0;
   const int64_t e0a = active ? e0 : 0;
@@ -685,34 +701,40 @@ __device__ void extend_lane(const Index& ix, const int64_t* words, const int64_t
 }
 
 // One trip's extension on the sharded index (rapmap_tpu/parallel/sharded.py
-// _sharded_scan :437-451): every shard that owns the global anchor interval
+// _sharded_scan :437-451): the shard that owns the global anchor interval
 // [b0, e0) -- b0 - base in [0, true count), tested in global coordinates
 // before the rebase -- extends it over its own rows at local slots, and the
-// step's (b, e, mlen) is the sum of the owners' results rebased to global
-// slots, as the reference's psum over the idx axis. Shards own disjoint slot
-// ranges, so one shard answers; a lane no shard owns gets (0, 0, 0).
+// step's (b, e, mlen) is its result rebased to global slots, the reference's
+// psum over the idx axis. `table` is the block's copy of slot_base, (P, 2)
+// int64 [base, true count] in shared memory. The ranges ascend and do not
+// overlap, so the owner can only be the last shard whose base is <= b0:
+// binary lifting over the bases finds it in the same number of steps on
+// every lane, and then the lane makes ONE extend_lane call on that shard's
+// rows. A lane no shard owns makes it inactive (no row, query word or
+// next_bad load) and gets (0, 0, 0), as the psum of nothing does.
 template <bool kCount, typename Slot>
-__device__ void extend_sharded(const Shards<Slot>& sh, const int64_t* words, const int64_t* nbad,
-                               int64_t len, int64_t col_off, int64_t b0, int64_t e0,
-                               int64_t pos, int k, int steps, int L, int W, int64_t& b,
-                               int64_t& e, int64_t& mlen, const Traffic& tr) {
-  b = 0;
-  e = 0;
-  mlen = 0;
-  for (int p = 0; p < sh.P; ++p) {
-    const int64_t base = load<kCount>(tr, kSlotBase, sh.slot_base + 2 * p);
-    const int64_t n_local = load<kCount>(tr, kSlotBase, sh.slot_base + 2 * p + 1);
-    const int64_t lb = b0 - base;
-    if (lb < 0 || lb >= n_local) continue;
-    const Index ix{sh.sa_cmp + static_cast<int64_t>(p) * sh.s_pad * (3 + sh.F), sh.s_pad, sh.F,
-                   sh.text2q, sh.nw};
-    int64_t bl, el, ml;
-    extend_lane<kCount>(ix, words, nbad, len, col_off, lb, clamp64(e0 - base, 0, n_local), pos,
-                        true, k, steps, L, W, bl, el, ml, tr);
-    b += bl + base;
-    e += el + base;
-    mlen += ml;
+__device__ void extend_sharded(const Shards<Slot>& sh, const int64_t* table,
+                               const int64_t* words, const int64_t* nbad, int64_t len,
+                               int64_t col_off, int64_t b0, int64_t e0, int64_t pos, int k,
+                               int steps, int L, int W, int64_t& b, int64_t& e, int64_t& mlen,
+                               const Traffic& tr) {
+  int p = 0;
+  for (int step = sh.top; step > 0; step >>= 1) {
+    const int q = p + step;
+    p = q < sh.P && table[2 * q] <= b0 ? q : p;
   }
+  const int64_t base = table[2 * p];
+  const int64_t n_local = table[2 * p + 1];
+  const int64_t lb = b0 - base;
+  const bool owner = lb >= 0 && lb < n_local;
+  const Index ix{sh.sa_cmp + static_cast<int64_t>(p) * sh.s_pad * (3 + sh.F), sh.s_pad, sh.F,
+                 sh.text2q, sh.nw};
+  int64_t bl, el, ml;
+  extend_lane<kCount>(ix, words, nbad, len, col_off, lb, clamp64(e0 - base, 0, n_local), pos,
+                      owner, k, steps, L, W, bl, el, ml, tr);
+  b = owner ? bl + base : 0;
+  e = owner ? el + base : 0;
+  mlen = owner ? ml : 0;
 }
 
 // ---- the walk ------------------------------------------------------------------
@@ -741,8 +763,14 @@ __global__ void __launch_bounds__(kMaxLanes) anchor_walk_kernel(
     CharIndex cx, int64_t R, int64_t B, int L, int S, int k, int H, int steps, int W, bool staged,
     int64_t* __restrict__ buf, int64_t* __restrict__ n_out, uint8_t* __restrict__ trunc_out,
     Traffic tr, Shards<Slot> sh) {
-  // staged: the block's lanes x H slots x [pos, mlen, b, e], laid out as in buf
-  extern __shared__ __align__(16) int64_t stage[];
+  // kSharded: the shard table, (P, 2) int64, then the stage. staged: the
+  // block's lanes x H slots x [pos, mlen, b, e], laid out as in buf
+  extern __shared__ __align__(16) int64_t smem[];
+  int64_t* const stage = kExt == Ext::kSharded ? smem + 2 * sh.P : smem;
+  if constexpr (kExt == Ext::kSharded) {
+    for (int i = threadIdx.x; i < 2 * sh.P; i += blockDim.x)
+      smem[i] = load<kCount>(tr, kSlotBase, sh.slot_base + i);
+  }
   const int64_t r0 = static_cast<int64_t>(blockIdx.x) * blockDim.x;
   const bool live = r0 + threadIdx.x < R;
   const int64_t r = live ? r0 + threadIdx.x : R - 1;  // past R: lane R - 1, writing nothing
@@ -767,6 +795,7 @@ __global__ void __launch_bounds__(kMaxLanes) anchor_walk_kernel(
     for (int64_t i = lane; i < units; i += wthreads) wstage[i] = make_longlong2(0, 0);
     __syncwarp(wmask);
   }
+  if constexpr (kExt == Ext::kSharded) __syncthreads();  // the shard table is in place
 
   if (live) {
     const int64_t* db = (is_rc ? br : bf) + rr * S;
@@ -805,7 +834,7 @@ __global__ void __launch_bounds__(kMaxLanes) anchor_walk_kernel(
                             load<kCount>(tr, gb, db + col), load<kCount>(tr, ge, de + col),
                             posc, true, k, steps, L, W, b, e, mlen, tr);
       } else if constexpr (kExt == Ext::kSharded) {
-        extend_sharded<kCount>(sh, preads + r * L, next_bad + r * L, len, col_off,
+        extend_sharded<kCount>(sh, smem, preads + r * L, next_bad + r * L, len, col_off,
                                load<kCount>(tr, gb, db + col), load<kCount>(tr, ge, de + col),
                                posc, k, steps, L, W, b, e, mlen, tr);
       } else {
@@ -944,13 +973,16 @@ int launch_walk(const void* preads, const void* next_bad, const void* lens2,
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&cap, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // as many lanes a block (up to kMaxLanes) as the shared memory stages
+  // the shard table first (kSharded), then as many lanes a block (up to
+  // kMaxLanes) as the rest of the shared memory stages
+  const int64_t table_bytes = kExt == Ext::kSharded ? 16 * static_cast<int64_t>(sh.P) : 0;
+  const int64_t room = cap - table_bytes;
   const int64_t lane_bytes = 32 * static_cast<int64_t>(H);
-  const bool staged = lane_bytes <= cap;
-  const int lanes = staged ? static_cast<int>(kMaxLanes < cap / lane_bytes ? kMaxLanes
-                                                                          : cap / lane_bytes)
+  const bool staged = lane_bytes <= room;
+  const int lanes = staged ? static_cast<int>(kMaxLanes < room / lane_bytes ? kMaxLanes
+                                                                           : room / lane_bytes)
                            : kMaxLanes;
-  const size_t smem = staged ? static_cast<size_t>(lanes * lane_bytes) : 0;
+  const size_t smem = static_cast<size_t>(table_bytes + (staged ? lanes * lane_bytes : 0));
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(anchor_walk_kernel<kCount, kExt, Slot>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -985,14 +1017,17 @@ Traffic make_traffic(const void* const* tensors, const Region* regions, int n, v
 
 bool shards_ok(const void* sa_cmp, int P, int64_t s_pad, int F, const void* text2q, int64_t nw,
                const void* slot_base) {
-  return P >= 1 && s_pad >= 1 && text2q != nullptr && slot_base != nullptr &&
+  return P >= 1 && P <= kMaxShards && s_pad >= 1 && text2q != nullptr && slot_base != nullptr &&
          index_ok(sa_cmp, s_pad, F, nw);
 }
 
 template <typename Slot>
 Shards<Slot> make_shards(const void* sa_cmp, int P, int64_t s_pad, int F, const void* text2q,
                          int64_t nw, const void* slot_base) {
-  return Shards<Slot>{static_cast<const int32_t*>(sa_cmp), P, s_pad, F,
+  int top = 1;
+  while (2 * top <= P - 1) top *= 2;
+  if (P <= 1) top = 0;
+  return Shards<Slot>{static_cast<const int32_t*>(sa_cmp), P, top, s_pad, F,
                       static_cast<const int32_t*>(text2q), nw,
                       static_cast<const Slot*>(slot_base)};
 }
@@ -1217,8 +1252,10 @@ extern "C" int tqm_extend_charwise(
 // dense phase. Each trip extends the anchor on the shard that owns it:
 // sa_cmp (P, s_pad, 3 + F) int32 holds the shards' rows stacked, text2q
 // (nw, 4) the replicated packed text, slot_base (P, 2) each shard's [global
-// offset, true slot count], int32 (slot64 = 0) or int64 (slot64 = 1). Hits
-// are [pos, mlen, b, e] in global slots. Writes every output byte as
+// offset, true slot count], int32 (slot64 = 0) or int64 (slot64 = 1), with
+// 1 <= P <= kMaxShards and the ranges ascending and disjoint (offset + count
+// <= the next offset; the caller checks it: the owner search relies on it).
+// Hits are [pos, mlen, b, e] in global slots. Writes every output byte as
 // tqm_anchor_walk does.
 extern "C" int tqm_sharded_walk(
     const void* preads, const void* next_bad, const void* lens2, const void* col_off2,

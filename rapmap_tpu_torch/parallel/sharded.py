@@ -529,6 +529,8 @@ def dense_lanes(stack: ShardStack, st: EngineStatic, lanes, lens2, cfg: MapConfi
 
 # ---- the walk (K8) ----------------------------------------------------------------
 
+SHARDED_WALK_MAX_SHARDS = 1024  # csrc/walk.cu kMaxShards: the shard table in shared memory
+
 
 def sharded_walk_plain(stack: ShardStack, preads, next_bad, lens2, col_off2, bf, ef, br, er,
                        anch_f, anch_rF, *, k: int, H: int, ext_steps: int,
@@ -565,11 +567,29 @@ def sharded_walk_plain(stack: ShardStack, preads, next_bad, lens2, col_off2, bf,
     return _walk_plain(db2, de2, anc2, is_rc, lens2, extend, k, H)
 
 
+def _check_shard_table(bases) -> None:
+    """Raise unless the stack holds 1..SHARDED_WALK_MAX_SHARDS shards whose
+    slot ranges [offset, offset + true count) ascend and do not overlap: the
+    kernel keeps the table in shared memory and takes the last shard whose
+    offset is <= b0 as the only possible owner, which is exact only then
+    (overlapping owners would be summed by the plain version)."""
+    if not 1 <= len(bases) <= SHARDED_WALK_MAX_SHARDS:
+        raise ValueError(f"sharded_walk: {len(bases)} shards; the kernel takes 1 to "
+                         f"{SHARDED_WALK_MAX_SHARDS}")
+    for p, (base, n) in enumerate(bases):
+        nxt = bases[p + 1][0] if p + 1 < len(bases) else None
+        if n < 0 or (nxt is not None and base + n > nxt):
+            raise ValueError(f"sharded_walk: shard {p}'s slots [{base}, {base + n}) do not "
+                             f"end at or before the next shard's offset {nxt}: the shards' "
+                             "ranges must ascend and not overlap")
+
+
 def _check_sharded_inputs(stack: ShardStack, w: WalkInputs, paired: bool) -> None:
     """Raise on what tqm_sharded_walk does not take: anything but contiguous
     int64 lanes and intervals, bool masks, an int32 (P, S_pad, 3 + F) sa_cmp
     stack of whole 8-byte rows with F <= WALK_FUSED_WORDS_MAX, a (nw, 4)
-    text2q and an int32/int64 (P, 2) slot_base, all on one CUDA device."""
+    text2q and an int32/int64 (P, 2) slot_base, all on one CUDA device; or a
+    shard table the kernel cannot search (_check_shard_table)."""
     dev = w.lens2.device
     named = {**w._asdict(), "sa_cmp": stack.sa_cmp, "text2q": stack.text2q,
              "slot_base": stack.slot_base}
@@ -597,8 +617,10 @@ def _check_sharded_inputs(stack: ShardStack, w: WalkInputs, paired: bool) -> Non
         raise ValueError("sharded_walk: sa_cmp must be (P, S_pad, 3 + F), F odd and "
                          f"<= {WALK_FUSED_WORDS_MAX}, on an 8-byte boundary")
     if stack.text2q.dim() != 2 or stack.text2q.shape[1] != 4 or \
-            stack.slot_base.shape != (P_, 2):
-        raise ValueError("sharded_walk: text2q must be (nw, 4) and slot_base (P, 2)")
+            stack.slot_base.shape != (P_, 2) or len(stack.bases) != P_:
+        raise ValueError("sharded_walk: text2q must be (nw, 4), slot_base (P, 2) and bases "
+                         "P pairs")
+    _check_shard_table(stack.bases)
     if dev.type != "cuda":
         raise ValueError(f"sharded_walk: no kernel for device {dev}")
 
@@ -627,7 +649,9 @@ def sharded_walk(stack: ShardStack, w: WalkInputs, *, k: int, H: int, ext_steps:
     (one thread a lane, every output byte written by the kernel; counter
     `sharded_walk` for strand-paired lanes, `sharded_walk_lanes` for
     explicit ones), on CPU tensors `sharded_walk_plain`. Hits carry global
-    slots in int64."""
+    slots in int64. The kernel takes at most SHARDED_WALK_MAX_SHARDS shards
+    whose slot ranges ascend and do not overlap (as shard_quasi_index cuts
+    them); the wrapper raises on any other table, with no fallback."""
     if all(t.device.type == "cpu" for t in (*w, stack.sa_cmp, stack.text2q)):
         return sharded_walk_plain(stack, *w, k=k, H=H, ext_steps=ext_steps, paired=paired)
     _check_sharded_inputs(stack, w, paired)

@@ -3,6 +3,7 @@
 simpler forms of itself on one CUDA card.
 
     python3 scripts/walk_ablation.py [--parent DIR] [--rounds 2] [--seed 0]
+    python3 scripts/walk_ablation.py --k8 [--parent DIR] [--rounds 3] [--seed 0]
 
 Builds walk.cu as it stands (`as_is`) and with a design item swapped in or
 out, each a text edit of the source that must apply exactly once:
@@ -34,6 +35,38 @@ upload, against anchor_walk_plain with the plain _extend) and the pseudo
 build (tqm_pseudo_walk on the same chunk's intervals and masks, against
 pseudo_walk_plain). Prints one JSON line; the card's name and power limit
 are in it.
+
+--k8 times the sharded walks (K8, tqm_sharded_walk) instead. It builds
+walk.cu as it stands and with the sharded build's block size or owner
+search swapped, by text edits as above:
+
+  lanes32, lanes128  32 or 128 lanes a block (64 as it stands; only the
+                     sharded build is timed);
+  linear_owner       the owner found by a scan over every shard's offset,
+                     not by binary lifting;
+  speculative_query  the lane's query words and next_bad entry loaded
+                     before its owner is known, also by a lane no shard
+                     owns (as it stands, an unowned lane loads nothing);
+  speculative_query_linear_owner  both;
+
+and with --parent DIR that checkout's walk.cu (any walk.cu with the same
+tqm_sharded_walk entry, such as the per-shard loop this design replaced).
+On chip_smoke.py's world cut into its 4 shards, it times the sharded entry
+at one data row's program (16,384 reads: 32,768 lanes) and at one chunk
+(8,192 reads), on strand-paired lanes (canonical-class shards) and on
+explicit lanes (per-strand CHD shards); for this walk.cu and the parent's
+also over a one-shard stack of the world's index (the replicated upload)
+at both shapes. In the same call it times this walk.cu's and the parent's
+other builds on the chunk: the packed walk (tqm_anchor_walk) on
+strand-paired and on explicit lanes, the charwise and pseudo builds, and
+the anchor-parallel extension (tqm_extend_packed_lanes, K9) at the staged
+path's shape (shard 0 of 8, A_max anchor slots of a 32,768-read batch).
+Each launch is first checked on 0xFF-filled outputs against its plain
+version (sharded_walk_plain, anchor_walk_plain, anchor_walk_lanes_plain,
+pseudo_walk_plain, extend_packed); then all are timed warm and cold, in
+turn and in reverse turn for each round. The JSON line also carries nvcc's
+-Xptxas -v lines (registers, spills) for every anchor_walk_kernel
+instantiation of this walk.cu and the parent's.
 """
 
 from __future__ import annotations
@@ -42,6 +75,7 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -230,6 +264,42 @@ VARIANTS = {
     "interleaved_global_words": (INTERLEAVED, GLOBAL_WORDS),
 }
 
+# ---- forms of the sharded build (--k8)
+
+
+def block_lanes(n: int):  # every build's lanes a block; only the sharded one is timed
+    return ("constexpr int kMaxLanes = 64;", "constexpr int kMaxShards",
+            f"constexpr int kMaxLanes = {n};\n")
+
+
+LINEAR_OWNER = (
+    "  int p = 0;\n  for (int step = sh.top;",
+    "  const int64_t base = table[2 * p];",
+    """  int p = 0;
+  for (int q = 1; q < sh.P; ++q) p = table[2 * q] <= b0 ? q : p;
+""",
+)
+
+# the query words and next_bad entry loaded whether or not the lane's shard
+# owns its anchor, so that they need not wait for the owner search
+SPECULATIVE_QUERY = (
+    "  load_query(q, active ?",
+    "  const int qlen =",
+    """  load_query(q, static_cast<int>(clamp64(end - q.base, 0, L - k)));
+  const int64_t nb =
+      q.base < L ? load<kCount>(tr, kNextBad, nbad + clamp64(q.base, 0, L - 1)) : q.base;
+""",
+)
+
+K8_VARIANTS = {
+    "as_is": (),
+    "lanes32": (block_lanes(32),),
+    "lanes128": (block_lanes(128),),
+    "linear_owner": (LINEAR_OWNER,),
+    "speculative_query": (SPECULATIVE_QUERY,),
+    "speculative_query_linear_owner": (SPECULATIVE_QUERY, LINEAR_OWNER),
+}
+
 
 def edit(src: str, edits) -> str:
     for start, end, text in edits:
@@ -240,21 +310,167 @@ def edit(src: str, edits) -> str:
     return src
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", help="checkout whose csrc/walk.cu to time beside this one")
-    ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args()
+def start_builds(sources: dict, out: str, verbose=()) -> dict:
+    """One nvcc per source, all at once (with -Xptxas -v for the names in
+    `verbose`) -> {name: process}."""
+    from rapmap_tpu_torch import kernels
 
+    return {n: subprocess.Popen(
+        [kernels._nvcc(), *kernels.NVCC_FLAGS, *(["-Xptxas", "-v"] if n in verbose else []),
+         "-o", os.path.join(out, f"{n}.so"), p],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for n, p in sources.items()}
+
+
+def finish_builds(procs: dict, out: str) -> tuple[dict, dict]:
+    """Wait for the builds -> ({name: loaded library}, {name: compiler log})."""
+    logs = {}
+    for n, p in procs.items():
+        logs[n], _ = p.communicate(timeout=600)
+        if p.returncode:
+            raise RuntimeError(f"nvcc {n} failed:\n{logs[n]}")
+    return {n: ctypes.CDLL(os.path.join(out, f"{n}.so")) for n in procs}, logs
+
+
+def walk_registers(log: str) -> dict:
+    """ptxas's lines for each anchor_walk_kernel instantiation in an nvcc
+    -Xptxas -v log -> {kernel (demangled where cu++filt is found): "Used N
+    registers, ...; ... spill stores, ... spill loads"}."""
+    from rapmap_tpu_torch import kernels
+
+    found, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = m.group(1) if "anchor_walk_kernel" in m.group(1) else None
+        elif cur and ("spill stores" in line or "Used " in line):
+            found.setdefault(cur, []).append(line.split(":", 1)[-1].strip())
+    names = list(found)
+    filt = os.path.join(os.path.dirname(kernels._nvcc()), "cu++filt")
+    if names and os.path.exists(filt):
+        out = subprocess.run([filt, *names], capture_output=True, text=True).stdout.split("\n")
+        names = [d or n for n, d in zip(names, out + [""] * len(names))]
+    return {d: "; ".join(v) for d, v in zip(names, found.values())}
+
+
+def entry(lib, name: str, argtypes: list, args: list):
+    """A launcher of one C entry on the current stream, raising on a CUDA
+    error."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("walk_ablation: torch.cuda.is_available() is false", file=sys.stderr)
-        return 1
-    sys.path.insert(0, ROOT)
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes + [ctypes.c_void_p]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def go():
+        if fn(*args, stream):
+            raise RuntimeError(f"{name}: launch failed")
+    return go
+
+
+VP, I64, I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+
+
+def walk_outputs(R: int, H: int, dev):
+    """A walk's outputs (hits (R, H, 4) int64, n (R,) int64, truncated (R,)
+    one byte each) and the 0xFF byte each is filled with before a check."""
+    import torch
+
+    return ((torch.empty((R, H, 4), dtype=torch.int64, device=dev), -1),
+            (torch.empty((R,), dtype=torch.int64, device=dev), -1),
+            (torch.empty((R,), dtype=torch.uint8, device=dev), 0xFF))
+
+
+def hits_of(outs):
+    buf, n, trunc = (t for t, _ in outs)
+    return (buf[..., 0], buf[..., 1], buf[..., 2], buf[..., 3], n, trunc.bool())
+
+
+def walk_entry(lib, didx, w, prm: dict, outs, paired: bool):
+    """tqm_anchor_walk (the packed build) on walk inputs w of either lane kind."""
+    from rapmap_tpu_torch.ops.extend_packed import ext_words
+
+    R, L = w.preads.shape
+    k = prm["k"]
+    args = [*(t.data_ptr() for t in w), didx.sa_cmp.data_ptr(), didx.sa_cmp.shape[0],
+            didx.sa_cmp.shape[1] - 3, didx.text2q.data_ptr(), didx.text2q.shape[0], R,
+            R // 2 if paired else R, L, w.bf.shape[1], k, prm["H"], prm["ext_steps"],
+            ext_words(L, k), *(t.data_ptr() for t, _ in outs)]
+    types = [VP] * 11 + [I64, I32, VP, I64, I64, I64] + [I32] * 6 + [VP] * 3
+    return entry(lib, "tqm_anchor_walk", types, args)
+
+
+def charwise_entry(lib, fdidx, w, codes, prm: dict, outs):
+    """tqm_anchor_walk_charwise on strand-paired lanes over the full upload."""
+    R, L = codes.shape
+    args = [codes.data_ptr(), *(t.data_ptr() for t in lane_tensors(w)),
+            fdidx.sa.data_ptr(), fdidx.sa.shape[0], fdidx.text.data_ptr(), fdidx.text.shape[0],
+            R, R // 2, L, w.bf.shape[1], prm["k"], prm["H"], prm["ext_steps"],
+            *(t.data_ptr() for t, _ in outs)]
+    types = [VP] * 9 + [I64, VP, I64, I64, I64] + [I32] * 5 + [VP] * 3
+    return entry(lib, "tqm_anchor_walk_charwise", types, args)
+
+
+def pseudo_entry(lib, w, k: int, H: int, outs):
+    """tqm_pseudo_walk on the strand-paired lanes' intervals and masks."""
+    R = w.lens2.shape[0]
+    args = [*(t.data_ptr() for t in lane_tensors(w)), R, R // 2, w.bf.shape[1], k, H,
+            *(t.data_ptr() for t, _ in outs)]
+    return entry(lib, "tqm_pseudo_walk", [VP] * 7 + [I64, I64] + [I32] * 3 + [VP] * 3, args)
+
+
+def lane_tensors(w):
+    """What the charwise and pseudo builds read of a walk's inputs."""
+    return [w.lens2, w.bf, w.ef, w.br, w.er, w.anch_f, w.anch_rF]
+
+
+def kernel_ms(work, key):
+    """Mean device ms of the kernels whose name holds `key` in work(), under
+    torch.profiler; a profiled window that recorded none of them (the
+    profiler now and then drops every device event of one) runs again,
+    three times at most."""
     import chip_smoke as cs
-    from rapmap_tpu_torch import kernels
+
+    for _ in range(3):
+        v = [v for n, v in cs.device_kernels(work).items() if key in n]
+        if v:
+            return sum(x[0] for x in v) / sum(x[1] for x in v)
+    raise RuntimeError(f"torch.profiler recorded no {key} kernel in three tries")
+
+
+def time_round(gos: dict, res: dict, flush, reverse: bool,
+               key_of=lambda name: "anchor_walk_kernel") -> None:
+    """One round: each launcher of gos timed warm (100 launches back to
+    back) and cold (50, each after a 1 GiB fill), in turn or in reverse
+    turn -> appended to res[name]["warm_ms"] and ["cold_ms"]."""
+    for name in (list(gos)[::-1] if reverse else list(gos)):
+        go, key = gos[name], key_of(name)
+        res[name]["warm_ms"].append(kernel_ms(lambda: [go() for _ in range(100)], key))
+
+        def cold():
+            for _ in range(50):
+                flush.fill_(1)
+                go()
+        res[name]["cold_ms"].append(kernel_ms(cold, key))
+
+
+def checked(go, outs, got_of, want) -> dict:
+    """One launch on outputs filled with 0xFF bytes, held to the plain
+    version's result -> a result record with empty timing lists."""
+    import torch
+
+    for t, ff in outs:
+        t.fill_(ff)
+    go()
+    torch.cuda.synchronize()
+    equal = all(bool(torch.equal(a.to(torch.int64), b.to(torch.int64)))
+                for a, b in zip(got_of(outs), want))
+    return dict(equal_plain=equal, warm_ms=[], cold_ms=[])
+
+
+def main_walk(args, torch) -> int:
+    """The packed walk's design items (the default mode)."""
+    import chip_smoke as cs
     from rapmap_tpu_torch.config import MapConfig
     from rapmap_tpu_torch.ops.device_index import upload_index
     from rapmap_tpu_torch.ops.extend_packed import ext_words
@@ -277,19 +493,13 @@ def main() -> int:
         sources["parent"] = os.path.join(args.parent, "rapmap_tpu_torch", "csrc", "walk.cu")
         with open(sources["parent"]) as f:  # the mask interface names the rc mask anch_r
             parent_tables = "anch_r" not in f.read()
-    procs = {n: subprocess.Popen(
-        [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", os.path.join(out, f"{n}.so"), p],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for n, p in sources.items()}
+    procs = start_builds(sources, out)
 
     # the smoke chunk of chip_smoke.py: its world, its first 8,192 reads
     work = os.path.join(ROOT, "build", "smoke")
     os.makedirs(work, exist_ok=True)
     idx, codes, lens, _, _ = cs.build_world(args.seed, 10_000, 262_144, work)
-    for n, p in procs.items():
-        log, _ = p.communicate(timeout=600)
-        if p.returncode:
-            raise RuntimeError(f"nvcc {n} failed:\n{log}")
-    libs = {n: ctypes.CDLL(os.path.join(out, f"{n}.so")) for n in sources}
+    libs, _ = finish_builds(procs, out)
 
     dev = torch.device("cuda")
     didx, st = upload_index(idx, dev, lean=True)
@@ -299,42 +509,35 @@ def main() -> int:
                     torch.from_numpy(lens[:C].astype(np.int64)).to(dev), cfg)
     prm = walk_params(st, cfg)
     want = anchor_walk_plain(didx, *w, **prm)
-    R, L = w.preads.shape
-    S, H, k = w.bf.shape[1], prm["H"], prm["k"]
-    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    buf = torch.empty((R, H, 4), dtype=torch.int64, device=dev)
-    n_out = torch.empty((R,), dtype=torch.int64, device=dev)
-    trunc = torch.empty((R,), dtype=torch.uint8, device=dev)
-    tail = [didx.sa_cmp.data_ptr(), didx.sa_cmp.shape[0], didx.sa_cmp.shape[1] - 3,
-            didx.text2q.data_ptr(), didx.text2q.shape[0], R, R // 2, L, S, k, H,
-            prm["ext_steps"], ext_words(L, k), buf.data_ptr(), n_out.data_ptr(),
-            trunc.data_ptr(), torch.cuda.current_stream().cuda_stream]
+    R = w.preads.shape[0]
+    H, k = prm["H"], prm["k"]
+    outs = walk_outputs(R, H, dev)
     tables = anchor_tables(*w[4:])
 
     def launcher(name):
-        fn = libs[name].tqm_anchor_walk
-        fn.restype = ctypes.c_int
-        tabled = name == "parent" and parent_tables
-        head = [t.data_ptr() for t in (w[:4] + tables if tabled else w)]
-        fn.argtypes = [vp] * (len(head) + 1) + [i64, i32, vp, i64, i64, i64] + [i32] * 6 + [vp] * 4
-        args_ = head + tail
-
-        def go():
-            if fn(*args_):
-                raise RuntimeError(f"{name}: launch failed")
-        return go
+        if not (name == "parent" and parent_tables):
+            return walk_entry(libs[name], didx, w, prm, outs, paired=True)
+        # an older walk.cu: the lane-aligned anchor tables for the masks
+        S, L = w.bf.shape[1], w.preads.shape[1]
+        args_ = [t.data_ptr() for t in w[:4] + tables] + [
+            didx.sa_cmp.data_ptr(), didx.sa_cmp.shape[0], didx.sa_cmp.shape[1] - 3,
+            didx.text2q.data_ptr(), didx.text2q.shape[0], R, R // 2, L, S, k, H,
+            prm["ext_steps"], ext_words(L, k), *(t.data_ptr() for t, _ in outs)]
+        types = [VP] * 8 + [I64, I32, VP, I64, I64, I64] + [I32] * 6 + [VP] * 3
+        return entry(libs[name], "tqm_anchor_walk", types, args_)
 
     gos = {n: launcher(n) for n in sources}
     res = {}
     for name, go in gos.items():
-        for t, ff in ((buf, -1), (n_out, -1), (trunc, 0xFF)):
-            # a parent of the anchor-table interface needs a zeroed buffer
-            t.fill_(0 if name == "parent" and parent_tables else ff)
-        go()
-        torch.cuda.synchronize()
-        got = (buf[..., 0], buf[..., 1], buf[..., 2], buf[..., 3], n_out, trunc.bool())
-        res[name] = dict(equal_plain=all(bool(torch.equal(a, b)) for a, b in zip(got, want)),
-                         warm_ms=[], cold_ms=[])
+        if name == "parent" and parent_tables:  # that interface needs a zeroed buffer
+            for t, _ in outs:
+                t.zero_()
+            go()
+            torch.cuda.synchronize()
+            res[name] = dict(equal_plain=all(bool(torch.equal(a, b)) for a, b in
+                                             zip(hits_of(outs), want)), warm_ms=[], cold_ms=[])
+        else:
+            res[name] = checked(go, outs, hits_of, want)
 
     # the charwise and pseudo builds of this walk.cu and the parent's
     fdidx, fst = upload_index(idx, dev)  # the full upload: flat sa and text
@@ -342,91 +545,168 @@ def main() -> int:
     cw, ckw = scan_inputs(fdidx, fst, torch.from_numpy(codes[:C]).to(dev),
                           torch.from_numpy(lens[:C].astype(np.int64)).to(dev), ccfg)
     cprm = {x: ckw[x] for x in ("k", "H", "ext_steps")}
-
-    def lanes(x):  # what the charwise and pseudo builds read of a walk's inputs
-        return [x.lens2, x.bf, x.ef, x.br, x.er, x.anch_f, x.anch_rF]
-
     other_want = {"charwise": anchor_walk_plain(fdidx, *cw, **cprm, codes=ckw["codes"]),
-                  "pseudo": pseudo_walk_plain(*lanes(w), k=k, H=H)}
-    ctail = [fdidx.sa.data_ptr(), fdidx.sa.shape[0], fdidx.text.data_ptr(),
-             fdidx.text.shape[0], R, R // 2, L, S, k, H, cprm["ext_steps"], buf.data_ptr(),
-             n_out.data_ptr(), trunc.data_ptr(), torch.cuda.current_stream().cuda_stream]
-
-    def other_launcher(name, kind):
-        lib = libs[name]
-        if kind == "charwise":
-            fn = lib.tqm_anchor_walk_charwise
-            fn.argtypes = [vp] * 9 + [i64, vp, i64, i64, i64] + [i32] * 5 + [vp] * 4
-            args_ = [ckw["codes"].data_ptr(), *(t.data_ptr() for t in lanes(cw))] + ctail
-        else:
-            fn = lib.tqm_pseudo_walk
-            fn.argtypes = [vp] * 7 + [i64, i64] + [i32] * 3 + [vp] * 4
-            args_ = [t.data_ptr() for t in lanes(w)] + [R, R // 2, S, k, H, buf.data_ptr(),
-                                                       n_out.data_ptr(), trunc.data_ptr(),
-                                                       torch.cuda.current_stream().cuda_stream]
-        fn.restype = ctypes.c_int
-
-        def go():
-            if fn(*args_):
-                raise RuntimeError(f"{name} {kind}: launch failed")
-        return go
-
+                  "pseudo": pseudo_walk_plain(*lane_tensors(w), k=k, H=H)}
     others = {}
     for kind in ("charwise", "pseudo"):
         for name in ("as_is", "parent") if args.parent else ("as_is",):
-            go = other_launcher(name, kind)
-            for t, ff in ((buf, -1), (n_out, -1), (trunc, 0xFF)):
-                t.fill_(ff)
-            go()
-            torch.cuda.synchronize()
-            got = (buf[..., 0], buf[..., 1], buf[..., 2], buf[..., 3], n_out, trunc.bool())
-            others[(kind, name)] = dict(
-                go=go, res=dict(equal_plain=all(bool(torch.equal(a, b)) for a, b in
-                                                zip(got, other_want[kind])),
-                                warm_ms=[], cold_ms=[]))
+            go = (charwise_entry(libs[name], fdidx, cw, ckw["codes"], cprm, outs)
+                  if kind == "charwise" else pseudo_entry(libs[name], w, k, H, outs))
+            others[f"{kind}_{name}"] = go
+            res[f"{kind}_{name}"] = checked(go, outs, hits_of, other_want[kind])
 
     flush = torch.empty(1 << 28, dtype=torch.int32, device=dev)
-
-    def kernel_ms(work, key):
-        """Mean device ms of the kernels whose name holds `key` in work(),
-        under torch.profiler; a profiled window that recorded none of them
-        (the profiler now and then drops every device event of one) runs
-        again, three times at most."""
-        for _ in range(3):
-            v = [v for n, v in cs.device_kernels(work).items() if key in n]
-            if v:
-                return sum(x[0] for x in v) / sum(x[1] for x in v)
-        raise RuntimeError(f"torch.profiler recorded no {key} kernel in three tries")
-
-    for rnd in range(args.rounds):
-        for name in (list(gos) if rnd % 2 == 0 else list(gos)[::-1]):
-            go = gos[name]
-            res[name]["warm_ms"].append(kernel_ms(lambda: [go() for _ in range(100)],
-                                                  "anchor_walk_kernel"))
-
-            def cold():
-                for _ in range(50):
-                    flush.fill_(1)
-                    go()
-            res[name]["cold_ms"].append(kernel_ms(cold, "anchor_walk_kernel"))
-        for key in (list(others) if rnd % 2 == 0 else list(others)[::-1]):
-            go = others[key]["go"]
-            others[key]["res"]["warm_ms"].append(kernel_ms(lambda: [go() for _ in range(100)],
-                                                           "anchor_walk_kernel"))
-
-            def cold():
-                for _ in range(50):
-                    flush.fill_(1)
-                    go()
-            others[key]["res"]["cold_ms"].append(kernel_ms(cold, "anchor_walk_kernel"))
-    for (kind, name), v in others.items():
-        res[f"{kind}_{name}"] = v["res"]
+    for rnd in range(args.rounds):  # this walk's forms, then the other builds, each round
+        time_round(gos, res, flush, reverse=rnd % 2 == 1)
+        time_round(others, res, flush, reverse=rnd % 2 == 1)
     if parent_tables:  # the parent's wrapper zeroed the hit buffer before each launch
+        buf = outs[0][0]
         res["parent"]["fill_ms"] = [kernel_ms(lambda: [buf.zero_() for _ in range(100)],
                                               "elementwise") for _ in range(args.rounds)]
-    print(json.dumps({"device": cs.nvidia_smi_line(), "lanes": R, "read_len": L, "hit_slots": H,
-                      "variants": res}), flush=True)
+    print(json.dumps({"device": cs.nvidia_smi_line(), "lanes": R, "read_len": w.preads.shape[1],
+                      "hit_slots": H, "variants": res}), flush=True)
     return 0 if all(v["equal_plain"] for v in res.values()) else 1
+
+
+def main_k8(args, torch) -> int:
+    """The sharded walks (K8) and, beside them, the other builds against the
+    parent's walk.cu (--k8)."""
+    import chip_smoke as cs
+    from rapmap_tpu_torch.config import MapConfig
+    from rapmap_tpu_torch.ops import mmp
+    from rapmap_tpu_torch.ops.device_index import upload_index
+    from rapmap_tpu_torch.ops.extend_packed import ext_words, extend_packed
+    from rapmap_tpu_torch.parallel import sharded
+    from rapmap_tpu_torch.parallel.staged import StagedQuasiMapper
+
+    out = os.path.join(ROOT, "build", "ablation_k8")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(ROOT, "rapmap_tpu_torch", "csrc", "walk.cu")) as f:
+        src = f.read()
+    sources = {}
+    for name, edits in K8_VARIANTS.items():
+        sources[name] = os.path.join(out, f"{name}.cu")
+        with open(sources[name], "w") as f:
+            f.write(edit(src, edits))
+    if args.parent:
+        sources["parent"] = os.path.join(args.parent, "rapmap_tpu_torch", "csrc", "walk.cu")
+    procs = start_builds(sources, out, verbose=("as_is", "parent"))
+
+    work = os.path.join(ROOT, "build", "smoke")
+    os.makedirs(work, exist_ok=True)
+    idx, codes, lens, _, _ = cs.build_world(args.seed, 10_000, 262_144, work)
+    dev = torch.device("cuda")
+    cfg = MapConfig(k=cs.K)
+    didx, st = upload_index(idx, dev, lean=True)
+    _, st_c, stack_c, _ = cs.sharded_world(idx, dev)
+    _, st_l, stack_l, _ = cs.sharded_world(idx, dev, canonical=False)
+    stack_1 = cs.one_shard_stack(didx)
+    libs, logs = finish_builds(procs, out)
+    registers = {n: walk_registers(logs[n]) for n in ("as_is", "parent") if n in logs}
+
+    B = 262_144 // cs.BATCHES  # a batch of sharded_path; a data row's program is half of it
+    C = B // 4
+
+    def batch(n):
+        return (torch.from_numpy(np.ascontiguousarray(codes[:n])).to(dev),
+                torch.from_numpy(lens[:n].astype(np.int64)).to(dev))
+
+    # K8's input sets: (stack, walk inputs, walk arguments, plain hits)
+    sets = {}
+    for shape, (r, ln) in (("row", batch(B // 2)), ("chunk", batch(C))):
+        for kind, stack, st_ in (("paired", stack_c, st_c), ("lanes", stack_l, st_l)):
+            w, kw = sharded.scan_inputs(stack, st_, r, ln, cfg)
+            sets[f"{kind}_{shape}"] = (stack, w, kw)
+        w, kw = mmp.scan_inputs(didx, st, r, ln, cfg)
+        sets[f"one_shard_{shape}"] = (stack_1, w, {x: kw[x] for x in ("k", "H", "ext_steps",
+                                                                      "paired")})
+    gos, res, outs_of = {}, {}, {}
+    for sname, (stack, w, kw) in sets.items():
+        want = sharded.sharded_walk_plain(stack, *w, **kw)
+        outs_of[sname] = outs = walk_outputs(w.lens2.shape[0], kw["H"], dev)
+        for name, lib in libs.items():
+            if sname.startswith("one_shard") and name not in ("as_is", "parent"):
+                continue
+            types, vals = sharded.sharded_walk_args(stack, w, [t for t, _ in outs], **kw)
+            go = entry(lib, "tqm_sharded_walk", types, vals)
+            gos[f"k8_{sname}_{name}"] = go
+            res[f"k8_{sname}_{name}"] = checked(go, outs, hits_of, want)
+
+    # the other builds of this walk.cu and the parent's, on the chunk
+    pairs = ("as_is", "parent") if args.parent else ("as_is",)
+    _, wp, kwp = sets["one_shard_chunk"]
+    prm = {x: kwp[x] for x in ("k", "H", "ext_steps")}
+    _, wl, _ = sets["lanes_chunk"]  # explicit lanes in global slots: the whole index's
+    outs = outs_of["one_shard_chunk"]
+    fdidx, fst = upload_index(idx, dev)  # the full upload: flat sa and text
+    cw, ckw = mmp.scan_inputs(fdidx, fst, *batch(C), MapConfig(k=cs.K, packed_extension=False))
+    others = {
+        "packed_paired": (lambda lib: walk_entry(lib, didx, wp, prm, outs, paired=True),
+                          mmp.anchor_walk_plain(didx, *wp, **prm)),
+        "packed_lanes": (lambda lib: walk_entry(lib, didx, wl, prm, outs, paired=False),
+                         mmp.anchor_walk_lanes_plain(didx, *wl, **prm)),
+        "charwise": (lambda lib: charwise_entry(lib, fdidx, cw, ckw["codes"], prm, outs),
+                     mmp.anchor_walk_plain(fdidx, *cw, **prm, codes=ckw["codes"])),
+        "pseudo": (lambda lib: pseudo_entry(lib, wp, prm["k"], prm["H"], outs),
+                   mmp.pseudo_walk_plain(*lane_tensors(wp), k=prm["k"], H=prm["H"])),
+    }
+    for kind, (make, want) in others.items():
+        for name in pairs:
+            gos[f"{kind}_{name}"] = go = make(libs[name])
+            res[f"{kind}_{name}"] = checked(go, outs, hits_of, want)
+
+    # K9 at the staged path's shape: shard 0 of 8, A_max slots of one batch
+    sm = StagedQuasiMapper(idx, cfg, batch=B, read_len=cs.READ_LEN, n_shards=cs.STAGED_SHARDS,
+                           device=dev).sm
+    sdidx = sm._upload(sm._shard_arrays(0)[0])
+    steps = max(1, int(np.ceil(np.log2(min(sm.cfg.max_interval, sm._st.max_interval_idx) + 1)))
+                + 1)
+    a, _ = cs.staged_anchor_inputs(sm, sdidx, codes[:B], lens[:B], sm.A_max)
+    k9_in = [a[f] for f in ("preads", "next_bad", "lens", "b0", "e0", "pos", "active")]
+    k9_want = extend_packed(sdidx, *k9_in, cs.K, steps, cs.READ_LEN, lane=a["lane"])
+    A = a["lane"].shape[0]
+    R9, L9 = a["preads"].shape
+    k9_outs = tuple((torch.empty(A, dtype=torch.int64, device=dev), -1) for _ in range(3))
+    for name in pairs:
+        args_ = [a["preads"].data_ptr(), a["next_bad"].data_ptr(), a["lens"].data_ptr(), None,
+                 *(a[f].data_ptr() for f in ("lane", "b0", "e0", "pos", "active")),
+                 sdidx.sa_cmp.data_ptr(), sdidx.sa_cmp.shape[0], sdidx.sa_cmp.shape[1] - 3,
+                 sdidx.text2q.data_ptr(), sdidx.text2q.shape[0], A, R9, L9, cs.K, steps,
+                 ext_words(L9, cs.K), *(t.data_ptr() for t, _ in k9_outs)]
+        types = [VP] * 10 + [I64, I32, VP, I64, I64, I64] + [I32] * 4 + [VP] * 3
+        gos[f"k9_{name}"] = go = entry(libs[name], "tqm_extend_packed_lanes", types, args_)
+        res[f"k9_{name}"] = checked(go, k9_outs, lambda o: [t for t, _ in o], k9_want)
+
+    flush = torch.empty(1 << 28, dtype=torch.int32, device=dev)
+    for rnd in range(args.rounds):
+        time_round(gos, res, flush, reverse=rnd % 2 == 1,
+                   key_of=lambda n: "extend_packed_kernel" if n.startswith("k9_") else
+                   "anchor_walk_kernel")
+    shapes = {s: dict(lanes=w.lens2.shape[0], shards=len(stack.bases), paired=kw["paired"])
+              for s, (stack, w, kw) in sets.items()}
+    print(json.dumps({"device": cs.nvidia_smi_line(), "k8_sets": shapes,
+                      "shard_slots": [n for _, n in stack_c.bases],
+                      "k9_anchors": A, "k9_live": int(a["active"].sum()),
+                      "registers": registers, "variants": res}), flush=True)
+    return 0 if all(v["equal_plain"] for v in res.values()) else 1
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", help="checkout whose csrc/walk.cu to time beside this one")
+    ap.add_argument("--k8", action="store_true", help="time the sharded walks (K8) and, with "
+                    "--parent, every other build against the parent's")
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("walk_ablation: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    return main_k8(args, torch) if args.k8 else main_walk(args, torch)
 
 
 if __name__ == "__main__":

@@ -7,7 +7,10 @@ n_idx) mesh of CPU entries equal the reference's map_batch_*_sharded on its
 virtual device mesh, MapOut, PairOut and Counters, and the port's
 single-device result; sharded_walk_plain's hits equal the reference's
 sharded walk (_sharded_scan_paired, _sharded_scan) on one shard layout per
-lane kind, with a shard whose slots no shard owns.
+lane kind, with a shard whose slots no shard owns. A scalar per-lane model
+of csrc/walk.cu's sharded build (the owner-first trip) equals
+sharded_walk_plain, and the wrapper refuses shard tables the kernel cannot
+search before any launch.
 
 tests/test_sharded.py::test_slot64_requires_x64 has no twin: it tests that
 the reference refuses slot64 while 64-bit JAX is off, a JAX switch the port
@@ -23,12 +26,14 @@ from jax.sharding import PartitionSpec as P
 from rapmap_tpu.config import MapConfig as RefConfig
 from rapmap_tpu.ops import encode as ref_enc
 from rapmap_tpu.parallel import sharded as rsh
+from rapmap_tpu_torch import kernels
 from rapmap_tpu_torch.config import MapConfig
 from rapmap_tpu_torch.index.format import index_from_reference
 from rapmap_tpu_torch.models.quasi import QuasiMapper, _host
 from rapmap_tpu_torch.parallel import sharded as psh
 from tests.test_device_parity import batch_of
 from tests.test_torch_pe import jax_cache_off  # noqa: F401
+from tests.test_torch_walk import LaneModel, clamp
 from tests.util import BASES, sample_reads, toy_index
 
 needs8 = pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
@@ -440,3 +445,148 @@ def test_mesh_2d_order_and_cpu_only_when_asked(monkeypatch):
     arr = psh.ShardedIndexArrays(*(np.zeros((2, 1, 1), np.int32),) * 6)
     with pytest.raises(ValueError, match="share one device"):
         psh.upload_sharded(arr, [["cpu", "meta"]])
+
+
+# ---- a scalar per-lane model of csrc/walk.cu's sharded build (K8) ---------------
+
+
+class ShardedLaneModel(LaneModel):
+    """The sharded build's trip, lane by lane (tests/test_torch_walk.py's
+    LaneModel for the walk and the extension): the owner is the last shard
+    whose offset is <= b0, found by binary lifting over the ascending
+    offsets in the same steps as the kernel; the lane extends ONCE, on that
+    shard's rows at local slots, when the shard owns b0 (b0 - offset below
+    its true count), and records the result rebased to global slots, else
+    (0, 0, 0)."""
+
+    def __init__(self, stack, k, L, steps):
+        super().__init__(stack.local(0), k, L, steps)
+        self.bases = stack.bases
+        self.shards = [LaneModel(stack.local(p), k, L, steps) for p in range(len(stack.bases))]
+
+    def owner(self, b0):
+        P_ = len(self.bases)
+        top = 1
+        while 2 * top <= P_ - 1:
+            top *= 2
+        p, step = 0, (top if P_ > 1 else 0)
+        while step > 0:
+            q = p + step
+            p = q if q < P_ and self.bases[q][0] <= b0 else p
+            step >>= 1
+        return p
+
+    def extend_lane(self, r, pre, nbad, ln, col_off, b0, e0, pos):
+        p = self.owner(b0)
+        base, n_local = self.bases[p]
+        if not 0 <= b0 - base < n_local:
+            return 0, 0, 0
+        b, e, mlen = self.shards[p].extend(pre[r], nbad[r], ln, col_off, b0 - base,
+                                           clamp(e0 - base, 0, n_local), pos, True)
+        return b + base, e + base, mlen
+
+
+@pytest.fixture(scope="module")
+def k8_world(tmp_path_factory):
+    """A small transcriptome with shared prefixes (k = 11) and 40 bp reads
+    with errors and Ns, as the port's index."""
+    rng = np.random.default_rng(99)
+    idx, txps = toy_index(tmp_path_factory.mktemp("k8"), rng, n_txps=6, min_len=150,
+                          max_len=300, k=11, shared_prefix=30)
+    seqs = [r[1] for r in sample_reads(rng, txps, 24, read_len=40, error_rate=0.03,
+                                       n_frac=0.01)]
+    codes, lens = batch_of(seqs, 40)
+    return index_from_reference(vars(idx)), codes, lens
+
+
+@pytest.mark.parametrize("n_idx,gap,paired", [
+    (3, False, True), (3, True, True), (1, False, True), (3, False, False), (4, True, False),
+], ids=["P3_paired", "P3_shard1_gap_paired", "P1_paired", "P3_lanes", "P4_shard1_gap_lanes"])
+def test_sharded_lane_model_matches_walk_plain(k8_world, n_idx, gap, paired):
+    """The owner-first trip of the kernel gives sharded_walk_plain's hits
+    (tolerance zero), on the dense phase's anchors plus forward lanes whose
+    first anchor is moved to b0 = every shard's first and last owned slot,
+    one slot before and after them (a short shard's padding, the next
+    shard's first slot), with intervals 1 and 3 wide; with shard 1's true
+    count set to 0 its slots have no owner and record (0, 0, 0)."""
+    pidx, codes, lens = k8_world
+    kw = dict(k=pidx.k, max_hits_per_strand=24, expand_budget=128, max_out=32)
+    arr, st = psh.shard_quasi_index(pidx, n_idx, canonical=paired)
+    if gap:
+        arr = arr._replace(slot_base=arr.slot_base.copy())
+        arr.slot_base[1, 1] = 0
+    (stack,) = psh.upload_sharded(arr, [["cpu"] * n_idx])
+    w, wkw = psh.scan_inputs(stack, st, *_tensors(codes, lens), MapConfig(**kw))
+    assert wkw["paired"] == paired
+    s_pad = stack.sa_cmp.shape[1]
+    targets = sorted({t for base, n in stack.bases
+                      for t in (base - 1, base, base + n - 1, base + n, base + s_pad - 1)
+                      if 0 <= t < stack.bases[-1][0] + stack.bases[-1][1]})
+    bf, ef, anch = w.bf.clone(), w.ef.clone(), w.anch_f.clone()
+    assert len(targets) <= bf.shape[0]
+    for r, t in enumerate(targets):
+        bf[r, 0], ef[r, 0], anch[r, 0] = t, t + 1 + 2 * (r % 2), True
+    w = w._replace(bf=bf, ef=ef, anch_f=anch)
+    if not paired:  # explicit lanes read br/er/anch_rF as bf/ef/anch_f
+        w = w._replace(br=bf, er=ef, anch_rF=anch)
+    kernels.reset_launches()
+    want = psh.sharded_walk(stack, w, **wkw)
+    assert kernels.LAUNCHES["sharded_walk"] + kernels.LAUNCHES["sharded_walk_lanes"] == 0
+    model = ShardedLaneModel(stack, wkw["k"], w.preads.shape[1], wkw["ext_steps"])
+    got = model.walk(w, wkw["H"], paired=paired)
+    for f in want._fields:
+        assert np.array_equal(np.asarray(getattr(got, f)).astype(np.int64),
+                              getattr(want, f).numpy().astype(np.int64)), f
+    first = want.b[: len(targets), 0].numpy()
+    live = np.arange(want.q.shape[1])[None, :] < want.n.numpy()[:, None]
+    unowned = int((live & (want.l.numpy() == 0)).sum())
+    assert (unowned > 0) == gap
+    assert (first[want.l[: len(targets), 0].numpy() > 0] >= 0).all()
+    assert int((want.l > pidx.k).sum()) > 0  # some trips extended past k
+
+
+def _meta_stack(bases):
+    """A ShardStack of len(bases) shards on the meta device (no data), with
+    the given host table of [offset, true count] pairs."""
+    P_ = len(bases)
+
+    def meta(*shape):
+        return torch.empty(shape, dtype=torch.int32, device="meta")
+
+    return psh.ShardStack(text2q=meta(8, 4), sa_cmp=meta(P_, 16, 4), sa_meta=meta(P_, 16, 2),
+                          kmer_rows=meta(P_, 1, 4), lut_rows=meta(P_, 4, 2),
+                          slot_base=meta(P_, 2), chd_dir=None, chd_rows=None,
+                          txp_align=meta(1, 3), bases=tuple(bases))
+
+
+@pytest.mark.parametrize("case, match", [
+    ("descending", "ascend"), ("overlapping", "ascend"), ("negative_count", "ascend"),
+    ("over_cap", "shards"), ("valid", "no kernel for device"),
+])
+def test_sharded_walk_wrapper_refuses_shard_tables(case, match):
+    """Off the CPU the wrapper launches or raises: descending or overlapping
+    shard ranges (the kernel's owner search takes the last shard whose
+    offset is <= b0, exact only for ascending disjoint ranges) and more
+    shards than the kernel's shared-memory table holds raise before any
+    launch; a valid table reaches the device check (meta tensors stand in
+    for a device that is not the CPU)."""
+    cap = psh.SHARDED_WALK_MAX_SHARDS
+    bases = {"descending": [(0, 10), (30, 10), (20, 5)],
+             "overlapping": [(0, 10), (8, 10), (20, 5)],
+             "negative_count": [(0, 10), (10, -1), (20, 5)],
+             "over_cap": [(4 * p, 4) for p in range(cap + 1)],
+             "valid": [(0, 10), (10, 0), (10, 7), (20, 5)]}[case]
+    R, L, k = 4, 20, 11
+    S = L - k + 1
+
+    def meta(*shape, dt=torch.int64):
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    w = psh.WalkInputs(preads=meta(R, L), next_bad=meta(R, L), lens2=meta(R), col_off2=meta(R),
+                       bf=meta(R // 2, S), ef=meta(R // 2, S), br=meta(R // 2, S),
+                       er=meta(R // 2, S), anch_f=meta(R // 2, S, dt=torch.bool),
+                       anch_rF=meta(R // 2, S, dt=torch.bool))
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match=match):
+        psh.sharded_walk(_meta_stack(bases), w, k=k, H=4, ext_steps=8, paired=True)
+    assert kernels.LAUNCHES["sharded_walk"] == 0
