@@ -65,7 +65,14 @@ version on 0xFF-filled outputs (both lane kinds, Ns and mixed lengths, a
 shard whose slots nobody owns, slot64 globals past 2^31); the world's index
 in 4 shards on the card (a (2, 4) mesh sharing one upload) against the
 replicated engine (sharded_path, sharded_lanes_path, sharded_pe_path,
-sharded_score_path, sharded_slot64_path); and two command-line ranks as
+sharded_score_path, sharded_slot64_path); the split path, each data row's
+shards uploaded on their own (the reference's layout on distinct cards when
+the host has 8, else split_idx=True on this card): the sharded trip (K10,
+tqm_sharded_trip) against its plain version on a data row's first and
+middle trip on each shard, and a twin of each sharded phase
+(sharded_split_path, sharded_split_lanes_path, sharded_split_pe_path,
+sharded_split_score_path, sharded_split_slot64_path) equal to its stacked
+twin and the replicated engine; and two command-line ranks as
 processes sharing the card (--worldSize 2), single-end and paired-end, whose
 record unions and global counters must equal the single-process runs'
 (cli_world2_se, cli_world2_pe). Every phase prints one JSON line; the last line is
@@ -107,7 +114,8 @@ K = 31
 # the __global__ functions of csrc/*.cu, as the profiler names them
 HAND_KERNELS = ("cluster_sort_kernel", "tile_sort_kernel", "tile_merge_kernel",
                 "global_step_kernel", "anchor_walk_kernel", "extend_packed_kernel",
-                "extend_charwise_kernel", "banded_group_kernel", "banded_scratch_kernel")
+                "extend_charwise_kernel", "banded_group_kernel", "banded_scratch_kernel",
+                "sharded_trip_kernel")
 SCORE_FLAGS = ["--mappingScore", "--minScoreFraction", "0.65"]
 
 
@@ -193,21 +201,56 @@ def device_kernels(work) -> dict[str, list]:
     return by_name
 
 
+def graph_device_ms(fn, reps: int) -> float:
+    """Device time of one fn() without the profiler: `reps` calls captured
+    into one CUDA graph and replayed between two CUDA events, per call (the
+    launches back to back, no host time between them; fn must not wait on
+    the device)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    b.synchronize()
+    del graph
+    return a.elapsed_time(b) / reps
+
+
 def device_ms(fn, reps: int, cuda: bool):
     """Time the DEVICE spends on one fn(): the durations of everything it
     ran during `reps` calls under torch.profiler, per call. What the host
     takes to issue the work is not in it (Timer's wrapper time has that).
     A kernel recorded fewer times than its launches counts by the mean of
-    its recorded durations. -> (ms, {kernel name: ms per call})."""
+    its recorded durations. A process's profiler can stop recording device
+    events altogether (seen on the card after hundreds of profiled windows): after
+    three empty windows the time comes from graph_device_ms instead, under
+    the one key "cuda_graph_replay", and a `profiler_fallback` line says so.
+    -> (ms, {kernel name: ms per call})."""
     if not cuda:
         return "not measured", {}
     import torch
 
     fn()
     torch.cuda.synchronize()
-    by_name = device_kernels(lambda: [fn() for _ in range(reps)])
-    if not by_name:
-        raise RuntimeError("torch.profiler recorded no device activity")
+    for _ in range(3):  # a profiled window now and then records no device event at all
+        by_name = device_kernels(lambda: [fn() for _ in range(reps)])
+        if by_name:
+            break
+    else:
+        ms = graph_device_ms(fn, reps)
+        emit("profiler_fallback", helper="device_ms", used="cuda_graph_replay", ms=ms)
+        return ms, {"cuda_graph_replay": ms}
     per_call = {n: v[0] / v[1] * max(1, round(v[1] / reps)) for n, v in by_name.items()}
     return sum(per_call.values()), per_call
 
@@ -667,7 +710,9 @@ def walk_cold_ms(fn, reps: int, cuda: bool, kernel: str = "anchor_walk_kernel"):
     card's 50 MB L2, and longer on the device than the host takes to issue
     fn()) outside the timed events -> (CUDA events around each call, mean
     ms; device time of the kernels whose name holds `kernel` alone under
-    torch.profiler, mean ms)."""
+    torch.profiler, mean ms, or the events' mean when three profiled
+    windows recorded under half the launches, with a `profiler_fallback`
+    line)."""
     if not cuda:
         return "not measured", "not measured"
     import torch
@@ -695,12 +740,15 @@ def walk_cold_ms(fn, reps: int, cuda: bool, kernel: str = "anchor_walk_kernel"):
         by_name = device_kernels(work)
         walk = [v for n, v in by_name.items() if kernel in n]
         if sum(v[1] for v in walk) >= reps // 2:
+            cold_ms = sum(v[0] for v in walk) / sum(v[1] for v in walk)
             break
     else:
-        raise RuntimeError(f"the cold {kernel} timing saw {by_name} for {reps} launches")
+        emit("profiler_fallback", helper="walk_cold_ms", kernel=kernel, used="cuda_events",
+             seen={n: v[1] for n, v in by_name.items()}, ms=event_ms)
+        cold_ms = event_ms
     del flush
     torch.cuda.empty_cache()
-    return event_ms, sum(v[0] for v in walk) / sum(v[1] for v in walk)
+    return event_ms, cold_ms
 
 
 def phase_walk_kernel(dev, timer, mapper, idx, codes, lens, C: int, seed: int, work: str,
@@ -2369,11 +2417,160 @@ def phase_sharded_kernel(dev, timer, idx, mapper, codes, lens, C: int, B: int, s
     emit("kernel_vs_plain", kernel="sharded_walk", ok=ok, max_abs_err=max_err,
          covered=covered, shard_cut_s=cut_s, shard_slots=[n for _, n in stack_c.bases],
          checks=checks, timing=timing)
-    del inputs, stack_64, stack_1, arr_c, arr_l
+    del inputs, stack_64, stack_1
     if cuda:
         torch.cuda.empty_cache()
-    return ok, max_err, timing, dict(paired=(st_c, stack_c), lanes=(st_l, stack_l),
+    return ok, max_err, timing, dict(paired=(st_c, stack_c, arr_c), lanes=(st_l, stack_l, arr_l),
                                      slot64=(st_64, arr_64))
+
+
+TRIP_SECTORS = ("preads", "next_bad", "lens2", "col_off2", "b0", "e0", "pos", "act", "sa_cmp",
+                "text2q")
+
+
+def trip_on_0xff(didx, base: int, n_local: int, lanes, k: int, steps: int, count: bool = False):
+    """csrc/walk.cu's tqm_sharded_trip called straight, on outputs that start
+    as 0xFF bytes, or with count its counting build tqm_sharded_trip_traffic
+    -> ((b, e, mlen), {input: distinct 32-byte sectors read} or None, sa_cmp
+    rows compared or None). Only this script calls them."""
+    import torch
+
+    from rapmap_tpu_torch import kernels
+    from rapmap_tpu_torch.parallel.sharded import sharded_trip_args
+
+    dev = lanes[0].device
+    out = tuple(torch.full(lanes[2].shape, -1, dtype=torch.int64, device=dev) for _ in range(3))
+    argtypes, args = sharded_trip_args(didx, base, n_local, lanes, out, k=k, ext_steps=steps)
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib = kernels.library("walk")
+    if count:
+        tensors = [*lanes, didx.sa_cmp, didx.text2q]
+        words = [((t.numel() * t.element_size() + 31) // 32 + 1 + 31) // 32 for t in tensors]
+        off = np.concatenate([[0], np.cumsum(words)]).astype(np.int64)
+        bits = torch.zeros(int(off[-1]), dtype=torch.int32, device=dev)
+        rows = torch.zeros(1, dtype=torch.int64, device=dev)
+        fn = lib.tqm_sharded_trip_traffic
+        argtypes += [vp, ctypes.POINTER(i64), vp]
+        args += [bits.data_ptr(), (i64 * len(words))(*off[:-1].tolist()), rows.data_ptr()]
+    else:
+        fn = lib.tqm_sharded_trip
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes + [vp]
+    with torch.cuda.device(dev):
+        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {rc}")
+    torch.cuda.synchronize(dev)
+    if not count:
+        return out, None, None
+    marks = bits.cpu().numpy().view(np.uint8)
+    sectors = {nm: int(np.unpackbits(marks[4 * off[g] : 4 * off[g + 1]]).sum())
+               for g, nm in enumerate(TRIP_SECTORS)}
+    return out, sectors, int(rows.cpu()[0])
+
+
+def trip_bound(didx, base: int, n_local: int, lanes, k: int, steps: int, got) -> dict:
+    """K10's bound on one launch, from its counting build: every 32-byte
+    input sector the trip uses, once, plus the three (R,) outputs written
+    once; the operations at 32 a compared sa_cmp row."""
+    counted, sectors, rows = trip_on_0xff(didx, base, n_local, lanes, k, steps, count=True)
+    if not all(bool((a == b).all()) for a, b in zip(counted, got)):
+        raise RuntimeError("the counting build of the sharded trip disagrees with the kernel")
+    out_bytes = sum(t.numel() * t.element_size() for t in got)
+    nbytes = 32 * sum(sectors.values()) + out_bytes
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 32 * rows / INT_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=nbytes,
+                output_bytes=out_bytes, input_sectors_read=sectors, sa_cmp_rows=rows)
+
+
+def phase_trip_kernel(dev, timer, worlds: dict, codes, lens, B: int):
+    """sharded_trip (csrc/walk.cu tqm_sharded_trip, K10, one shard's trip of
+    the split path) against sharded_trip_plain on card tensors: the
+    world's canonical-class cut uploaded shard by shard on `dev`
+    (split_idx=True), one data row's program of the split path (B / 2
+    reads) walked through the trip loop with K10, its hits equal to K8's
+    over the stack on the same inputs; the program's first trip and the
+    middle one of the trips with an active lane, on each of the SHARDS
+    shards, through the wrapper and through the entry
+    on 0xFF-filled outputs; each set timed (device ms warm and cold, the
+    wrapper's CUDA events) beside its counted byte bound and the plain
+    trip -> (ok, max error, timing)."""
+    import torch
+
+    from rapmap_tpu_torch.config import MapConfig
+    from rapmap_tpu_torch.parallel import sharded
+
+    cuda = dev.type == "cuda"
+    st, stack, arr = worlds["paired"]
+    (sset,) = sharded.upload_sharded(arr, [[dev] * SHARDS], split_idx=True)
+    r, ln = to_dev(dev, codes[: B // 2], lens[: B // 2])
+    w, kw = sharded.scan_inputs(sset, st, r, ln, MapConfig(k=K))
+    saved = []  # (trip, shard, the shard's index, base, count, its lane inputs)
+
+    def recorder(didx, base, n_local, *lanes, k, ext_steps):
+        trip, p = divmod(len(saved), SHARDS)
+        # the program's lane inputs are the same tensors every trip
+        saved.append((trip, p, didx, base, n_local, lanes[:4] + tuple(t.clone()
+                                                                     for t in lanes[4:])))
+        return sharded.sharded_trip(didx, base, n_local, *lanes, k=k, ext_steps=ext_steps)
+
+    hits = sharded.trip_loop(sset, w, recorder, **kw)
+    k8 = sharded.sharded_walk(stack, w, **kw)
+    loop_equal_k8 = not any(hits_err(hits, k8).values())
+    # lanes active a trip; the middle trip is the middle one of those with any
+    active = [int(x[5][7].sum()) for x in saved[::SHARDS]]
+    mid = [t for t, a in enumerate(active) if a][sum(a > 0 for a in active) // 2]
+    saved = [x for x in saved if x[0] in (0, mid)]
+    k, steps = kw["k"], kw["ext_steps"]
+    checks, timing, max_err = [], [], 0
+    for trip, p, didx, base, n_local, lanes in saved:
+        want = sharded.sharded_trip_plain(didx, base, n_local, *lanes, k=k, ext_steps=steps)
+        got = sharded.sharded_trip(didx, base, n_local, *lanes, k=k, ext_steps=steps)
+        errs = [int((a - b).abs().max()) for a, b in zip(got, want)]
+        if cuda:
+            raw, _, _ = trip_on_0xff(didx, base, n_local, lanes, k, steps)
+            errs = [max(e, int((a - b).abs().max())) for e, a, b in zip(errs, raw, want)]
+        act, b0 = lanes[7], lanes[4]
+        owned = act & (b0 - base >= 0) & (b0 - base < n_local)
+        checks.append(dict(trip=trip, shard=p, lanes=int(act.shape[0]), active=int(act.sum()),
+                           owned=int(owned.sum()), extended=int((want[2] > k).sum()),
+                           field_err=dict(zip(("b", "e", "mlen"), errs)),
+                           equal_plain=not any(errs)))
+        max_err = max(max_err, *errs)
+        run = lambda: sharded.sharded_trip(didx, base, n_local, *lanes, k=k,  # noqa: E731
+                                           ext_steps=steps)
+        wrapper_ms = timer(run, reps=30)
+        ms, _ = device_ms(run, 30, cuda)
+        cold_event_ms, cold_ms = walk_cold_ms(run, 20, cuda, kernel="sharded_trip_kernel")
+        plain_ms = timer(lambda: sharded.sharded_trip_plain(didx, base, n_local, *lanes, k=k,
+                                                            ext_steps=steps), reps=2, warm=1)
+        if cuda:
+            bound = trip_bound(didx, base, n_local, lanes, k, steps, run())
+            bound.update(share_of_bound=bound["bound_ms"] / ms,
+                         share_of_bound_cold=bound["bound_ms"] / cold_ms)
+        else:
+            bound = dict(bound_ms="not measured", bound_by="bytes")
+        timing.append(dict(trip=trip, shard=p, ms=ms, cold_ms=cold_ms,
+                           cold_event_ms=cold_event_ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                           library_ms=None, **bound))
+    first = [t for t in timing if t["trip"] == 0]
+    mean = {x: (sum(t[x] for t in first) / len(first) if cuda else "not measured")
+            for x in ("ms", "cold_ms", "wrapper_ms", "plain_ms", "bound_ms")}
+    mean.update(bound_by=first[0]["bound_by"], library_ms=None)
+    covered = (len(checks) == 2 * SHARDS and all(c["active"] > 0 for c in checks)
+               and all(c["owned"] > 0 for c in checks[:SHARDS])
+               and all(c["extended"] > 0 for c in checks[:SHARDS]) and loop_equal_k8)
+    ok = covered and all(c["equal_plain"] for c in checks)
+    emit("kernel_vs_plain", kernel="sharded_trip", ok=ok, max_abs_err=max_err, covered=covered,
+         lanes=int(w.lens2.shape[0]), trips=(0, mid), active_lanes_by_trip=active,
+         trip_loop_equals_k8=loop_equal_k8,
+         checks=checks, timing=timing, first_trip_mean_per_launch=mean)
+    del saved, sset
+    if cuda:
+        torch.cuda.empty_cache()
+    return ok, max_err, mean
 
 
 def to_dev(dev, *arrays):
@@ -2464,7 +2661,8 @@ def phase_sharded(dev, mapper, worlds: dict, codes, lens, pc1, pc2, plens, B: in
     equal to sharded_path's; sharded_pe_path one batch of B / 2 pairs; sharded_score_path one batch with the mapping score, whose
     scores equal the replicated wire path's; sharded_slot64_path one batch
     on the slot64 cut (global slots in int64), equal to sharded_path's ->
-    {phase: launches}."""
+    ({phase: launches}, {phase: (the call's inputs as the split twins take
+    them, its result, the replicated engine's or None, rows/s)})."""
     import dataclasses
 
     import torch
@@ -2472,16 +2670,16 @@ def phase_sharded(dev, mapper, worlds: dict, codes, lens, pc1, pc2, plens, B: in
     from rapmap_tpu_torch.models.quasi import map_batch_pe, map_batch_se
     from rapmap_tpu_torch.parallel import sharded
 
-    st_sh, stack = worlds["paired"]
+    st_sh, stack, _ = worlds["paired"]
     cfg = mapper.cfg
     mesh = sharded.make_mesh_2d(2, SHARDS, devices=[dev])
     stacks = [stack, stack]  # both data rows on the one card: one upload
     nv = np.array([B // 2, B // 2], np.int32)
     nv_all = torch.tensor(B, device=dev)
-    out, firsts = {}, []
+    out, firsts, results = {}, [], {}
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    seconds, launches_all, same = 0.0, {}, []
+    seconds, launches_all, same, wants = 0.0, {}, [], []
     for b in range(2):
         r, ln = to_dev(dev, codes[b * B : (b + 1) * B], lens[b * B : (b + 1) * B])
         want, _, _ = timed(lambda: map_batch_se(mapper.didx, mapper.st, r, ln, nv_all, cfg),
@@ -2491,7 +2689,8 @@ def phase_sharded(dev, mapper, worlds: dict, codes, lens, pc1, pc2, plens, B: in
         seconds += s
         launches_all = {k: launches_all.get(k, 0) + v for k, v in launches.items()}
         same.append(tuples_equal(got[0], want[0]) and counters_of(got[1]) == counters_of(want[1]))
-        firsts.append(got[0])
+        firsts.append(got)
+        wants.append(want)
     emit("sharded_path", shards=SHARDS, data_rows=len(mesh), reads=2 * B, batches=2, batch=B,
          shard_slots=[n for _, n in stack.bases], seconds=seconds, reads_per_s=2 * B / seconds,
          equal_replicated_batches=same, launches=launches_all,
@@ -2503,13 +2702,15 @@ def phase_sharded(dev, mapper, worlds: dict, codes, lens, pc1, pc2, plens, B: in
     if cuda and launches_all["sharded_walk"] != 2 * len(mesh):
         raise RuntimeError(f"sharded_path: kernel launches {launches_all}")
     out["sharded_path"] = launches_all
+    r, ln = to_dev(dev, codes[:B], lens[:B])
+    results["sharded_path"] = ((r, ln, nv), firsts[0], wants[0], 2 * B / seconds)
 
     # explicit lanes: the per-strand CHD cut, the first batch
-    st_l, stack_l = worlds["lanes"]
-    r, ln = to_dev(dev, codes[:B], lens[:B])
+    st_l, stack_l, _ = worlds["lanes"]
     got, s, launches = timed(lambda: sharded.map_batch_se_sharded(
         [stack_l, stack_l], st_l, r, ln, nv, cfg, mesh), cuda)
-    same = tuples_equal(got[0], firsts[0])
+    same = tuples_equal(got[0], firsts[0][0])
+    results["sharded_lanes_path"] = ((r, ln, nv), got, wants[0], B / s)
     emit("sharded_lanes_path", shards=SHARDS, reads=B, chd_canonical=st_l.chd_canonical,
          seconds=s, reads_per_s=B / s, equal_sharded_path=same, launches=launches)
     if not same or (cuda and launches["sharded_walk_lanes"] != len(mesh)):
@@ -2527,6 +2728,7 @@ def phase_sharded(dev, mapper, worlds: dict, codes, lens, pc1, pc2, plens, B: in
         stacks, st_sh, p1, pl, p2, pl, pv, cfg, mesh), cuda)
     same = all(tuples_equal(a, b) for a, b in zip(got[:3], want[:3])) and \
         counters_of(got[3]) == counters_of(want[3])
+    results["sharded_pe_path"] = ((p1, pl, p2, pl, pv), got, want, P2 / s)
     emit("sharded_pe_path", shards=SHARDS, pairs=P2, seconds=s, pairs_per_s=P2 / s,
          concordant_share=float(got[2].concordant.float().mean()),
          equal_replicated=same, launches=launches)
@@ -2553,6 +2755,7 @@ def phase_sharded(dev, mapper, worlds: dict, codes, lens, pc1, pc2, plens, B: in
             checked += 1
             unequal += any(int(m[i, j]) != int(v) for m, v in zip(mo, rec[:4]))
         base += cnt
+    results["sharded_score_path"] = ((r, ln, nv), got, None, B / s)
     emit("sharded_score_path", shards=SHARDS, reads=B, seconds=s, reads_per_s=B / s,
          records_checked=checked, unequal_to_wire=unequal, launches=launches)
     if unequal or checked < B // 2 or (cuda and not launches["banded_scores"]):
@@ -2567,7 +2770,8 @@ def phase_sharded(dev, mapper, worlds: dict, codes, lens, pc1, pc2, plens, B: in
     r, ln = to_dev(dev, codes[:B], lens[:B])
     got, s, launches = timed(lambda: sharded.map_batch_se_sharded(
         [stack64, stack64], st64, r, ln, nv, cfg, mesh), cuda)
-    same = tuples_equal(got[0], firsts[0])
+    same = tuples_equal(got[0], firsts[0][0])
+    results["sharded_slot64_path"] = ((r, ln, nv), got, wants[0], B / s)
     emit("sharded_slot64_path", shards=SHARDS, reads=B, slot_base_dtype=str(arr64.slot_base.dtype),
          seconds=s, reads_per_s=B / s, equal_sharded_path=same, launches=launches)
     if not same or (cuda and launches["sharded_walk"] != len(mesh)):
@@ -2577,6 +2781,79 @@ def phase_sharded(dev, mapper, worlds: dict, codes, lens, pc1, pc2, plens, B: in
     del stack64
     if cuda:
         torch.cuda.empty_cache()
+    return out, results
+
+
+def phase_sharded_split(dev, mapper, worlds: dict, results: dict, B: int, cuda: bool) -> dict:
+    """The split path (parallel/sharded.py, a ShardSet a data row: each
+    shard its own upload, the trip loop with K10), a twin of each
+    phase_sharded phase on the same inputs, cut and (2, SHARDS) mesh:
+    sharded_split_path (canonical-class cut, paired lanes),
+    sharded_split_lanes_path (per-strand CHD cut, explicit lanes),
+    sharded_split_pe_path, sharded_split_score_path, sharded_split_slot64_path.
+    Each result must equal its stacked twin's (MapOut, PairOut, Counters)
+    and the replicated engine's where the twin has one; `sharded_trip` runs
+    SHARDS x (H + 1) times a program and K8 not at all. With SHARDS x 2 cards
+    the shards lie on distinct cards (the reference's layout); with fewer,
+    every shard is on `dev` (split_idx=True) -> {phase: launches}."""
+    import dataclasses
+
+    import torch
+
+    from rapmap_tpu_torch.parallel import sharded
+
+    n_rows = 2
+    distinct = cuda and torch.cuda.device_count() >= n_rows * SHARDS
+    mesh = sharded.make_mesh_2d(n_rows, SHARDS, devices=None if distinct else [dev])
+    layout = "distinct cards" if distinct else f"all on {mesh[0][0]}"
+    H = mapper.cfg.max_hits_per_strand
+    cfg_s = dataclasses.replace(mapper.cfg, mapping_score=True)
+    out = {}
+    for phase, world, cfg, pe in (
+            ("sharded_split_path", "paired", mapper.cfg, False),
+            ("sharded_split_lanes_path", "lanes", mapper.cfg, False),
+            ("sharded_split_pe_path", "paired", mapper.cfg, True),
+            ("sharded_split_score_path", "paired", cfg_s, False),
+            ("sharded_split_slot64_path", "slot64", mapper.cfg, False)):
+        twin = phase.replace("_split", "")
+        inputs, stacked, replicated, stacked_rate = results[twin]
+        st, arr = worlds[world][0], worlds[world][-1]
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        uploads = sharded.upload_sharded(arr, mesh, split_idx=None if distinct else True)
+        upload_s = time.time() - t0
+        fn = sharded.map_batch_pe_sharded if pe else sharded.map_batch_se_sharded
+        got, s, launches = timed(lambda: fn(uploads, st, *inputs, cfg, mesh), cuda)
+        rows = int(inputs[0].shape[0])
+        programs = n_rows * (2 if pe else 1)
+        equal_stacked = all(tuples_equal(a, b) for a, b in zip(got, stacked))
+        equal_replicated = replicated is None or (
+            all(tuples_equal(a, b) for a, b in zip(got[:-1], replicated[:-1]))
+            and counters_of(got[-1]) == counters_of(replicated[-1]))
+        emit(phase, shards=SHARDS, data_rows=n_rows, shards_on=layout,
+             devices=[[str(d) for d in row] for row in mesh], rows=rows, seconds=s,
+             rows_per_s=rows / s, stacked_rows_per_s=stacked_rate,
+             over_stacked=rows / s / stacked_rate, upload_s=upload_s,
+             equal_stacked=equal_stacked, equal_replicated=equal_replicated,
+             launches=launches, sharded_trip_per_program=launches["sharded_trip"] / programs,
+             max_memory_allocated=torch.cuda.max_memory_allocated() if cuda else "not measured")
+        if not (equal_stacked and equal_replicated):
+            raise RuntimeError(f"{phase}: the split path's result differs from its stacked twin's "
+                               "or the replicated engine's")
+        if cuda and (launches["sharded_trip"] != programs * SHARDS * (H + 1)
+                     or launches["sharded_walk"] or launches["sharded_walk_lanes"]
+                     or (cfg.mapping_score and not launches["banded_scores"])):
+            raise RuntimeError(f"{phase}: kernel launches {launches}")
+        out[phase] = launches
+        if phase == "sharded_split_path":  # where a program's time goes, beside the stack's
+            stacks = [worlds[world][1]] * n_rows
+            emit("profile_sharded_split", shards_on=layout, **{
+                name: profile_one_batch(lambda: fn(ups, st, *inputs, cfg, mesh), n_rows, cuda, 6)
+                for name, ups in (("split", uploads), ("stacked", stacks))})
+        del uploads, got
+        if cuda:
+            torch.cuda.empty_cache()
     return out
 
 
@@ -3701,8 +3978,16 @@ def main() -> int:
     if not k8_ok:
         raise RuntimeError("sharded_walk kernel disagrees with its plain version, or an input "
                            "set missed what it is there to exercise")
-    sh_launches = phase_sharded(dev, qm, sh_worlds, codes, lens, pc1, pc2, plens, B, cuda)
-    del qm, sh_worlds
+    sh_launches, sh_results = phase_sharded(dev, qm, sh_worlds, codes, lens, pc1, pc2, plens, B,
+                                            cuda)
+    # the split path: K10 against its plain version, then a twin of each
+    # sharded phase with every data row's shards uploaded on their own
+    k10_ok, k10_err, k10_t = phase_trip_kernel(dev, timer, sh_worlds, codes, lens, B)
+    if not k10_ok:
+        raise RuntimeError("sharded_trip kernel disagrees with its plain version, or an input "
+                           "set missed what it is there to exercise")
+    sh_launches.update(phase_sharded_split(dev, qm, sh_worlds, sh_results, B, cuda))
+    del qm, sh_worlds, sh_results
     if cuda:
         torch.cuda.empty_cache()
     phase_cli_world2(idx_dir, work, {
@@ -3851,6 +4136,17 @@ def main() -> int:
         "launches": sh_launches["sharded_lanes_path"]["sharded_walk_lanes"],
         "launches_on_parallel_paths": on_par("sharded_walk_lanes"),
         "max_abs_err": k8_err, "matches_plain": k8_ok, **{x: k8_t["lanes_row"][x] for x in (
+            "ms", "cold_ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+    }, {
+        "name": "sharded_trip", "route": "cuda",
+        "source": "rapmap_tpu_torch/csrc/walk.cu",
+        "replaces": "rapmap_tpu/parallel/sharded.py:583",
+        "launches": sh_launches["sharded_split_path"]["sharded_trip"],
+        "launches_on_parallel_paths": on_par("sharded_trip"),
+        "max_abs_err": k10_err, "matches_plain": k10_ok,
+        "timed_as": "mean per launch over the first trip's shards of one data row's program",
+        **{x: k10_t[x] for x in (
             "ms", "cold_ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
     }]}), flush=True)

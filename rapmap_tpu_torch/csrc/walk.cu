@@ -148,6 +148,22 @@
 // below 2^31, its int64 ones past it); slot_base is read in the type it was
 // cut in, int32 or int64 (template parameter Slot).
 //
+// The sharded trip (tqm_sharded_trip, K10) is what the split path runs when a
+// data row's idx shards lie on their own devices, as the reference's mesh
+// lays them: one trip can then not see every shard's rows, so the lockstep
+// trip loop runs in PyTorch on the row's home device
+// (parallel/sharded.py trip_extension) and each trip launches this entry once
+// per shard, on that shard's device, for its term of the reference's psum:
+// one thread a lane, the owner test in global coordinates against the true
+// count, then extend_lane over the shard's rows. Lanes the shard does not own
+// take the branch around the extension and load nothing past their active
+// byte and b0. What bounds it: each launch is one trip's worth of the walk's
+// bytes for the shard's lanes (tqm_sharded_trip_traffic counts them), tiny
+// beside a launch's fixed cost; P x (H + 1) launches a program, and the trip
+// loop's eager PyTorch between them, are what a program of the split path
+// pays. The kernel is the simple form: fusing the advance into it, or the
+// trip loop into one kernel with copies between cards, would cut those.
+//
 // C interface for ctypes: every pointer and the stream are void* on the
 // Python side; every entry returns the CUDA error code (0 = success).
 
@@ -897,6 +913,41 @@ __global__ void extend_packed_kernel(
   mlen_out[i] = mlen;
 }
 
+// One shard's term of one trip of the sharded walk, one thread a lane (K10,
+// the split path; rapmap_tpu/parallel/sharded.py _sharded_scan_paired
+// :583-600 and _sharded_scan :433-451 on one idx shard, up to the psums):
+// lane r is the shard's when it is active and its GLOBAL b0 lies in [base,
+// base + n_local), n_local the true slot count, tested before the rebase;
+// it extends over the shard's rows at local slots (extend_lane, as K8 does
+// on the owner it finds) and writes (b + base, e + base, mlen), and every
+// other lane (0, 0, 0) without reading its row. Every output byte is written.
+template <bool kCount>
+__global__ void sharded_trip_kernel(
+    const int64_t* __restrict__ preads, const int64_t* __restrict__ next_bad,
+    const int64_t* __restrict__ lens2, const int64_t* __restrict__ col_off2,
+    const int64_t* __restrict__ b0, const int64_t* __restrict__ e0,
+    const int64_t* __restrict__ pos, const uint8_t* __restrict__ active, Index ix, int64_t base,
+    int64_t n_local, int64_t R, int L, int k, int steps, int W, int64_t* __restrict__ b_out,
+    int64_t* __restrict__ e_out, int64_t* __restrict__ mlen_out, Traffic tr) {
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  touch<kCount>(tr, kActive, active + r, 1);
+  const int64_t lb = active[r] != 0 ? load<kCount>(tr, kB0, b0 + r) - base : -1;
+  const bool mine = lb >= 0 && lb < n_local;
+  int64_t b = 0, e = 0, mlen = 0;
+  if (mine) {
+    extend_lane<kCount>(ix, preads + r * L, next_bad + r * L, load<kCount>(tr, kLens, lens2 + r),
+                        load<kCount>(tr, kColOff, col_off2 + r), lb,
+                        clamp64(load<kCount>(tr, kE0, e0 + r) - base, 0, n_local),
+                        load<kCount>(tr, kPos, pos + r), true, k, steps, L, W, b, e, mlen, tr);
+    b += base;
+    e += base;
+  }
+  b_out[r] = b;
+  e_out[r] = e;
+  mlen_out[r] = mlen;
+}
+
 __global__ void extend_charwise_kernel(
     const int64_t* __restrict__ lens, const int64_t* __restrict__ b0,
     const int64_t* __restrict__ e0, const int64_t* __restrict__ pos,
@@ -952,6 +1003,26 @@ int launch_extend(const void* preads, const void* next_bad, const void* lens,
       static_cast<const int64_t*>(e0), static_cast<const int64_t*>(pos),
       static_cast<const uint8_t*>(active), ix, A, R, L, k, steps, W,
       static_cast<int64_t*>(b_out), static_cast<int64_t*>(e_out),
+      static_cast<int64_t*>(mlen_out), tr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The launch of one shard's trip (tqm_sharded_trip*).
+template <bool kCount>
+int launch_trip(const void* preads, const void* next_bad, const void* lens2,
+                const void* col_off2, const void* b0, const void* e0, const void* pos,
+                const void* active, const Index& ix, int64_t base, int64_t n_local, int64_t R,
+                int L, int k, int steps, int W, void* b_out, void* e_out, void* mlen_out,
+                const Traffic& tr, void* stream) {
+  if (R <= 0 || L <= 0 || W < 1 || n_local < 0 || n_local > ix.n_sa)
+    return static_cast<int>(cudaErrorInvalidValue);
+  sharded_trip_kernel<kCount><<<static_cast<unsigned>((R + kMaxLanes - 1) / kMaxLanes),
+                                kMaxLanes, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(preads), static_cast<const int64_t*>(next_bad),
+      static_cast<const int64_t*>(lens2), static_cast<const int64_t*>(col_off2),
+      static_cast<const int64_t*>(b0), static_cast<const int64_t*>(e0),
+      static_cast<const int64_t*>(pos), static_cast<const uint8_t*>(active), ix, base, n_local,
+      R, L, k, steps, W, static_cast<int64_t*>(b_out), static_cast<int64_t*>(e_out),
       static_cast<int64_t*>(mlen_out), tr);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1293,4 +1364,44 @@ extern "C" int tqm_sharded_walk_traffic(
   return run(preads, next_bad, lens2, col_off2, bf, ef, br, er, anch_f, anch_r, sa_cmp, P, s_pad,
              F, text2q, nw, slot_base, R, B, L, S, k, H, steps, W, buf, n_out, trunc_out, tr,
              stream);
+}
+
+// One shard's term of one trip of the sharded walk over a data row whose
+// shards lie on their own devices (parallel/sharded.py sharded_trip, the
+// split path's K10): R lanes of preads, next_bad (R, L) int64 and lens2,
+// col_off2, b0, e0, pos (R,) int64, active (R,) bytes, all on the shard's
+// device with its sa_cmp (n_sa, 3 + F) int32 rows (8-byte aligned, F as in
+// tqm_anchor_walk) and text2q (nw, 4); b0 and e0 are GLOBAL slots, base the
+// shard's global slot offset and n_local its true slot count (0 <= n_local
+// <= n_sa). Writes every byte of b_out, e_out and mlen_out (R,) int64: the
+// owned lanes' extension in global slots, (0, 0, 0) on the others.
+extern "C" int tqm_sharded_trip(
+    const void* preads, const void* next_bad, const void* lens2, const void* col_off2,
+    const void* b0, const void* e0, const void* pos, const void* active, const void* sa_cmp,
+    int64_t n_sa, int F, const void* text2q, int64_t nw, int64_t base, int64_t n_local,
+    int64_t R, int L, int k, int steps, int W, void* b_out, void* e_out, void* mlen_out,
+    void* stream) {
+  if (!index_ok(sa_cmp, n_sa, F, nw)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_trip<false>(preads, next_bad, lens2, col_off2, b0, e0, pos, active,
+                            make_index(sa_cmp, n_sa, F, text2q, nw), base, n_local, R, L, k, steps,
+                            W, b_out, e_out, mlen_out, Traffic{}, stream);
+}
+
+// The trip counting what it reads, as tqm_anchor_walk_traffic: the bitmaps
+// follow the order preads, next_bad, lens2, col_off2, b0, e0, pos, active,
+// sa_cmp, text2q, and `rows` receives the number of sa_cmp rows compared.
+extern "C" int tqm_sharded_trip_traffic(
+    const void* preads, const void* next_bad, const void* lens2, const void* col_off2,
+    const void* b0, const void* e0, const void* pos, const void* active, const void* sa_cmp,
+    int64_t n_sa, int F, const void* text2q, int64_t nw, int64_t base, int64_t n_local,
+    int64_t R, int L, int k, int steps, int W, void* b_out, void* e_out, void* mlen_out,
+    void* bits, const int64_t* word_off, void* rows, void* stream) {
+  if (!index_ok(sa_cmp, n_sa, F, nw)) return static_cast<int>(cudaErrorInvalidValue);
+  const void* tensors[] = {preads, next_bad, lens2, col_off2, b0, e0, pos, active, sa_cmp, text2q};
+  const Region regions[] = {kPreads, kNextBad, kLens, kColOff, kB0,
+                            kE0,     kPos,     kActive, kSaCmp, kText2q};
+  return launch_trip<true>(preads, next_bad, lens2, col_off2, b0, e0, pos, active,
+                           make_index(sa_cmp, n_sa, F, text2q, nw), base, n_local, R, L, k, steps,
+                           W, b_out, e_out, mlen_out,
+                           make_traffic(tensors, regions, 10, bits, word_off, rows), stream);
 }

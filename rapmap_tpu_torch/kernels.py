@@ -41,6 +41,7 @@ LAUNCHES: dict[str, int] = {
     "extend_packed_anchors": 0,  # csrc/walk.cu, the extension alone, anchor-parallel
     "sharded_walk": 0,          # csrc/walk.cu, sharded index, strand-paired lanes
     "sharded_walk_lanes": 0,    # csrc/walk.cu, sharded index, explicit lanes
+    "sharded_trip": 0,          # csrc/walk.cu, one shard's trip of the split sharded walk
 }
 
 _lock = threading.Lock()

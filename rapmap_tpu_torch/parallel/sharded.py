@@ -9,12 +9,24 @@ the idx axis by a sum (each window or slot is non-zero on exactly one shard:
 the reference's psum over "idx", exact in one process).
 
 `shard_quasi_index` cuts the index on the host into numpy arrays equal to
-the reference's field for field. `upload_sharded` stacks them on each data
-row's device: one upload serves every row on that device, with one copy of
-the replicated text2q and txp_align. The engine of a data row
-(`map_batch_se_sharded`, `map_batch_pe_sharded`) runs
+the reference's field for field. `upload_sharded` puts each data row of the
+mesh on its devices, in one of two layouts:
 
-  1. the dense phase shard by shard, unioned into GLOBAL slot coordinates:
+  - a row whose idx shards share one device gets a `ShardStack`: the
+    per-shard tables stacked on that device, one upload serving every row
+    there, with one copy of the replicated text2q and txp_align;
+  - a row whose shards lie on different devices (the reference's layout:
+    `make_mesh_2d` gives it when the process has n_data x n_idx devices), or
+    any row with split_idx=True, gets a `ShardSet`: shard p uploaded to the
+    row's p-th device as a single-device index, text2q and txp_align once a
+    device; shard 0's device is the row's home.
+
+The engine of a data row (`map_batch_se_sharded`, `map_batch_pe_sharded`)
+runs on either layout
+
+  1. the dense phase shard by shard, unioned into GLOBAL slot coordinates on
+     the row's home device (each shard probes on its own device, its keys
+     copied there once a program, and its terms come home to be summed):
      the canonical-class CHD probe (classes sharded by class space, rows
      carrying global intervals) or the per-strand CHD / prefix-LUT binary
      search over explicit [fwd; revcomp] lanes (shard-local rows, rebased);
@@ -22,25 +34,31 @@ the replicated text2q and txp_align. The engine of a data row
      the shard that owns the anchor's global interval, b0 in
      [slot_base[p, 0], slot_base[p, 0] + slot_base[p, 1]) with the TRUE slot
      count, and the step's (b, e, mlen) is the sum over owners (zero where
-     no shard owns it). On CUDA tensors one launch of csrc/walk.cu's sharded
-     build over the stacked shard tables (counters `sharded_walk`, paired
-     lanes, and `sharded_walk_lanes`, explicit lanes); on CPU tensors
-     `sharded_walk_plain`, which follows the reference trip by trip;
+     no shard owns it). On a ShardStack on the card: one launch of
+     csrc/walk.cu's sharded build over the stacked shard tables (K8,
+     counters `sharded_walk`, paired lanes, and `sharded_walk_lanes`,
+     explicit lanes). On a ShardSet: the trip loop on the home device, H + 1
+     lockstep trips in eager PyTorch, each trip's (b0, e0, pos, act) copied
+     to every shard's device, one launch of the sharded trip there (K10,
+     `sharded_trip`) for that shard's term, and the terms summed at home:
+     the reference's three psums a trip. On CPU tensors both take the plain
+     trip (`sharded_trip_plain`, inside `sharded_walk_plain` for a stack);
   3. the collate with an expand_fn that resolves a global slot on its owning
-     shard's sa_meta rows, and with --mappingScore the banded scores of
-     every MapOut slot (text2q and txp_align are replicated, so no union).
+     shard's sa_meta rows (the slots sent to each shard's device, the
+     answers summed at home), and with --mappingScore the banded scores of
+     every MapOut slot on shard 0's view (text2q and txp_align are
+     replicated, so no union).
 
 Global slots ride int64 on the device, which carries the reference's int32
 global slots (below 2^31) and its int64 ones (slot64, past 2^31 total SA
 slots) alike; slot_base keeps the numpy dtype, int64 under slot64. The
 reference's module-global shard base and count holders are explicit
-arguments here (a stack's host copy `bases`, read without a device sync).
+arguments here (the host copy `bases` of either layout, read without a
+device sync).
 
-The walk runs over one device's stacked tables, so a data row's idx
-shards share a device: data rows take the process's devices in turn
-(`make_mesh_2d`), and on one card every shard is on cuda:0. An idx axis
-across devices or processes needs one exchange a walk trip and is not
-ported.
+Copies between devices are `.to()` on the current streams, which torch
+orders against the work that made and that reads them. The reference runs
+its sharded engine in one process's mesh; so does this one.
 """
 
 from __future__ import annotations
@@ -385,6 +403,10 @@ class ShardStack(NamedTuple):
     def slot64(self) -> bool:
         return self.slot_base.dtype == torch.int64
 
+    @property
+    def home(self) -> torch.device:
+        return self.sa_cmp.device
+
     def local(self, p: int) -> DeviceQuasiIndex:
         """Shard p as a single-device index (the reference's _local_didx)."""
         return DeviceQuasiIndex(
@@ -396,56 +418,135 @@ class ShardStack(NamedTuple):
         )
 
 
+class ShardSet(NamedTuple):
+    """A data row whose idx shards lie on their own devices (or are made to,
+    split_idx=True): shard p's tables as a single-device index on its
+    device, sharing that device's one copy of text2q and txp_align, and
+    `bases`, the host copy of slot_base. Shard 0's device is the row's home:
+    the dense unions, the walk's trip loop, the collate and the score run
+    there."""
+
+    shards: tuple  # (P,) DeviceQuasiIndex, shard p on the row's p-th device
+    bases: tuple
+
+    @property
+    def home(self) -> torch.device:
+        return self.shards[0].sa_cmp.device
+
+    def local(self, p: int) -> DeviceQuasiIndex:
+        return self.shards[p]
+
+
 def make_mesh_2d(n_data: int, n_idx: int, devices=None) -> list[list[torch.device]]:
-    """(n_data, n_idx) devices in mesh order. The idx axis stays on one
-    device (it does not span devices here), so data row d holds n_idx copies
-    of devices[d % len(devices)]. Default: every CUDA device (no card: an
-    error, not a CPU run)."""
+    """(n_data, n_idx) devices in mesh order. With at least n_data x n_idx
+    devices, the reference's layout: data row d takes devices[d * n_idx :
+    (d + 1) * n_idx], one a shard (a ShardSet when they differ). With fewer,
+    each data row's shards share one device, devices[d % len(devices)] (a
+    ShardStack; on one card every shard is on it). Default: every CUDA
+    device (no card: an error, not a CPU run)."""
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("make_mesh_2d: no CUDA device; pass devices=['cpu'] to run "
                                "the shards on the CPU")
         devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     devices = [norm_device(d) for d in devices]
+    if len(devices) >= n_data * n_idx:
+        return [devices[d * n_idx : (d + 1) * n_idx] for d in range(n_data)]
     return [[devices[d % len(devices)]] * n_idx for d in range(n_data)]
 
 
-def _upload(arrays: ShardedIndexArrays, dev: torch.device) -> ShardStack:
-    def t(a):
-        if a is None:
-            return None
-        a = np.ascontiguousarray(a)
-        if a.dtype == np.uint32:
-            a = a.view(np.int32)
-        return torch.from_numpy(a).to(dev)
+def _to_dev(a, dev: torch.device) -> torch.Tensor | None:
+    """A host array on `dev` (uint32 as its int32 bit pattern), None as None."""
+    if a is None:
+        return None
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(a).to(dev)
 
+
+def _upload(arrays: ShardedIndexArrays, dev: torch.device) -> ShardStack:
+    t = lambda a: _to_dev(a, dev)  # noqa: E731
     return ShardStack(
         text2q=t(arrays.text2q[0]), sa_cmp=t(arrays.sa_cmp), sa_meta=t(arrays.sa_meta),
         kmer_rows=t(arrays.kmer_rows), lut_rows=t(arrays.lut_rows),
         slot_base=t(arrays.slot_base), chd_dir=t(arrays.chd_dir), chd_rows=t(arrays.chd_rows),
         txp_align=t(arrays.txp_align[0]),
-        bases=tuple((int(b), int(n)) for b, n in np.asarray(arrays.slot_base)),
+        bases=_bases(arrays),
     )
 
 
-def upload_sharded(arrays: ShardedIndexArrays, mesh: list[list]) -> list[ShardStack]:
-    """One ShardStack per data row of the mesh, one upload per distinct
-    device. A row's idx shards must lie on one device and number P."""
+def _bases(arrays: ShardedIndexArrays) -> tuple:
+    return tuple((int(b), int(n)) for b, n in np.asarray(arrays.slot_base))
+
+
+def _upload_shard(arrays: ShardedIndexArrays, p: int, dev: torch.device,
+                  replicated: dict) -> DeviceQuasiIndex:
+    """Shard p alone on `dev`, with the device's text2q and txp_align from
+    `replicated` ({device: (text2q, txp_align)}, filled at first use)."""
+    if dev not in replicated:
+        ta = arrays.txp_align
+        replicated[dev] = (_to_dev(arrays.text2q[0], dev),
+                           None if ta is None else _to_dev(ta[0], dev))
+    text2q, txp_align = replicated[dev]
+    t = lambda a: None if a is None else _to_dev(a[p], dev)  # noqa: E731
+    return DeviceQuasiIndex(
+        text2q=text2q, sa_meta=t(arrays.sa_meta), sa_cmp=t(arrays.sa_cmp),
+        chd_dir=t(arrays.chd_dir), chd_rows=t(arrays.chd_rows), kmer_rows=t(arrays.kmer_rows),
+        lut_rows=t(arrays.lut_rows), txp_align=txp_align,
+    )
+
+
+def upload_sharded(arrays: ShardedIndexArrays, mesh: list[list],
+                   split_idx: bool | None = None) -> list[ShardStack | ShardSet]:
+    """One upload per data row of the mesh, whose rows name P devices, one
+    a shard: a ShardStack on the row's device when its shards share one (the
+    walk K8), else a ShardSet with shard p on row[p] (the trip loop with
+    K10). Rows share what lies on a common device: one stack a device, one
+    upload a (device, shard), text2q and txp_align once a device.
+
+    split_idx: None splits a row exactly when its devices differ. True makes
+    every row a ShardSet, even one whose shards all lie on one device: that
+    is how one card, or the CPU, runs the split path (each shard uploaded on
+    its own, so a forced split beside a stack of the same index holds the
+    shard tables twice). False refuses a row whose devices differ."""
     P_ = arrays.sa_cmp.shape[0]
     stacks: dict = {}
+    shards: dict = {}
+    replicated: dict = {}
     out = []
     for row in mesh:
-        devs = {norm_device(d) for d in row}
-        if len(row) != P_:
-            raise ValueError(f"upload_sharded: mesh rows of {len(row)} for {P_} shards")
-        if len(devs) != 1:
-            raise ValueError("upload_sharded: a data row's idx shards must share one device "
-                             "(an idx axis across devices is not ported)")
-        dev = devs.pop()
-        if dev not in stacks:
-            stacks[dev] = _upload(arrays, dev)
-        out.append(stacks[dev])
+        devs = [norm_device(d) for d in row]
+        if len(devs) != P_:
+            raise ValueError(f"upload_sharded: mesh rows of {len(devs)} for {P_} shards")
+        split = len(set(devs)) > 1 if split_idx is None else split_idx
+        if not split:
+            if len(set(devs)) > 1:
+                raise ValueError("upload_sharded: split_idx=False, but a data row's shards lie "
+                                 "on several devices")
+            if devs[0] not in stacks:
+                stacks[devs[0]] = _upload(arrays, devs[0])
+            out.append(stacks[devs[0]])
+            continue
+        for p, dev in enumerate(devs):
+            if (dev, p) not in shards:
+                shards[dev, p] = _upload_shard(arrays, p, dev, replicated)
+        out.append(ShardSet(shards=tuple(shards[dev, p] for p, dev in enumerate(devs)),
+                            bases=_bases(arrays)))
     return out
+
+
+def _copier(*tensors):
+    """-> at(dev): the tensors on `dev`, contiguous, copied there at the first
+    call for that device (no copy on the device they lie on)."""
+    cache: dict = {}
+
+    def at(dev):
+        if dev not in cache:
+            cache[dev] = tuple(t.to(dev).contiguous() for t in tensors)
+        return cache[dev]
+
+    return at
 
 
 # ---- dense phase ------------------------------------------------------------------
@@ -462,13 +563,15 @@ def _probe_class_rows(didx: DeviceQuasiIndex, st: EngineStatic, can_hi, can_lo):
     return (khi == can_hi) & (klo == can_lo), row
 
 
-def dense_paired(stack: ShardStack, st: EngineStatic, reads, lens, cfg: MapConfig) -> WalkInputs:
+def dense_paired(shards: ShardStack | ShardSet, st: EngineStatic, reads, lens,
+                 cfg: MapConfig) -> WalkInputs:
     """The canonical-class sharded dense phase (the reference's
     _sharded_scan_paired up to its walk): ONE class probe per forward window
-    on every shard, the strand-resolved 4-tuple summed over shards (a class
-    is non-rejected on one shard at most, and its row carries global
-    intervals). The lanes are laid out as ops.mmp.dense_phase lays them:
-    [fwd; rc] with rc lanes right-aligned (col_off) and mirrored columns."""
+    on every shard, on the shard's device, the strand-resolved 4-tuple
+    summed over shards on the reads' device (a class is non-rejected on one
+    shard at most, and its row carries global intervals). The lanes are laid
+    out as ops.mmp.dense_phase lays them: [fwd; rc] with rc lanes
+    right-aligned (col_off) and mirrored columns."""
     B, L = reads.shape
     k = st.k
     S = L - k + 1
@@ -485,9 +588,13 @@ def dense_paired(stack: ShardStack, st: EngineStatic, reads, lens, cfg: MapConfi
     can_lo = torch.where(is_can, key_lo, rlo)
     bf = ef = br = er = torch.zeros_like(key_hi)
     hitn = torch.zeros_like(kvalid)
-    for p in range(len(stack.bases)):
-        hit, row = _probe_class_rows(stack.local(p), st, can_hi, can_lo)
-        b_can, e_can, b_alt, e_alt = (torch.where(hit, row[..., c], 0) for c in range(2, 6))
+    keys = _copier(can_hi, can_lo)
+    for p in range(len(shards.bases)):
+        didx = shards.local(p)
+        hit, row = _probe_class_rows(didx, st, *keys(didx.sa_cmp.device))
+        b_can, e_can, b_alt, e_alt = (torch.where(hit, row[..., c], 0).to(reads.device)
+                                      for c in range(2, 6))
+        hit = hit.to(reads.device)
         bf = bf + torch.where(is_can, b_can, b_alt)
         ef = ef + torch.where(is_can, e_can, e_alt)
         br = br + torch.where(is_can, b_alt, b_can)
@@ -500,11 +607,13 @@ def dense_paired(stack: ShardStack, st: EngineStatic, reads, lens, cfg: MapConfi
                       bf=bf, ef=ef, br=br, er=er, anch_f=anch_f, anch_rF=anch_rF)
 
 
-def dense_lanes(stack: ShardStack, st: EngineStatic, lanes, lens2, cfg: MapConfig) -> WalkInputs:
+def dense_lanes(shards: ShardStack | ShardSet, st: EngineStatic, lanes, lens2,
+                cfg: MapConfig) -> WalkInputs:
     """The per-strand sharded dense phase (the reference's _sharded_scan up
     to its walk) over explicit lanes: each shard probes its own k-mer range
-    (legacy CHD or binary search, shard-local intervals), rebased by its
-    slot offset and summed into global coordinates."""
+    on its device (legacy CHD or binary search, shard-local intervals), and
+    its hits come to the lanes' device, rebased by its slot offset and
+    summed into global coordinates."""
     R, L = lanes.shape
     k = st.k
     S = L - k + 1
@@ -515,8 +624,11 @@ def dense_lanes(stack: ShardStack, st: EngineStatic, lanes, lens2, cfg: MapConfi
     live = kvalid & ((_cols(S, lanes.device) + k) <= lens2[:, None])
     b2 = e2 = torch.zeros_like(key_hi)
     nf = torch.zeros_like(live)
-    for p, (base, _) in enumerate(stack.bases):
-        found, db, de = kmer_lookup(stack.local(p), st, key_hi, key_lo)
+    keys = _copier(key_hi, key_lo)
+    for p, (base, _) in enumerate(shards.bases):
+        didx = shards.local(p)
+        found, db, de = (t.to(lanes.device)
+                         for t in kmer_lookup(didx, st, *keys(didx.sa_cmp.device)))
         found = found & live
         b2 = b2 + torch.where(found, db + base, 0)
         e2 = e2 + torch.where(found, de + base, 0)
@@ -527,44 +639,85 @@ def dense_lanes(stack: ShardStack, st: EngineStatic, lanes, lens2, cfg: MapConfi
                       anch_f=anch, anch_rF=anch)
 
 
-# ---- the walk (K8) ----------------------------------------------------------------
+# ---- the walk: K8 on a stack, the trip loop with K10 on a split row -------------
 
 SHARDED_WALK_MAX_SHARDS = 1024  # csrc/walk.cu kMaxShards: the shard table in shared memory
 
 
-def sharded_walk_plain(stack: ShardStack, preads, next_bad, lens2, col_off2, bf, ef, br, er,
-                       anch_f, anch_rF, *, k: int, H: int, ext_steps: int,
+def sharded_trip_plain(didx: DeviceQuasiIndex, base: int, n_local: int, preads, next_bad,
+                       lens2, col_off2, b0, e0, pos, act, *, k: int,
+                       ext_steps: int) -> tuple:
+    """One shard's term of one trip of the sharded walk, in PyTorch (the
+    reference's trip body on one idx shard up to its three psums,
+    rapmap_tpu/parallel/sharded.py :583-600 and :433-451): the active lanes
+    whose GLOBAL b0 the shard owns, b0 - base in [0, n_local) with the TRUE
+    slot count, tested before the rebase, extend over the shard's rows at
+    local slots (ops.extend_packed) -> (b + base, e + base, mlen) int64 on
+    those lanes and (0, 0, 0) on the others."""
+    lb = b0 - base
+    mine = act & (lb >= 0) & (lb < n_local)
+    bl, el, ml = extend_packed(
+        didx, preads, next_bad, lens2, lb.clamp(0, n_local), (e0 - base).clamp(0, n_local),
+        pos, mine, k, ext_steps, preads.shape[1], col_off=col_off2,
+    )
+    return (torch.where(mine, bl + base, 0), torch.where(mine, el + base, 0),
+            torch.where(mine, ml, 0))
+
+
+def trip_extension(shards: ShardStack | ShardSet, w: WalkInputs, trip, *, k: int,
+                   ext_steps: int):
+    """The walk's extension over a data row's shards -> extend(b0, e0, pos,
+    act): each trip's lane values go to every shard's device (copied once a
+    device a trip; the lane inputs preads, next_bad, lens2 and col_off2 once
+    a device a program), trip(...) gives that shard's term there
+    (sharded_trip_plain, or sharded_trip), and the terms come to the lanes'
+    device and are summed: the reference's three psums over the idx axis."""
+    home = w.lens2.device
+    lanes = _copier(w.preads, w.next_bad, w.lens2, w.col_off2)
+
+    def extend(b0, e0, pos, act):
+        at = _copier(b0, e0, pos, act)
+        b1 = e1 = mlen = torch.zeros_like(b0)
+        for p, (base, n_local) in enumerate(shards.bases):
+            didx = shards.local(p)
+            dev = didx.sa_cmp.device
+            tb, te, tm = trip(didx, base, n_local, *lanes(dev), *at(dev), k=k,
+                              ext_steps=ext_steps)
+            b1, e1, mlen = b1 + tb.to(home), e1 + te.to(home), mlen + tm.to(home)
+        return b1, e1, mlen
+
+    return extend
+
+
+def trip_loop(shards: ShardStack | ShardSet, w: WalkInputs, trip, *, k: int, H: int,
+              ext_steps: int, paired: bool) -> ScanHits:
+    """H + 1 lockstep trips of the sharded walk on the lanes' device, as the
+    reference's while_loop runs them (finished lanes masked; a trip with no
+    lane active changes nothing), each trip's extension through
+    trip_extension(shards, w, trip)."""
+    R = w.lens2.shape[0]
+    if paired:
+        db2, de2, anc2 = anchor_tables(w.bf, w.ef, w.br, w.er, w.anch_f, w.anch_rF)
+        is_rc = torch.arange(R, device=w.lens2.device) >= R // 2
+    else:
+        db2, de2, anc2 = w.bf, w.ef, next_anchor_table(w.anch_f)
+        is_rc = torch.zeros(w.lens2.shape, dtype=torch.bool, device=w.lens2.device)
+    extend = trip_extension(shards, w, trip, k=k, ext_steps=ext_steps)
+    return _walk_plain(db2, de2, anc2, is_rc, w.lens2, extend, k, H)
+
+
+def sharded_walk_plain(shards: ShardStack | ShardSet, preads, next_bad, lens2, col_off2, bf,
+                       ef, br, er, anch_f, anch_rF, *, k: int, H: int, ext_steps: int,
                        paired: bool) -> ScanHits:
     """The sharded walk in PyTorch, trip by trip as the reference's
     while_loop runs it (H + 1 lockstep trips, finished lanes masked): every
     shard extends the active lanes whose global anchor interval it owns
-    (ops.extend_packed over its own sa_cmp rows, at its local slots), and
-    the step's (b, e, mlen) is the sum over shards of the owners' results,
-    rebased to global slots — 0 for a lane no shard owns."""
-    L = preads.shape[1]
-
-    def extend(b0, e0, pos, act):
-        b1 = e1 = mlen = torch.zeros_like(b0)
-        for p, (base, n_local) in enumerate(stack.bases):
-            lb = b0 - base  # ownership in global coordinates, before the rebase
-            mine = act & (lb >= 0) & (lb < n_local)
-            bl, el, ml = extend_packed(
-                stack.local(p), preads, next_bad, lens2, lb.clamp(0, n_local),
-                (e0 - base).clamp(0, n_local), pos, mine, k, ext_steps, L, col_off=col_off2,
-            )
-            b1 = b1 + torch.where(mine, bl + base, 0)
-            e1 = e1 + torch.where(mine, el + base, 0)
-            mlen = mlen + torch.where(mine, ml, 0)
-        return b1, e1, mlen
-
-    R = lens2.shape[0]
-    if paired:
-        db2, de2, anc2 = anchor_tables(bf, ef, br, er, anch_f, anch_rF)
-        is_rc = torch.arange(R, device=lens2.device) >= R // 2
-    else:
-        db2, de2, anc2 = bf, ef, next_anchor_table(anch_f)
-        is_rc = torch.zeros(lens2.shape, dtype=torch.bool, device=lens2.device)
-    return _walk_plain(db2, de2, anc2, is_rc, lens2, extend, k, H)
+    (sharded_trip_plain), and the step's (b, e, mlen) is the sum over
+    shards of the owners' results, rebased to global slots — 0 for a lane
+    no shard owns."""
+    w = WalkInputs(preads, next_bad, lens2, col_off2, bf, ef, br, er, anch_f, anch_rF)
+    return trip_loop(shards, w, sharded_trip_plain, k=k, H=H, ext_steps=ext_steps,
+                     paired=paired)
 
 
 def _check_shard_table(bases) -> None:
@@ -642,16 +795,28 @@ def sharded_walk_args(stack: ShardStack, w: WalkInputs, out, *, k: int, H: int,
     return types, vals
 
 
-def sharded_walk(stack: ShardStack, w: WalkInputs, *, k: int, H: int, ext_steps: int,
-                 paired: bool) -> ScanHits:
-    """The sharded walk after a sharded dense phase: on CUDA tensors one
-    launch of csrc/walk.cu's sharded build over the stack's shard tables
-    (one thread a lane, every output byte written by the kernel; counter
-    `sharded_walk` for strand-paired lanes, `sharded_walk_lanes` for
-    explicit ones), on CPU tensors `sharded_walk_plain`. Hits carry global
-    slots in int64. The kernel takes at most SHARDED_WALK_MAX_SHARDS shards
-    whose slot ranges ascend and do not overlap (as shard_quasi_index cuts
-    them); the wrapper raises on any other table, with no fallback."""
+def sharded_walk(shards: ShardStack | ShardSet, w: WalkInputs, *, k: int, H: int,
+                 ext_steps: int, paired: bool) -> ScanHits:
+    """The sharded walk after a sharded dense phase; hits carry global slots
+    in int64. Over a ShardStack (a row's shards on one device): on CUDA
+    tensors one launch of csrc/walk.cu's sharded build over the stack's
+    shard tables (K8; one thread a lane, every output byte written by the
+    kernel; counter `sharded_walk` for strand-paired lanes,
+    `sharded_walk_lanes` for explicit ones), on CPU tensors
+    `sharded_walk_plain`. The kernel takes at most SHARDED_WALK_MAX_SHARDS
+    shards whose slot ranges ascend and do not overlap (as
+    shard_quasi_index cuts them); the wrapper raises on any other table,
+    with no fallback. Over a ShardSet (the shards on their own devices): the
+    H + 1 lockstep trips in eager PyTorch on the lanes' device, each trip's
+    extension one `sharded_trip` a shard on the shard's device, K10 on
+    CUDA tensors (the plain extension never runs on the card) and
+    sharded_trip_plain on CPU ones, the terms summed on the lanes' device
+    (trip_extension). The trip count is fixed, so the loop does not wait on
+    the device."""
+    if isinstance(shards, ShardSet):
+        return trip_loop(shards, w, sharded_trip, k=k, H=H, ext_steps=ext_steps,
+                         paired=paired)
+    stack = shards
     if all(t.device.type == "cpu" for t in (*w, stack.sa_cmp, stack.text2q)):
         return sharded_walk_plain(stack, *w, k=k, H=H, ext_steps=ext_steps, paired=paired)
     _check_sharded_inputs(stack, w, paired)
@@ -677,36 +842,120 @@ def sharded_walk(stack: ShardStack, w: WalkInputs, *, k: int, H: int, ext_steps:
                     n=n, truncated=trunc)
 
 
-def scan_inputs(stack: ShardStack, st: EngineStatic, reads, lens, cfg: MapConfig):
+TRIP_INPUTS = ("preads", "next_bad", "lens2", "col_off2", "b0", "e0", "pos", "act")
+
+
+def _check_trip_inputs(didx: DeviceQuasiIndex, lanes: tuple, n_local: int) -> None:
+    """Raise on what tqm_sharded_trip does not take: anything but contiguous
+    int64 lane tensors (preads and next_bad (R, L), lens2, col_off2, b0,
+    e0 and pos (R,)) and a bool (R,) act, an int32 (n, 3 + F) sa_cmp of
+    whole 8-byte rows on an 8-byte boundary with F <= WALK_FUSED_WORDS_MAX
+    and an int32 (nw, 4) text2q, all on one CUDA device, and a true slot
+    count in [0, n]."""
+    named = {**dict(zip(TRIP_INPUTS, lanes)), "sa_cmp": didx.sa_cmp, "text2q": didx.text2q}
+    dev = lanes[0].device
+    for name, t in named.items():
+        if t.device != dev:
+            raise ValueError(f"sharded_trip: {name} lies on {t.device}, preads on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"sharded_trip: {name} must be contiguous")
+        want = (torch.bool if name == "act" else torch.int32 if name in ("sa_cmp", "text2q")
+                else torch.int64)
+        if t.dtype != want:
+            raise TypeError(f"sharded_trip: {name} must be {want}, got {t.dtype}")
+    preads = lanes[0]
+    if preads.dim() != 2 or preads.shape[0] == 0 or lanes[1].shape != preads.shape or any(
+            t.shape != preads.shape[:1] for t in lanes[2:]):
+        raise ValueError("sharded_trip: preads and next_bad must be (R, L) and the other lane "
+                         "inputs (R,), R >= 1")
+    if didx.sa_cmp.dim() != 2 or not didx.sa_cmp.shape[0] or didx.sa_cmp.shape[1] % 2 \
+            or not 3 < didx.sa_cmp.shape[1] <= 3 + WALK_FUSED_WORDS_MAX \
+            or didx.sa_cmp.data_ptr() % 8:
+        raise ValueError("sharded_trip: sa_cmp must be (n, 3 + F), n >= 1, F odd and "
+                         f"<= {WALK_FUSED_WORDS_MAX}, on an 8-byte boundary")
+    if didx.text2q.dim() != 2 or didx.text2q.shape[1] != 4:
+        raise ValueError("sharded_trip: text2q must be (nw, 4)")
+    if not 0 <= n_local <= didx.sa_cmp.shape[0]:
+        raise ValueError(f"sharded_trip: a true slot count of {n_local} for "
+                         f"{didx.sa_cmp.shape[0]} sa_cmp rows")
+    if dev.type != "cuda":
+        raise ValueError(f"sharded_trip: no kernel for device {dev}")
+
+
+def sharded_trip_args(didx: DeviceQuasiIndex, base: int, n_local: int, lanes: tuple, out, *,
+                      k: int, ext_steps: int) -> tuple[list, list]:
+    """tqm_sharded_trip's ctypes argument types and values up to its stream,
+    for `lanes` in TRIP_INPUTS order, writing into out = (b, e, mlen) (R,)
+    int64; the counting build tqm_sharded_trip_traffic takes its own three
+    after these."""
+    R, L = lanes[0].shape
+    n, FC = didx.sa_cmp.shape
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    types = [vp] * 9 + [i64, i32, vp] + [i64] * 4 + [i32] * 4 + [vp] * 3
+    vals = [*(t.data_ptr() for t in lanes), didx.sa_cmp.data_ptr(), n, FC - 3,
+            didx.text2q.data_ptr(), didx.text2q.shape[0], base, n_local, R, L, k, ext_steps,
+            ext_words(L, k), *(t.data_ptr() for t in out)]
+    return types, vals
+
+
+def sharded_trip(didx: DeviceQuasiIndex, base: int, n_local: int, preads, next_bad, lens2,
+                 col_off2, b0, e0, pos, act, *, k: int, ext_steps: int) -> tuple:
+    """One shard's term of one trip of the sharded walk (the split path's
+    extension): on CUDA tensors one launch of csrc/walk.cu's
+    tqm_sharded_trip on the shard's device (K10; one thread a lane, every
+    output byte written by the kernel; counter `sharded_trip`), on CPU
+    tensors sharded_trip_plain. Raises, with no fallback, on inputs the
+    kernel does not take and when the build or the launch fails."""
+    lanes = (preads, next_bad, lens2, col_off2, b0, e0, pos, act)
+    if all(t.device.type == "cpu" for t in (*lanes, didx.sa_cmp, didx.text2q)):
+        return sharded_trip_plain(didx, base, n_local, *lanes, k=k, ext_steps=ext_steps)
+    _check_trip_inputs(didx, lanes, n_local)
+    dev = preads.device
+    out = tuple(torch.empty(lens2.shape, dtype=torch.int64, device=dev) for _ in range(3))
+    types, vals = sharded_trip_args(didx, base, n_local, lanes, out, k=k, ext_steps=ext_steps)
+    fn = kernels.library("walk").tqm_sharded_trip
+    fn.argtypes = types + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        rc = fn(*vals, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"tqm_sharded_trip launch failed: CUDA error {rc}")
+    kernels.LAUNCHES["sharded_trip"] += 1
+    return out
+
+
+def scan_inputs(shards: ShardStack | ShardSet, st: EngineStatic, reads, lens, cfg: MapConfig):
     """A data row's dense phase -> (WalkInputs, the keyword arguments of
     `sharded_walk`): the canonical-class probe over strand-paired lanes, or
     explicit [fwd; revcomp] lanes through the per-strand CHD or the binary
     search."""
     kw = walk_params(st, cfg)
     if st.chd_canonical:
-        return dense_paired(stack, st, reads, lens, cfg), dict(kw, paired=True)
+        return dense_paired(shards, st, reads, lens, cfg), dict(kw, paired=True)
     lanes = torch.cat([reads, denc.revcomp_batch(reads, lens)], dim=0)
     lens2 = torch.cat([lens, lens])
-    return dense_lanes(stack, st, lanes, lens2, cfg), dict(kw, paired=False)
+    return dense_lanes(shards, st, lanes, lens2, cfg), dict(kw, paired=False)
 
 
 # ---- collate, score, counters -----------------------------------------------------
 
 
-def _expand_fn(stack: ShardStack):
-    """The collate's slot resolver: a GLOBAL slot (int64) is resolved on the
-    shard that owns it (ownership tested wide, the gather index local) and
-    the shards' answers summed, t carried as t + 1 so that 0 is "not mine"."""
-    n_pad = stack.sa_meta.shape[1]
+def _expand_fn(shards: ShardStack | ShardSet):
+    """The collate's slot resolver: a GLOBAL slot (int64) goes to every
+    shard's device and is resolved on the shard that owns it (ownership
+    tested wide, the gather index local), and the shards' answers are summed
+    on the slots' device, t carried as t + 1 so that 0 is "not mine"."""
 
     def expand_fn(p, q):
+        slots = _copier(p)
         t1 = tp = torch.zeros_like(p)
-        for s, (base, n_local) in enumerate(stack.bases):
-            local = p - base
+        for s, (base, n_local) in enumerate(shards.bases):
+            sa_meta = shards.local(s).sa_meta
+            local = slots(sa_meta.device)[0] - base
             mine = (local >= 0) & (local < n_local)
-            meta = row_gather_nd(stack.sa_meta[s], local.clamp(0, n_pad - 1)).to(torch.int64)
-            t1 = t1 + torch.where(mine, meta[..., 0] + 1, 0)
-            tp = tp + torch.where(mine, meta[..., 1], 0)
+            meta = row_gather_nd(sa_meta, local.clamp(0, sa_meta.shape[0] - 1)).to(torch.int64)
+            t1 = t1 + torch.where(mine, meta[..., 0] + 1, 0).to(p.device)
+            tp = tp + torch.where(mine, meta[..., 1], 0).to(p.device)
         return t1 - 1, tp - q
 
     return expand_fn
@@ -728,26 +977,28 @@ def _score_mapout(didx: DeviceQuasiIndex, cfg: MapConfig, reads, lens, out: MapO
     return out._replace(score=torch.where(valid, sc, 0).reshape(B, MO).to(out.score.dtype))
 
 
-def _map_rows(stack: ShardStack, st: EngineStatic, reads, lens, cfg: MapConfig) -> MapOut:
-    """One data row's slice of reads through the sharded engine -> MapOut."""
-    w, kw = scan_inputs(stack, st, reads, lens, cfg)
-    hits = sharded_walk(stack, w, **kw)
-    out = collate_batch(None, None, hits, lens, cfg, expand_fn=_expand_fn(stack))
+def _map_rows(shards: ShardStack | ShardSet, st: EngineStatic, reads, lens,
+              cfg: MapConfig) -> MapOut:
+    """One data row's slice of reads, on the row's home device, through the
+    sharded engine -> MapOut."""
+    w, kw = scan_inputs(shards, st, reads, lens, cfg)
+    hits = sharded_walk(shards, w, **kw)
+    out = collate_batch(None, None, hits, lens, cfg, expand_fn=_expand_fn(shards))
     if cfg.mapping_score:
-        out = _score_mapout(stack.local(0), cfg, reads, lens, out)
+        out = _score_mapout(shards.local(0), cfg, reads, lens, out)
     return out
 
 
 def _rows(sharr, mesh, B: int):
-    stacks = sharr if isinstance(sharr, list) else upload_sharded(sharr, mesh)
-    if B % len(stacks):
-        raise ValueError(f"batch of {B} rows does not split over {len(stacks)} data rows")
-    per = B // len(stacks)
-    return [(s, slice(d * per, (d + 1) * per)) for d, s in enumerate(stacks)]
+    uploads = sharr if isinstance(sharr, list) else upload_sharded(sharr, mesh)
+    if B % len(uploads):
+        raise ValueError(f"batch of {B} rows does not split over {len(uploads)} data rows")
+    per = B // len(uploads)
+    return [(u, slice(d * per, (d + 1) * per)) for d, u in enumerate(uploads)]
 
 
 def map_batch_se_sharded(
-    sharr: ShardedIndexArrays | list[ShardStack],
+    sharr: ShardedIndexArrays | list[ShardStack | ShardSet],
     st: EngineStatic,
     reads: torch.Tensor,       # (B_total, L) int8
     lens: torch.Tensor,        # (B_total,)
@@ -756,13 +1007,14 @@ def map_batch_se_sharded(
     mesh: list[list[torch.device]],
 ) -> tuple[MapOut, Counters]:
     """Single-end mapping on the sharded index -> (MapOut in data-row
-    order, summed Counters) on the first row's device. sharr: the host
-    arrays (uploaded for this call) or upload_sharded's stacks."""
+    order, summed Counters) on the first row's home device. sharr: the host
+    arrays (uploaded for this call, upload_sharded's layouts) or
+    upload_sharded's uploads."""
     outs, ctrs = [], []
-    for d, (stack, rows) in enumerate(_rows(sharr, mesh, reads.shape[0])):
-        dev = stack.sa_cmp.device
+    for d, (shards, rows) in enumerate(_rows(sharr, mesh, reads.shape[0])):
+        dev = shards.home
         r, ln, nv = reads[rows].to(dev), lens[rows].to(dev), _n_valid(n_valid_local, d, dev)
-        out = _map_rows(stack, st, r, ln, cfg)
+        out = _map_rows(shards, st, r, ln, cfg)
         outs.append(out)
         ctrs.append(mapout_counters(out, nv))
     home = outs[0].t.device
@@ -770,18 +1022,18 @@ def map_batch_se_sharded(
 
 
 def map_batch_pe_sharded(
-    sharr: ShardedIndexArrays | list[ShardStack], st: EngineStatic,
+    sharr: ShardedIndexArrays | list[ShardStack | ShardSet], st: EngineStatic,
     reads1, lens1, reads2, lens2, n_valid_local, cfg: MapConfig,
     mesh: list[list[torch.device]],
 ) -> tuple[MapOut, MapOut, PairOut, Counters]:
     """Paired-end mapping on the sharded index: both mates of each data
     row's slice through the engine, then the pair merge."""
     o1s, o2s, pos, ctrs = [], [], [], []
-    for d, (stack, rows) in enumerate(_rows(sharr, mesh, reads1.shape[0])):
-        dev = stack.sa_cmp.device
+    for d, (shards, rows) in enumerate(_rows(sharr, mesh, reads1.shape[0])):
+        dev = shards.home
         nv = _n_valid(n_valid_local, d, dev)
-        o1 = _map_rows(stack, st, reads1[rows].to(dev), lens1[rows].to(dev), cfg)
-        o2 = _map_rows(stack, st, reads2[rows].to(dev), lens2[rows].to(dev), cfg)
+        o1 = _map_rows(shards, st, reads1[rows].to(dev), lens1[rows].to(dev), cfg)
+        o2 = _map_rows(shards, st, reads2[rows].to(dev), lens2[rows].to(dev), cfg)
         pairs = merge_pairs_batch(o1, o2, cfg)
         o1s.append(o1)
         o2s.append(o2)

@@ -5,12 +5,18 @@ shard_quasi_index arrays equal the reference's field for field (dtype
 included); map_batch_se_sharded / map_batch_pe_sharded over a (n_data,
 n_idx) mesh of CPU entries equal the reference's map_batch_*_sharded on its
 virtual device mesh, MapOut, PairOut and Counters, and the port's
-single-device result; sharded_walk_plain's hits equal the reference's
+single-device result, with each row's shards stacked on one device and
+split over their own uploads (split_idx=True: the trip loop of the split
+path, its trips on the CPU's plain version); sharded_walk_plain's hits and
+the split walk's equal the reference's
 sharded walk (_sharded_scan_paired, _sharded_scan) on one shard layout per
 lane kind, with a shard whose slots no shard owns. A scalar per-lane model
 of csrc/walk.cu's sharded build (the owner-first trip) equals
 sharded_walk_plain, and the wrapper refuses shard tables the kernel cannot
-search before any launch.
+search before any launch. One trip's per-shard terms (sharded_trip_plain)
+sum to the walk's extension and to the replicated index's, and a scalar
+per-lane model of the sharded trip kernel (K10) equals each term; its
+wrapper refuses what the kernel does not take.
 
 tests/test_sharded.py::test_slot64_requires_x64 has no twin: it tests that
 the reference refuses slot64 while 64-bit JAX is off, a JAX switch the port
@@ -30,6 +36,8 @@ from rapmap_tpu_torch import kernels
 from rapmap_tpu_torch.config import MapConfig
 from rapmap_tpu_torch.index.format import index_from_reference
 from rapmap_tpu_torch.models.quasi import QuasiMapper, _host
+from rapmap_tpu_torch.ops.device_index import upload_index
+from rapmap_tpu_torch.ops.extend_packed import extend_packed
 from rapmap_tpu_torch.parallel import sharded as psh
 from tests.test_device_parity import batch_of
 from tests.test_torch_pe import jax_cache_off  # noqa: F401
@@ -94,15 +102,31 @@ def shard_both(idx, n_idx, **kw):
     return ref_arr, ref_st, port_arr, port_st, pidx
 
 
+def port_uploads(port_arr, mesh, split: bool):
+    """The port's host arrays for a call (stacked by map_batch_*_sharded) or,
+    split, upload_sharded's ShardSets, every shard uploaded on its own."""
+    if not split:
+        return port_arr
+    uploads = psh.upload_sharded(port_arr, mesh, split_idx=True)
+    assert all(isinstance(u, psh.ShardSet) for u in uploads)
+    return uploads
+
+
+def port_se(port_arr, port_st, n_data, n_idx, codes, lens, nv, kw, split=False):
+    """The port's map_batch_se_sharded on one batch -> (MapOut, Counters),
+    its rows stacked or, split, over ShardSets."""
+    mesh = psh.make_mesh_2d(n_data, n_idx, ["cpu", "cpu"])
+    return psh.map_batch_se_sharded(port_uploads(port_arr, mesh, split), port_st,
+                                    *_tensors(codes, lens), nv, MapConfig(**kw), mesh)
+
+
 def run_se(ref_arr, ref_st, port_arr, port_st, n_data, n_idx, codes, lens, nv, kw):
     """map_batch_se_sharded of both packages on one batch -> (reference
     MapOut, Counters as numpy; the port's as tensors)."""
     want = jax.tree.map(np.asarray, rsh.map_batch_se_sharded(
         jax.tree.map(jnp.asarray, ref_arr), ref_st, jnp.asarray(codes), jnp.asarray(lens),
         jnp.asarray(nv), RefConfig(**kw), rsh.make_mesh_2d(n_data, n_idx)))
-    got = psh.map_batch_se_sharded(port_arr, port_st, *_tensors(codes, lens), nv, MapConfig(**kw),
-                                   psh.make_mesh_2d(n_data, n_idx, ["cpu", "cpu"]))
-    return want, got
+    return want, port_se(port_arr, port_st, n_data, n_idx, codes, lens, nv, kw)
 
 
 @needs8
@@ -134,6 +158,9 @@ def test_sharded_matches_reference(tmp_path, n_data, n_idx, mode):
                                               n_idx, codes, lens, nv, kw)
     _same(want_out, out, mode)
     _same(want_ctr, ctr, mode)
+    split = port_se(port_arr, port_st, n_data, n_idx, codes, lens, nv, kw, split=True)
+    _same(want_out, split[0], mode, "split")
+    _same(want_ctr, split[1], mode, "split")
     single = QuasiMapper(pidx, MapConfig(**kw), device="cpu").map_se(codes, lens,
                                                                      n_valid=len(seqs))
     _same(single[0], out, "single")
@@ -213,10 +240,13 @@ def test_sharded_pe_matches_reference(tmp_path):
         jax.tree.map(jnp.asarray, ref_arr), ref_st, jnp.asarray(c1), jnp.asarray(l1),
         jnp.asarray(c2), jnp.asarray(l2), jnp.asarray(nv), RefConfig(**kw),
         rsh.make_mesh_2d(n_data, n_idx)))
-    got = psh.map_batch_pe_sharded(arr, st, *_tensors(c1, l1, c2, l2), nv, MapConfig(**kw),
-                                   psh.make_mesh_2d(n_data, n_idx, ["cpu"]))
-    for w, g in zip(want, got):
+    mesh = psh.make_mesh_2d(n_data, n_idx, ["cpu"])
+    got, split = (psh.map_batch_pe_sharded(port_uploads(arr, mesh, sp), st,
+                                           *_tensors(c1, l1, c2, l2), nv, MapConfig(**kw), mesh)
+                  for sp in (False, True))
+    for w, g, s in zip(want, got, split):
         _same(w, g)
+        _same(w, s, "split")
     single = QuasiMapper(pidx, MapConfig(**kw), device="cpu").map_pe(c1, l1, c2, l2,
                                                                      n_valid=len(lefts))
     for s, g in zip(single, got):
@@ -252,6 +282,9 @@ def test_sharded_slot64_matches_reference(tmp_path, x64):
                                                   nv, kw)
         _same(want_out, out, slot64)
         _same(want_ctr, ctr, slot64)
+        split = port_se(arr, st, 4, 2, codes, lens, nv, kw, split=True)
+        _same(want_out, split[0], slot64, "split")
+        _same(want_ctr, split[1], slot64, "split")
         outs[slot64] = out
     single, _ = QuasiMapper(pidx, MapConfig(**kw), device="cpu").map_se(codes, lens, n_valid=n)
     _same(single, outs[True], "single")
@@ -326,6 +359,9 @@ def test_sharded_parity_fuzz(tmp_path, seed):
                                               lens, nv, kw)
     _same(want_out, out, mode, n_data, n_idx)
     _same(want_ctr, ctr, mode, n_data, n_idx)
+    split = port_se(arr, st, n_data, n_idx, codes, lens, nv, kw, split=True)
+    _same(want_out, split[0], mode, n_data, n_idx, "split")
+    _same(want_ctr, split[1], mode, n_data, n_idx, "split")
     single = QuasiMapper(pidx, MapConfig(**kw), device="cpu").map_se(codes, lens,
                                                                      n_valid=len(seqs))
     _same(single[0], out, "single")
@@ -353,6 +389,7 @@ def test_sharded_mapping_score_matches_reference(tmp_path):
     (want_out, _), (out, _) = run_se(ref_arr, ref_st, arr, st, n_data, n_idx, codes, lens,
                                      nv, kw)
     _same(want_out, out)
+    _same(want_out, port_se(arr, st, n_data, n_idx, codes, lens, nv, kw, split=True)[0], "split")
     mapper = QuasiMapper(pidx, MapConfig(**kw), device="cpu")
     wr = mapper.fetch(mapper.map_se_async(codes, lens, n_valid=len(seqs)))
     mo = [_host(x) for x in (out.t, out.pos, out.strand, out.score)]
@@ -394,7 +431,10 @@ def test_sharded_walk_plain_equals_reference_walk(tmp_path, paired):
     equal the reference's walk on the same shard layout: canonical-class
     shards for strand-paired lanes, per-strand CHD shards for explicit
     lanes; then with shard 1's true count set to 0 in both packages, so that
-    anchors in its range have no owner and record (0, 0, 0)."""
+    anchors in its range have no owner and record (0, 0, 0). The split
+    path's dense phase (each shard its own upload) equals the stack's, and
+    its trip loop over sharded_trip_plain terms gives the reference's hits
+    with no kernel launch."""
     rng = np.random.default_rng(98)
     idx, txps = toy_index(tmp_path, rng, n_txps=6, min_len=150, max_len=300, k=11,
                           shared_prefix=30)
@@ -414,22 +454,37 @@ def test_sharded_walk_plain_equals_reference_walk(tmp_path, paired):
         w, wkw = psh.scan_inputs(stack, st, *_tensors(codes, lens), MapConfig(**kw))
         assert wkw["paired"] == paired
         got = psh.sharded_walk_plain(stack, *w, **wkw)
+        (sset,) = psh.upload_sharded(arr, [["cpu"] * 3], split_idx=True)
+        ws, _ = psh.scan_inputs(sset, st, *_tensors(codes, lens), MapConfig(**kw))
+        assert all(torch.equal(a, b) for a, b in zip(ws, w))
+        kernels.reset_launches()
+        split = psh.sharded_walk(sset, ws, **wkw)
+        assert kernels.LAUNCHES["sharded_trip"] == 0
         for f in want._fields:
             assert np.array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f))), (gap, f)
+            assert np.array_equal(getattr(split, f).numpy(), np.asarray(getattr(want, f))), \
+                (gap, f, "split")
         live = np.arange(want.q.shape[1])[None, :] < want.n[:, None]
         unowned = int((live & (want.l == 0)).sum())
         assert (unowned > 0) == gap and int(want.n.sum()) > 0
 
 
 def test_mesh_2d_order_and_cpu_only_when_asked(monkeypatch):
-    """make_mesh_2d keeps each data row's idx shards on one device and hands
-    the devices to the rows in turn, so upload_sharded takes its default
-    mesh over several devices; without a card it raises unless the caller
-    names the CPU; a data row whose shards span devices is refused."""
+    """make_mesh_2d lays the reference's mesh over n_data x n_idx devices or
+    more (data row d on devices[d * n_idx : (d + 1) * n_idx]), and with fewer
+    keeps each data row's shards on one device, handing the devices to the
+    rows in turn; without a card it raises unless the caller names the CPU.
+    upload_sharded stacks a row on one device (rows on that device share
+    the stack) and splits a row over several into a ShardSet: one upload a
+    shard, on its device, text2q and txp_align once a device, rows sharing
+    the uploads of their common (device, shard); split_idx=True splits a
+    one-device row, split_idx=False refuses a row over several devices."""
     cpu, meta = torch.device("cpu"), torch.device("meta")
     assert psh.make_mesh_2d(2, 3, ["cpu"]) == [[cpu] * 3] * 2
     mesh = psh.make_mesh_2d(3, 2, ["cpu", "meta"])
     assert mesh == [[cpu] * 2, [meta] * 2, [cpu] * 2]
+    assert psh.make_mesh_2d(2, 2, ["cpu", "meta", "meta", "cpu", "meta"]) == [[cpu, meta],
+                                                                            [meta, cpu]]
     P_, S = 2, 4
     two = psh.ShardedIndexArrays(
         text2q=np.zeros((P_, 1, 4), np.int32), sa_cmp=np.zeros((P_, S, 4), np.int32),
@@ -439,12 +494,29 @@ def test_mesh_2d_order_and_cpu_only_when_asked(monkeypatch):
     stacks = psh.upload_sharded(two, mesh)
     assert [s.sa_cmp.device for s in stacks] == [cpu, meta, cpu]
     assert stacks[0] is stacks[2]
+    assert all(isinstance(s, psh.ShardStack) for s in stacks)
+    rows = psh.upload_sharded(two, [["cpu", "meta"], ["meta", "cpu"], ["cpu", "meta"]])
+    assert all(isinstance(r, psh.ShardSet) and r.bases == ((0, S), (S, S)) for r in rows)
+    assert [[d.sa_cmp.device for d in r.shards] for r in rows] == [[cpu, meta], [meta, cpu],
+                                                                  [cpu, meta]]
+    assert [r.home for r in rows] == [cpu, meta, cpu]
+    assert rows[0].shards[0] is rows[2].shards[0] and rows[0].shards[1] is rows[2].shards[1]
+    by_dev = {}
+    for r in rows:
+        for d in r.shards:
+            by_dev.setdefault(d.sa_cmp.device, set()).update({id(d.text2q), id(d.txp_align)})
+    assert {dev: len(ids) for dev, ids in by_dev.items()} == {cpu: 2, meta: 2}
+    for p, d in enumerate(rows[0].shards):
+        assert tuple(d.sa_cmp.shape) == (S, 4) and tuple(d.sa_meta.shape) == (S, 2)
+        assert d.chd_dir is None and tuple(d.text2q.shape) == (1, 4)
+    (one,) = psh.upload_sharded(two, [["cpu", "cpu"]], split_idx=True)
+    assert isinstance(one, psh.ShardSet) and one.shards[0].text2q is one.shards[1].text2q
+    assert torch.equal(one.shards[1].sa_cmp, torch.from_numpy(two.sa_cmp[1]))
+    with pytest.raises(ValueError, match="several devices"):
+        psh.upload_sharded(two, [["cpu", "meta"]], split_idx=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         psh.make_mesh_2d(1, 2)
-    arr = psh.ShardedIndexArrays(*(np.zeros((2, 1, 1), np.int32),) * 6)
-    with pytest.raises(ValueError, match="share one device"):
-        psh.upload_sharded(arr, [["cpu", "meta"]])
 
 
 # ---- a scalar per-lane model of csrc/walk.cu's sharded build (K8) ---------------
@@ -590,3 +662,144 @@ def test_sharded_walk_wrapper_refuses_shard_tables(case, match):
     with pytest.raises(ValueError, match=match):
         psh.sharded_walk(_meta_stack(bases), w, k=k, H=4, ext_steps=8, paired=True)
     assert kernels.LAUNCHES["sharded_walk"] == 0
+
+
+# ---- one shard's trip (K10, the split path) ----------------------------------
+
+
+class TripLaneModel(LaneModel):
+    """csrc/walk.cu's sharded trip kernel, lane by lane, for one shard: a
+    lane is the shard's when it is active and b0 - base lies in [0, n_local)
+    (else (0, 0, 0), and no row is read); it then extends once over the
+    shard's rows at local slots and records the result rebased to global
+    slots."""
+
+    def __init__(self, didx, base, n_local, k, L, steps):
+        super().__init__(didx, k, L, steps)
+        self.base, self.n_local = base, n_local
+
+    def term(self, pre, nbad, ln, col_off, b0, e0, pos, act):
+        lb = b0 - self.base if act else -1
+        if not 0 <= lb < self.n_local:
+            return 0, 0, 0
+        b, e, mlen = self.extend(pre, nbad, ln, col_off, lb, clamp(e0 - self.base, 0, self.n_local),
+                                 pos, True)
+        return b + self.base, e + self.base, mlen
+
+
+def edge_trip(stack, w):
+    """One trip's lane values: lane r at the first forward anchor of its row
+    r % B (column 0 without one, inactive), the first lanes active at b0 =
+    every shard's first and last owned slot, one slot before and after them,
+    and the last slot of its padding (the next shard's), intervals 1 and 3
+    wide, and every fifth lane after them inactive -> (b0, e0, pos, act,
+    the targets)."""
+    R, B = w.lens2.shape[0], w.bf.shape[0]
+    row = torch.arange(R) % B
+    anch = w.anch_f[row]
+    pos = torch.where(anch.any(1), anch.to(torch.int64).argmax(1), 0)
+    b0, e0, act = w.bf[row, pos].clone(), w.ef[row, pos].clone(), anch.any(1).clone()
+    s_pad, end = stack.sa_cmp.shape[1], stack.bases[-1][0] + stack.bases[-1][1]
+    targets = sorted({t for base, n in stack.bases
+                      for t in (base - 1, base, base + n - 1, base + n, base + s_pad - 1)
+                      if 0 <= t < end})
+    nt = len(targets)
+    assert nt <= R
+    b0[:nt] = torch.tensor(targets)
+    e0[:nt] = b0[:nt] + 1 + 2 * (torch.arange(nt) % 2)
+    act[:nt] = True
+    act[nt::5] = False
+    return b0, e0, pos, act, targets
+
+
+@pytest.mark.parametrize("n_idx,gap,paired", [
+    (1, False, True), (3, False, True), (3, True, False), (4, True, True), (4, False, False),
+], ids=["P1_paired", "P3_paired", "P3_shard1_gap_lanes", "P4_shard1_gap_paired", "P4_lanes"])
+def test_sharded_trip_terms_sum_to_walk_extension(k8_world, n_idx, gap, paired):
+    """One trip of the split path: the shards' sharded_trip_plain terms,
+    each over its own upload (a ShardSet), sum to sharded_walk_plain's
+    extension over the stack (trip_extension), and to the replicated
+    index's extend_packed at global slots on every lane a shard owns (e0
+    cut at the owner's last slot, as the trip cuts it), with (0, 0, 0) on
+    the others; each term equals TripLaneModel's, lane by lane,
+    and is nonzero only on the shard's own lanes. P = 1, 3, 4; shard 1
+    without slots; b0 on every shard's edges and in the padding (edge_trip);
+    the wrapper takes the plain version on CPU tensors, with no launch."""
+    pidx, codes, lens = k8_world
+    kw = dict(k=pidx.k, max_hits_per_strand=24, expand_budget=128, max_out=32)
+    arr, st = psh.shard_quasi_index(pidx, n_idx, canonical=paired)
+    if gap:
+        arr = arr._replace(slot_base=arr.slot_base.copy())
+        arr.slot_base[1, 1] = 0
+    (stack,) = psh.upload_sharded(arr, [["cpu"] * n_idx])
+    (sset,) = psh.upload_sharded(arr, [["cpu"] * n_idx], split_idx=True)
+    w, wkw = psh.scan_inputs(stack, st, *_tensors(codes, lens), MapConfig(**kw))
+    assert wkw["paired"] == paired
+    k, steps, L = wkw["k"], wkw["ext_steps"], w.preads.shape[1]
+    b0, e0, pos, act, _ = edge_trip(stack, w)
+    lanes = (w.preads, w.next_bad, w.lens2, w.col_off2)
+    kernels.reset_launches()
+    terms = [psh.sharded_trip(sset.local(p), base, n, *lanes, b0, e0, pos, act, k=k,
+                              ext_steps=steps) for p, (base, n) in enumerate(sset.bases)]
+    assert kernels.LAUNCHES["sharded_trip"] == 0
+    total = [sum(t[i] for t in terms) for i in range(3)]
+    ext = psh.trip_extension(stack, w, psh.sharded_trip_plain, k=k, ext_steps=steps)(
+        b0, e0, pos, act)
+    assert all(torch.equal(a, b) for a, b in zip(total, ext))
+    owned, end = torch.zeros_like(act), e0.clone()  # end: the owner's last slot + 1
+    for base, n in sset.bases:
+        mine = act & (b0 - base >= 0) & (b0 - base < n)
+        owned |= mine
+        end = torch.where(mine, base + n, end)
+    full, _ = upload_index(pidx, "cpu")
+    rep = extend_packed(full, *lanes[:3], b0, torch.minimum(e0, end), pos, owned, k, steps, L,
+                        col_off=w.col_off2)
+    for got, want in zip(total, rep):
+        assert torch.equal(got, torch.where(owned, want, 0))
+    unowned = int((act & ~owned).sum())
+    assert (unowned > 0) == gap and int((total[2][owned] > k).sum()) > 0
+    pre, nbad = w.preads.numpy(), w.next_bad.numpy()
+    for p, (base, n) in enumerate(sset.bases):
+        model = TripLaneModel(sset.local(p), base, n, k, L, steps)
+        mine = act & (b0 - base >= 0) & (b0 - base < n)
+        for r in range(len(act)):
+            want = model.term(pre[r], nbad[r], int(w.lens2[r]), int(w.col_off2[r]), int(b0[r]),
+                              int(e0[r]), int(pos[r]), bool(act[r]))
+            assert tuple(int(t[r]) for t in terms[p]) == want, (p, r)
+            assert bool(mine[r]) == (want[2] > 0), (p, r)
+
+
+@pytest.mark.parametrize("case, exc, match", [
+    ("valid", ValueError, "no kernel for device"), ("act_int64", TypeError, "act must be"),
+    ("b0_int32", TypeError, "b0 must be"), ("pos_on_cpu", ValueError, "pos lies on"),
+    ("short_e0", ValueError, "lane inputs"), ("count_past_rows", ValueError, "true slot count"),
+    ("odd_rows", ValueError, "sa_cmp must be"),
+])
+def test_sharded_trip_wrapper_refuses(case, exc, match):
+    """Off the CPU the trip's wrapper launches K10 or raises, before any
+    launch and with no fallback, on what the kernel does not take; valid
+    inputs reach the device check (meta tensors stand in for a device that
+    is not the CPU)."""
+    R, L, n = 6, 20, 16
+
+    def meta(*shape, dt=torch.int64, dev="meta"):
+        return torch.empty(shape, dtype=dt, device=dev)
+
+    lanes = dict(preads=meta(R, L), next_bad=meta(R, L), lens2=meta(R), col_off2=meta(R),
+                 b0=meta(R), e0=meta(R), pos=meta(R), act=meta(R, dt=torch.bool))
+    didx = psh.DeviceQuasiIndex(text2q=meta(8, 4, dt=torch.int32),
+                                sa_meta=meta(n, 2, dt=torch.int32),
+                                sa_cmp=meta(n, 3 if case == "odd_rows" else 6, dt=torch.int32))
+    n_local = n + 1 if case == "count_past_rows" else n
+    if case == "act_int64":
+        lanes["act"] = meta(R)
+    elif case == "b0_int32":
+        lanes["b0"] = meta(R, dt=torch.int32)
+    elif case == "pos_on_cpu":
+        lanes["pos"] = meta(R, dev="cpu")
+    elif case == "short_e0":
+        lanes["e0"] = meta(R - 1)
+    kernels.reset_launches()
+    with pytest.raises(exc, match=match):
+        psh.sharded_trip(didx, 100, n_local, *lanes.values(), k=11, ext_steps=5)
+    assert kernels.LAUNCHES["sharded_trip"] == 0
