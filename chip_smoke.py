@@ -68,8 +68,11 @@ replicated engine (sharded_path, sharded_lanes_path, sharded_pe_path,
 sharded_score_path, sharded_slot64_path); the split path, each data row's
 shards uploaded on their own (the reference's layout on distinct cards when
 the host has 8, else split_idx=True on this card): the sharded trip (K10,
-tqm_sharded_trip) against its plain version on a data row's first and
-middle trip on each shard, and a twin of each sharded phase
+tqm_sharded_trip) against its plain version on a data row's first, second
+and first empty trip on each shard, the trip's home half (K11,
+tqm_sharded_advance) against its plain version at the walk's begin, after
+a trip (also with overflowing lanes) and at an empty trip, the split walk's
+device work showing no op inside a trip, and a twin of each sharded phase
 (sharded_split_path, sharded_split_lanes_path, sharded_split_pe_path,
 sharded_split_score_path, sharded_split_slot64_path) equal to its stacked
 twin and the replicated engine; and two command-line ranks as
@@ -115,7 +118,7 @@ K = 31
 HAND_KERNELS = ("cluster_sort_kernel", "tile_sort_kernel", "tile_merge_kernel",
                 "global_step_kernel", "anchor_walk_kernel", "extend_packed_kernel",
                 "extend_charwise_kernel", "banded_group_kernel", "banded_scratch_kernel",
-                "sharded_trip_kernel")
+                "sharded_trip_kernel", "sharded_advance_kernel")
 SCORE_FLAGS = ["--mappingScore", "--minScoreFraction", "0.65"]
 
 
@@ -2485,18 +2488,198 @@ def trip_bound(didx, base: int, n_local: int, lanes, k: int, steps: int, got) ->
                 output_bytes=out_bytes, input_sectors_read=sectors, sa_cmp_rows=rows)
 
 
+def advance_on_0xff(t, k: int, H: int):
+    """csrc/walk.cu's tqm_sharded_advance called straight in its begin mode,
+    on a state whose every byte starts as 0xFF -> the WalkState it wrote.
+    Only this script calls it."""
+    import torch
+
+    from rapmap_tpu_torch import kernels
+    from rapmap_tpu_torch.ops.mmp import WalkState
+    from rapmap_tpu_torch.parallel.sharded import sharded_advance_args
+
+    dev, R = t.lens2.device, t.lens2.shape[0]
+
+    def ff(*shape, dt=torch.int64):
+        return torch.full(shape, -1, dtype=dt, device=dev) if dt != torch.bool else \
+            torch.full(shape, 0xFF, dtype=torch.uint8, device=dev).view(torch.bool)
+
+    s = WalkState(pos=ff(R), n=ff(R), trunc=ff(R, dt=torch.bool), buf=ff(R, H, 4),
+                  act=ff(R, dt=torch.bool), posc=ff(R), b0=ff(R), e0=ff(R))
+    argtypes, args = sharded_advance_args(t, s, None, k=k)
+    fn = kernels.library("walk").tqm_sharded_advance
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes + [ctypes.c_void_p]
+    with torch.cuda.device(dev):
+        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"tqm_sharded_advance launch failed: CUDA error {rc}")
+    torch.cuda.synchronize(dev)
+    return s
+
+
+def state_clone(s):
+    return None if s is None else type(s)(*(x.clone() for x in s))
+
+
+def state_err(a, b) -> dict:
+    """Largest absolute difference of each WalkState field (bools as 0/1)."""
+    import torch
+
+    return {f: int((x.to(torch.int64) - y.to(torch.int64)).abs().max())
+            for f, x, y in zip(a._fields, a, b)}
+
+
+def sectors_bytes(index, elem: int) -> int:
+    """32 bytes for each distinct 32-byte sector that the elements at the
+    flat `index` of a tensor of `elem`-byte elements fall in."""
+    import torch
+
+    return 32 * int(torch.unique(index.reshape(-1) * elem // 32).numel())
+
+
+def advance_bound(t, s, terms, k: int, H: int) -> dict:
+    """K11's bound on one launch, from what this state needs. The begin:
+    lens2, is_rc and one sector of anc2, db2 and de2 a lane read, the
+    whole state written (the hit buffer's zeros included). A trip: every
+    lane's act byte, then on its active lanes the sectors of their P
+    terms, posc, n, lens2, is_rc and the table entries read, and of their
+    hit slot (or trunc), n, pos, act, posc, b0 and e0 written. Operations
+    at 3P + 32 integer operations an active lane."""
+    import torch
+
+    from rapmap_tpu_torch.ops.mmp import walk_advance, walk_begin
+
+    R, S = t.db2.shape
+    lane = torch.arange(R, device=t.lens2.device)
+    rows = lane * S
+
+    def cols(p):  # the table column of lane-local position p, clamped
+        return torch.where(t.is_rc, t.lens2 - k - p, p).clamp(0, S - 1)
+
+    if terms is None:
+        p0 = torch.zeros_like(t.lens2)
+        nbytes = 9 * R + sectors_bytes(rows + cols(p0), 8)
+        s1 = walk_begin(t, k=k, H=H)
+        nbytes += 2 * sectors_bytes(rows + cols(s1.posc), 8)
+        nbytes += R * (5 * 8 + 2) + s1.buf.numel() * 8
+        lanes = R
+        P = 0
+    else:
+        P = terms.shape[0]
+        a = lane[s.act]
+        lanes = int(a.numel())
+        b1, e1, mlen = terms.sum(0)
+        nxt = s.posc + (mlen - k + 1).clamp(min=1)
+        nbytes = R + sum(sectors_bytes(q * 3 * R + i * R + a, 8) for q in range(P)
+                         for i in range(3))
+        nbytes += 3 * sectors_bytes(a, 8) + sectors_bytes(a, 1)
+        nbytes += sectors_bytes(a * S + cols(nxt)[a], 8)
+        s1 = walk_advance(t, state_clone(s), b1, e1, mlen, k=k, H=H)
+        nbytes += 2 * sectors_bytes(a * S + cols(s1.posc)[a], 8)
+        written = lane[s.act & (s.n < H)]
+        over = lane[s.act & (s.n >= H)]
+        nbytes += 32 * int(written.numel()) + sectors_bytes(written, 8)
+        nbytes += sectors_bytes(over, 1)
+        nbytes += 4 * sectors_bytes(a, 8) + sectors_bytes(a, 1)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (3 * P + 32) * lanes / INT_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=nbytes,
+                active_lanes=lanes)
+
+
+def named_kernel_ms(work, reps: int, key: str, cuda: bool) -> float | str:
+    """Device ms of one launch of the kernels whose name holds `key` in
+    work() (reps launches, other kernels in it left out), under
+    torch.profiler; a window that recorded under half the launches runs
+    again, three times at most, then the CUDA events around work(),
+    everything in it, with a `profiler_fallback` line."""
+    if not cuda:
+        return "not measured"
+    import torch
+
+    work()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        by_name = device_kernels(work)
+        hit = [v for n, v in by_name.items() if key in n]
+        if sum(v[1] for v in hit) >= reps // 2:
+            return sum(v[0] for v in hit) / sum(v[1] for v in hit)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    work()
+    b.record()
+    b.synchronize()
+    emit("profiler_fallback", helper="named_kernel_ms", kernel=key, used="cuda_events",
+         ms=a.elapsed_time(b) / reps)
+    return a.elapsed_time(b) / reps
+
+
+def trip_loop_ops(sset, w, kw, cuda: bool) -> dict:
+    """The device work of one split walk (sharded_walk over a ShardSet), in
+    start order under torch.profiler: K10's and K11's launches, the other
+    ops by name, and those that start after K11's first launch (the walk's
+    begin), which must be none: no op runs inside a trip. The window runs
+    the walk twice with a marker kernel (torch.cuda._sleep) between them
+    and reads the second (a profiler session can lose its first device
+    events); a window that still missed any of the second walk's K10 or K11
+    launches runs again, three times at most."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from rapmap_tpu_torch.parallel import sharded
+
+    if not cuda:
+        return dict(measured=False)
+    H = kw["H"]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            sharded.sharded_walk(sset, w, **kw)
+            torch.cuda._sleep(1000)
+            sharded.sharded_walk(sset, w, **kw)
+            torch.cuda.synchronize()
+        events = sorted((e.time_range.start, e.name[:80]) for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA)
+        marks = [i for i, (_, n) in enumerate(events) if "spin_kernel" in n]
+        events = events[marks[-1] + 1:] if marks else []
+        k10 = [t for t, n in events if "sharded_trip_kernel" in n]
+        k11 = [t for t, n in events if "sharded_advance_kernel" in n]
+        if len(k10) == SHARDS * (H + 1) and len(k11) == H + 2:
+            break
+    else:
+        emit("profiler_fallback", helper="trip_loop_ops", used="none",
+             seen=dict(sharded_trip=len(k10), sharded_advance=len(k11)))
+        return dict(measured=False)
+    other = [(t, n) for t, n in events
+             if "sharded_trip_kernel" not in n and "sharded_advance_kernel" not in n]
+    by_name: dict[str, int] = {}
+    for _, n in other:
+        by_name[n] = by_name.get(n, 0) + 1
+    inside = sorted({n for t, n in other if t > k11[0]})
+    return dict(measured=True, trips=H + 1, sharded_trip=len(k10), sharded_advance=len(k11),
+                other_ops=len(other), other_by_name=by_name, ops_inside_trips=inside,
+                none_inside_a_trip=not inside)
+
+
 def phase_trip_kernel(dev, timer, worlds: dict, codes, lens, B: int):
-    """sharded_trip (csrc/walk.cu tqm_sharded_trip, K10, one shard's trip of
-    the split path) against sharded_trip_plain on card tensors: the
-    world's canonical-class cut uploaded shard by shard on `dev`
-    (split_idx=True), one data row's program of the split path (B / 2
-    reads) walked through the trip loop with K10, its hits equal to K8's
-    over the stack on the same inputs; the program's first trip and the
-    middle one of the trips with an active lane, on each of the SHARDS
-    shards, through the wrapper and through the entry
-    on 0xFF-filled outputs; each set timed (device ms warm and cold, the
-    wrapper's CUDA events) beside its counted byte bound and the plain
-    trip -> (ok, max error, timing)."""
+    """The split path's two kernels against their plain versions on card
+    tensors: the world's canonical-class cut uploaded shard by shard on
+    `dev` (split_idx=True), one data row's program of the split path (B / 2
+    reads) walked through the trip loop (its hits equal to K8's over the
+    stack on the same inputs), and the trip inputs and states recorded.
+    sharded_trip (csrc/walk.cu tqm_sharded_trip, K10, one shard's trip)
+    against sharded_trip_plain at the program's first trip, its second
+    (trip 1) and its first trip with no active lane, on each of the SHARDS
+    shards, through the wrapper and through the entry on 0xFF-filled
+    outputs. sharded_advance (tqm_sharded_advance, K11, the trip's home
+    half) against sharded_advance_plain in its begin mode (wrapper, and the
+    entry on a 0xFF-filled state), after the first trip, after it with
+    every fourth active lane's hit slots full (overflow), and at the empty
+    trip, on clones of the same state. Each set is timed (device ms warm
+    and cold, the wrapper's CUDA events) beside its bound and the plain
+    version; and the split walk's device work by kernel shows no op
+    between K10 and K11 launches -> (ok, max error, timing)."""
     import torch
 
     from rapmap_tpu_torch.config import MapConfig
@@ -2508,22 +2691,31 @@ def phase_trip_kernel(dev, timer, worlds: dict, codes, lens, B: int):
     r, ln = to_dev(dev, codes[: B // 2], lens[: B // 2])
     w, kw = sharded.scan_inputs(sset, st, r, ln, MapConfig(k=K))
     saved = []  # (trip, shard, the shard's index, base, count, its lane inputs)
+    states = []  # (the state before the advance or None, its terms or None)
+    tables = []
 
-    def recorder(didx, base, n_local, *lanes, k, ext_steps):
+    def recorder(didx, base, n_local, *lanes, k, ext_steps, out=None):
         trip, p = divmod(len(saved), SHARDS)
         # the program's lane inputs are the same tensors every trip
         saved.append((trip, p, didx, base, n_local, lanes[:4] + tuple(t.clone()
                                                                      for t in lanes[4:])))
-        return sharded.sharded_trip(didx, base, n_local, *lanes, k=k, ext_steps=ext_steps)
+        return sharded.sharded_trip(didx, base, n_local, *lanes, k=k, ext_steps=ext_steps,
+                                    out=out)
 
-    hits = sharded.trip_loop(sset, w, recorder, **kw)
+    def advancer(t, s, terms, k, H):
+        tables[:] = [t]
+        states.append((state_clone(s), None if terms is None else terms.clone()))
+        return sharded.sharded_advance(t, s, terms, k=k, H=H)
+
+    hits = sharded.trip_loop(sset, w, recorder, advancer, **kw)
     k8 = sharded.sharded_walk(stack, w, **kw)
     loop_equal_k8 = not any(hits_err(hits, k8).values())
-    # lanes active a trip; the middle trip is the middle one of those with any
+    k, steps, H = kw["k"], kw["ext_steps"], kw["H"]
+    t = tables[0]
     active = [int(x[5][7].sum()) for x in saved[::SHARDS]]
-    mid = [t for t, a in enumerate(active) if a][sum(a > 0 for a in active) // 2]
-    saved = [x for x in saved if x[0] in (0, mid)]
-    k, steps = kw["k"], kw["ext_steps"]
+    empty = active.index(0) if 0 in active else None
+    trips = (0, 1, empty)
+    saved = [x for x in saved if x[0] in trips]
     checks, timing, max_err = [], [], 0
     for trip, p, didx, base, n_local, lanes in saved:
         want = sharded.sharded_trip_plain(didx, base, n_local, *lanes, k=k, ext_steps=steps)
@@ -2555,22 +2747,109 @@ def phase_trip_kernel(dev, timer, worlds: dict, codes, lens, B: int):
         timing.append(dict(trip=trip, shard=p, ms=ms, cold_ms=cold_ms,
                            cold_event_ms=cold_event_ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                            library_ms=None, **bound))
-    first = [t for t in timing if t["trip"] == 0]
-    mean = {x: (sum(t[x] for t in first) / len(first) if cuda else "not measured")
-            for x in ("ms", "cold_ms", "wrapper_ms", "plain_ms", "bound_ms")}
-    mean.update(bound_by=first[0]["bound_by"], library_ms=None)
-    covered = (len(checks) == 2 * SHARDS and all(c["active"] > 0 for c in checks)
-               and all(c["owned"] > 0 for c in checks[:SHARDS])
-               and all(c["extended"] > 0 for c in checks[:SHARDS]) and loop_equal_k8)
-    ok = covered and all(c["equal_plain"] for c in checks)
-    emit("kernel_vs_plain", kernel="sharded_trip", ok=ok, max_abs_err=max_err, covered=covered,
-         lanes=int(w.lens2.shape[0]), trips=(0, mid), active_lanes_by_trip=active,
-         trip_loop_equals_k8=loop_equal_k8,
-         checks=checks, timing=timing, first_trip_mean_per_launch=mean)
-    del saved, sset
+
+    def mean_of(trip):
+        rows = [x for x in timing if x["trip"] == trip]
+        m = {x: (sum(r[x] for r in rows) / len(rows) if cuda else "not measured")
+             for x in ("ms", "cold_ms", "wrapper_ms", "plain_ms", "bound_ms")}
+        m.update(bound_by=rows[0]["bound_by"], library_ms=None)
+        return m
+
+    covered = (empty is not None and len(checks) == 3 * SHARDS
+               and all(c["owned"] > 0 and c["extended"] > 0 for c in checks[:SHARDS])
+               and all(c["active"] > 0 for c in checks[SHARDS:2 * SHARDS])
+               and all(c["active"] == 0 for c in checks[2 * SHARDS:]) and loop_equal_k8)
+    k10_ok = covered and all(c["equal_plain"] for c in checks)
+    means = {name: mean_of(trip) for name, trip in (("first", 0), ("trip1", 1), ("empty", empty))
+             if trip is not None}
+    emit("kernel_vs_plain", kernel="sharded_trip", ok=k10_ok, max_abs_err=max_err,
+         covered=covered, lanes=int(w.lens2.shape[0]), trips=trips, active_lanes_by_trip=active,
+         trip_loop_equals_k8=loop_equal_k8, checks=checks, timing=timing,
+         mean_per_launch=means)
+
+    # K11: the begin, the first trip's advance (natural and with overflowing
+    # lanes) and the empty trip's, each on clones of the recorded state
+    s0, terms0 = states[1]
+    over = state_clone(s0)
+    full = torch.nonzero(over.act).flatten()[::4]
+    over.n[full] = H
+    sets = {"begin": (None, None), "first_trip": (s0, terms0), "first_trip_overflow":
+            (over, terms0), "empty_trip": states[1 + empty] if empty is not None else (None, None)}
+    a_checks, a_timing, a_err = [], [], 0
+    for name, (s_in, terms) in sets.items():
+        want = sharded.sharded_advance_plain(t, state_clone(s_in), terms, k=k, H=H)
+        got = sharded.sharded_advance(t, state_clone(s_in), terms, k=k, H=H)
+        errs = state_err(got, want)
+        if cuda and s_in is None:
+            raw = advance_on_0xff(t, k, H)
+            errs = {f: max(e, v) for (f, e), v in zip(errs.items(),
+                                                       state_err(raw, want).values())}
+        a_err = max(a_err, *errs.values())
+        act = s_in.act if s_in is not None else want.act
+        a_checks.append(dict(
+            set=name, active=int(act.sum()),
+            overflowing=0 if s_in is None else int((s_in.act & (s_in.n >= H)).sum()),
+            hits_written=int((want.n.sum() - (0 if s_in is None else s_in.n.sum()))),
+            field_err=errs, equal_plain=not any(errs.values())))
+        work_s = state_clone(s_in)
+
+        def restore(src=s_in, dst=work_s):
+            # what steers the kernel (the hit buffer is only written), so
+            # that a timed launch finds the tables where the walk leaves them
+            if src is not None:
+                for f, a, b in zip(src._fields, dst, src):
+                    if f != "buf":
+                        a.copy_(b)
+
+        def call(dst=work_s, terms=terms):
+            return sharded.sharded_advance(t, dst, terms, k=k, H=H)
+
+        def warm_work(n=30):
+            for _ in range(n):
+                restore()
+                call()
+
+        ms = named_kernel_ms(warm_work, 30, "sharded_advance_kernel", cuda)
+        if cuda:
+            flush = torch.empty(1 << 28, dtype=torch.int32, device=dev)
+
+            def cold_work(n=20):
+                for _ in range(n):
+                    restore()
+                    flush.fill_(1)
+                    call()
+
+            cold_ms = named_kernel_ms(cold_work, 20, "sharded_advance_kernel", cuda)
+            del flush
+            torch.cuda.empty_cache()
+        else:
+            cold_ms = "not measured"
+        restore()
+        wrapper_ms = timer(call, reps=30)  # the walk runs on from the state, as a program does
+        plain_ms = timer(lambda: sharded.sharded_advance_plain(t, state_clone(s_in), terms, k=k,
+                                                               H=H), reps=2, warm=1)
+        bound = advance_bound(t, s_in, terms, k, H)
+        if cuda:
+            bound.update(share_of_bound=bound["bound_ms"] / ms,
+                         share_of_bound_cold=bound["bound_ms"] / cold_ms)
+        a_timing.append(dict(set=name, ms=ms, cold_ms=cold_ms, wrapper_ms=wrapper_ms,
+                             plain_ms=plain_ms, library_ms=None, **bound))
+    a_covered = (empty is not None and a_checks[1]["active"] > 0
+                 and a_checks[2]["overflowing"] > 0 and a_checks[3]["active"] == 0)
+    k11_ok = a_covered and all(c["equal_plain"] for c in a_checks)
+    ops = trip_loop_ops(sset, w, kw, cuda)
+    emit("kernel_vs_plain", kernel="sharded_advance", ok=k11_ok, max_abs_err=a_err,
+         covered=a_covered, lanes=int(w.lens2.shape[0]), shards=SHARDS, checks=a_checks,
+         timing=a_timing, split_walk_device_ops=ops)
+    if cuda and ops["measured"] and not ops["none_inside_a_trip"]:
+        raise RuntimeError(f"the split walk runs device work inside its trips: {ops}")
+    del saved, states, tables, sset
     if cuda:
         torch.cuda.empty_cache()
-    return ok, max_err, mean
+    by_set = {x["set"]: x for x in a_timing}
+    return (k10_ok and k11_ok, max(max_err, a_err),
+            dict(k10=means, k11=by_set, k10_err=max_err, k11_err=a_err, k10_ok=k10_ok,
+                 k11_ok=k11_ok))
 
 
 def to_dev(dev, *arrays):
@@ -2786,14 +3065,16 @@ def phase_sharded(dev, mapper, worlds: dict, codes, lens, pc1, pc2, plens, B: in
 
 def phase_sharded_split(dev, mapper, worlds: dict, results: dict, B: int, cuda: bool) -> dict:
     """The split path (parallel/sharded.py, a ShardSet a data row: each
-    shard its own upload, the trip loop with K10), a twin of each
+    shard its own upload, the trip loop with K10 and K11), a twin of each
     phase_sharded phase on the same inputs, cut and (2, SHARDS) mesh:
     sharded_split_path (canonical-class cut, paired lanes),
     sharded_split_lanes_path (per-strand CHD cut, explicit lanes),
     sharded_split_pe_path, sharded_split_score_path, sharded_split_slot64_path.
     Each result must equal its stacked twin's (MapOut, PairOut, Counters)
     and the replicated engine's where the twin has one; `sharded_trip` runs
-    SHARDS x (H + 1) times a program and K8 not at all. With SHARDS x 2 cards
+    SHARDS x (H + 1) times a program, `sharded_advance` H + 2 times and K8
+    not at all. The first phase is profiled beside its stacked twin
+    (profile_sharded_split: launches a program of each). With SHARDS x 2 cards
     the shards lie on distinct cards (the reference's layout); with fewer,
     every shard is on `dev` (split_idx=True) -> {phase: launches}."""
     import dataclasses
@@ -2837,20 +3118,28 @@ def phase_sharded_split(dev, mapper, worlds: dict, results: dict, B: int, cuda: 
              over_stacked=rows / s / stacked_rate, upload_s=upload_s,
              equal_stacked=equal_stacked, equal_replicated=equal_replicated,
              launches=launches, sharded_trip_per_program=launches["sharded_trip"] / programs,
+             sharded_advance_per_program=launches["sharded_advance"] / programs,
              max_memory_allocated=torch.cuda.max_memory_allocated() if cuda else "not measured")
         if not (equal_stacked and equal_replicated):
             raise RuntimeError(f"{phase}: the split path's result differs from its stacked twin's "
                                "or the replicated engine's")
         if cuda and (launches["sharded_trip"] != programs * SHARDS * (H + 1)
+                     or launches["sharded_advance"] != programs * (H + 2)
                      or launches["sharded_walk"] or launches["sharded_walk_lanes"]
                      or (cfg.mapping_score and not launches["banded_scores"])):
             raise RuntimeError(f"{phase}: kernel launches {launches}")
         out[phase] = launches
         if phase == "sharded_split_path":  # where a program's time goes, beside the stack's
             stacks = [worlds[world][1]] * n_rows
-            emit("profile_sharded_split", shards_on=layout, **{
-                name: profile_one_batch(lambda: fn(ups, st, *inputs, cfg, mesh), n_rows, cuda, 6)
-                for name, ups in (("split", uploads), ("stacked", stacks))})
+            prof = {name: profile_one_batch(lambda: fn(ups, st, *inputs, cfg, mesh), n_rows,
+                                            cuda, 6)
+                    for name, ups in (("split", uploads), ("stacked", stacks))}
+            per = {name: p["launches_per_chunk"] for name, p in prof.items()}
+            emit("profile_sharded_split", shards_on=layout, launches_per_program=per,
+                 split_over_stacked_launches=per["split"] / per["stacked"] if cuda else
+                 "not measured",
+                 split_over_stacked_wall=prof["split"]["batch_wall_ms"]
+                 / prof["stacked"]["batch_wall_ms"], **prof)
         del uploads, got
         if cuda:
             torch.cuda.empty_cache()
@@ -3980,12 +4269,12 @@ def main() -> int:
                            "set missed what it is there to exercise")
     sh_launches, sh_results = phase_sharded(dev, qm, sh_worlds, codes, lens, pc1, pc2, plens, B,
                                             cuda)
-    # the split path: K10 against its plain version, then a twin of each
-    # sharded phase with every data row's shards uploaded on their own
-    k10_ok, k10_err, k10_t = phase_trip_kernel(dev, timer, sh_worlds, codes, lens, B)
-    if not k10_ok:
-        raise RuntimeError("sharded_trip kernel disagrees with its plain version, or an input "
-                           "set missed what it is there to exercise")
+    # the split path: K10 and K11 against their plain versions, then a twin
+    # of each sharded phase with every data row's shards uploaded on their own
+    trip_ok, _, trip_t = phase_trip_kernel(dev, timer, sh_worlds, codes, lens, B)
+    if not trip_ok:
+        raise RuntimeError("sharded_trip or sharded_advance disagrees with its plain version, "
+                           "or an input set missed what it is there to exercise")
     sh_launches.update(phase_sharded_split(dev, qm, sh_worlds, sh_results, B, cuda))
     del qm, sh_worlds, sh_results
     if cuda:
@@ -4144,11 +4433,28 @@ def main() -> int:
         "replaces": "rapmap_tpu/parallel/sharded.py:583",
         "launches": sh_launches["sharded_split_path"]["sharded_trip"],
         "launches_on_parallel_paths": on_par("sharded_trip"),
-        "max_abs_err": k10_err, "matches_plain": k10_ok,
+        "max_abs_err": trip_t["k10_err"], "matches_plain": trip_t["k10_ok"],
         "timed_as": "mean per launch over the first trip's shards of one data row's program",
-        **{x: k10_t[x] for x in (
+        **{x: trip_t["k10"]["first"][x] for x in (
             "ms", "cold_ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
+        **{f"{name}_trip": {x: v[x] for x in ("ms", "cold_ms", "wrapper_ms", "plain_ms",
+                                              "bound_ms", "bound_by")}
+           for name, v in trip_t["k10"].items() if name != "first"},
+    }, {
+        "name": "sharded_advance", "route": "cuda",
+        "source": "rapmap_tpu_torch/csrc/walk.cu",
+        "replaces": "rapmap_tpu/parallel/sharded.py:600",
+        "launches": sh_launches["sharded_split_path"]["sharded_advance"],
+        "launches_on_parallel_paths": on_par("sharded_advance"),
+        "max_abs_err": trip_t["k11_err"], "matches_plain": trip_t["k11_ok"],
+        "timed_as": "the advance after the first trip of one data row's program",
+        **{x: trip_t["k11"]["first_trip"][x] for x in (
+            "ms", "cold_ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        **{name: {x: v[x] for x in ("ms", "cold_ms", "wrapper_ms", "plain_ms", "bound_ms",
+                                    "bound_by")}
+           for name, v in trip_t["k11"].items() if name != "first_trip"},
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

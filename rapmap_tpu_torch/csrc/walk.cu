@@ -151,18 +151,43 @@
 // The sharded trip (tqm_sharded_trip, K10) is what the split path runs when a
 // data row's idx shards lie on their own devices, as the reference's mesh
 // lays them: one trip can then not see every shard's rows, so the lockstep
-// trip loop runs in PyTorch on the row's home device
-// (parallel/sharded.py trip_extension) and each trip launches this entry once
-// per shard, on that shard's device, for its term of the reference's psum:
-// one thread a lane, the owner test in global coordinates against the true
-// count, then extend_lane over the shard's rows. Lanes the shard does not own
-// take the branch around the extension and load nothing past their active
-// byte and b0. What bounds it: each launch is one trip's worth of the walk's
-// bytes for the shard's lanes (tqm_sharded_trip_traffic counts them), tiny
-// beside a launch's fixed cost; P x (H + 1) launches a program, and the trip
-// loop's eager PyTorch between them, are what a program of the split path
-// pays. The kernel is the simple form: fusing the advance into it, or the
-// trip loop into one kernel with copies between cards, would cut those.
+// trip loop runs on the row's home device (parallel/sharded.py trip_loop)
+// and each trip launches this entry once per shard, on that shard's device,
+// for its term of the reference's psum: the owner test in global
+// coordinates against the true count, then extend_lane over the shard's
+// rows. What bounds it: each launch is one trip's worth of the walk's bytes
+// for the shard's lanes (tqm_sharded_trip_traffic counts them), a few
+// hundred KB, so a launch is latency: an owned lane's chain of dependent
+// loads (its lane values, then its query words and next_bad, then the
+// sa_cmp rows its searches compare; on a transcriptome most anchor
+// intervals are one slot wide, so one row serves all three searches), plus
+// the launch itself (~1.4 us when no lane is active), and the slowest owned
+// lane's searches set the time. What the design does about it: every lane
+// value loads in one round (coalesced, also on lanes the shard does not
+// own), not behind the active byte and then the owner test, and an owned
+// lane prefetches its first compared row into L1 while its query words
+// load. On an H100 (scripts/walk_ablation.py --k10) the one round took
+// 5-6% off the time with a warm L2 and 9-10% with a cold one, the prefetch
+// 2% more cold (2% less warm), and 256 lanes a block 4-13% off an empty
+// trip against 128 and 64. (Compacting a block's owned lanes into a list in
+// shared memory, so that full warps run the extension converged, took
+// 9-15% more time: the owned lanes' scattered loads then all come from
+// one warp instead of eight, behind two barriers.)
+//
+// The trip's home half (tqm_sharded_advance, K11) replaces the trip loop's
+// eager PyTorch between two K10 rounds (the reference's while_loop body
+// after its psums, rapmap_tpu/parallel/sharded.py :600-617 and :451-467:
+// ops/mmp.py walk_advance after the terms' sum): one thread a lane on the
+// home device sums the P shards' terms (P, 3, R), writes the hit at slot
+// n (or sets trunc), moves pos by the NIP skip through the lane's
+// next-anchor table row, and writes the next trip's act, posc, b0 and e0,
+// all in place; with no terms it begins the walk (walk_begin: pos at the
+// first anchor, the hit buffer zeroed by the block, the first trip's
+// inputs). A lane that is not active returns after its act byte: its state
+// cannot change again (pos only moves on an active lane, trunc only sets),
+// so an empty trip reads R bytes. What bounds it: the active lanes' terms
+// (P x 24 bytes each) and one sector of each table row, ~1-3 MB at the
+// first trip; it is one launch where the eager body was ~60.
 //
 // C interface for ctypes: every pointer and the stream are void* on the
 // Python side; every entry returns the CUDA error code (0 = success).
@@ -173,6 +198,8 @@
 namespace {
 
 constexpr int kMaxLanes = 64;      // lanes (threads) per block: 16,384 lanes -> 256 blocks
+constexpr int kTripLanes = 256;    // K10's lanes (threads) a block: 32,768 lanes -> 128 blocks
+constexpr int kAdvanceLanes = 256; // K11's lanes (threads) a block
 constexpr int kMaxShards = 1024;   // shard table in shared memory: 16 KB at most
 constexpr int kMaskRegWords = 4;   // anchor-mask words in registers: S <= 128
 constexpr int kRegWords = 8;       // query words and fused sa_cmp words in registers
@@ -913,16 +940,23 @@ __global__ void extend_packed_kernel(
   mlen_out[i] = mlen;
 }
 
-// One shard's term of one trip of the sharded walk, one thread a lane (K10,
-// the split path; rapmap_tpu/parallel/sharded.py _sharded_scan_paired
-// :583-600 and _sharded_scan :433-451 on one idx shard, up to the psums):
-// lane r is the shard's when it is active and its GLOBAL b0 lies in [base,
-// base + n_local), n_local the true slot count, tested before the rebase;
-// it extends over the shard's rows at local slots (extend_lane, as K8 does
-// on the owner it finds) and writes (b + base, e + base, mlen), and every
-// other lane (0, 0, 0) without reading its row. Every output byte is written.
+// One shard's term of one trip of the sharded walk (K10, the split path;
+// rapmap_tpu/parallel/sharded.py _sharded_scan_paired :583-600 and
+// _sharded_scan :433-451 on one idx shard, up to the psums): lane r is the
+// shard's when it is active and its GLOBAL b0 lies in [base, base +
+// n_local), n_local the true slot count, tested before the rebase; it
+// extends over the shard's rows at local slots (extend_lane, as K8 does on
+// the owner it finds) and writes (b + base, e + base, mlen), and every other
+// lane (0, 0, 0) without reading its row. One thread a lane, kTripLanes a
+// block. A lane's values (active, b0, e0, pos, lens2, col_off2) load in one
+// round, not behind the owner test, and an owned lane prefetches the sa_cmp
+// row its first search compares (the interval's middle) into L1 beside its
+// query words, so its chain is two rounds of loads before the compares; the
+// counting build marks only what the function needs (the active byte of
+// every lane, b0 of the active ones, the rest on the owned ones). Every
+// output byte is written.
 template <bool kCount>
-__global__ void sharded_trip_kernel(
+__global__ void __launch_bounds__(kTripLanes) sharded_trip_kernel(
     const int64_t* __restrict__ preads, const int64_t* __restrict__ next_bad,
     const int64_t* __restrict__ lens2, const int64_t* __restrict__ col_off2,
     const int64_t* __restrict__ b0, const int64_t* __restrict__ e0,
@@ -931,21 +965,108 @@ __global__ void sharded_trip_kernel(
     int64_t* __restrict__ e_out, int64_t* __restrict__ mlen_out, Traffic tr) {
   const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (r >= R) return;
+  const bool act = active[r] != 0;
+  const int64_t b0r = ldg(b0 + r);
+  const int64_t e0r = ldg(e0 + r);
+  const int64_t posr = ldg(pos + r);
+  const int64_t len = ldg(lens2 + r);
+  const int64_t off = ldg(col_off2 + r);
   touch<kCount>(tr, kActive, active + r, 1);
-  const int64_t lb = active[r] != 0 ? load<kCount>(tr, kB0, b0 + r) - base : -1;
-  const bool mine = lb >= 0 && lb < n_local;
+  if (act) touch<kCount>(tr, kB0, b0 + r, 8);
+  const int64_t lb = act ? b0r - base : -1;
   int64_t b = 0, e = 0, mlen = 0;
-  if (mine) {
-    extend_lane<kCount>(ix, preads + r * L, next_bad + r * L, load<kCount>(tr, kLens, lens2 + r),
-                        load<kCount>(tr, kColOff, col_off2 + r), lb,
-                        clamp64(load<kCount>(tr, kE0, e0 + r) - base, 0, n_local),
-                        load<kCount>(tr, kPos, pos + r), true, k, steps, L, W, b, e, mlen, tr);
+  if (lb >= 0 && lb < n_local) {
+    touch<kCount>(tr, kE0, e0 + r, 8);
+    touch<kCount>(tr, kPos, pos + r, 8);
+    touch<kCount>(tr, kLens, lens2 + r, 8);
+    touch<kCount>(tr, kColOff, col_off2 + r, 8);
+    const int64_t le = clamp64(e0r - base, 0, n_local);
+    if (lb < le) {  // the first compare's row, both ends of it
+      const int32_t* row = ix.sa_cmp + clamp64((lb + le) >> 1, 0, ix.n_sa - 1) * (3 + ix.F);
+      asm volatile("prefetch.global.L1 [%0];" ::"l"(row));
+      asm volatile("prefetch.global.L1 [%0];" ::"l"(row + 2 + ix.F));
+    }
+    extend_lane<kCount>(ix, preads + r * L, next_bad + r * L, len, off, lb, le, posr, true, k,
+                        steps, L, W, b, e, mlen, tr);
     b += base;
     e += base;
   }
   b_out[r] = b;
   e_out[r] = e;
   mlen_out[r] = mlen;
+}
+
+// The split walk's trip at home (K11; ops/mmp.py walk_begin and walk_advance
+// after the sum of the terms, parallel/sharded.py sharded_advance_plain): one
+// thread a lane over the lane-aligned tables db2, de2, anc2 (R, S), with the
+// state pos, n, trunc, buf (R, H, 4) and the next trip's act, posc, b0, e0
+// updated in place. With terms (P, 3, R): an active lane sums its P terms
+// into (b1, e1, mlen), writes [posc, mlen, b1, e1] at slot n (n < H) or sets
+// trunc, and moves pos to the next anchor at or past posc + max(mlen - k + 1,
+// 1); an inactive lane returns. With no terms (the begin) the block zeroes
+// its lanes' hit slots and every lane takes its first anchor with n = 0 and
+// no trunc. Then the lane writes the next trip's inputs: act = pos < S and
+// not trunc, posc = pos clamped to [0, S), and the anchor interval at its
+// column (rc lanes mirrored, clamped as ops/gather.py clamps).
+__global__ void __launch_bounds__(kAdvanceLanes) sharded_advance_kernel(
+    const int64_t* __restrict__ terms, int P, const int64_t* __restrict__ db2,
+    const int64_t* __restrict__ de2, const int64_t* __restrict__ anc2,
+    const uint8_t* __restrict__ is_rc, const int64_t* __restrict__ lens2, int64_t R, int S,
+    int k, int H, int64_t* __restrict__ pos, int64_t* __restrict__ n,
+    uint8_t* __restrict__ trunc, int64_t* __restrict__ buf, uint8_t* __restrict__ act,
+    int64_t* __restrict__ posc, int64_t* __restrict__ b0, int64_t* __restrict__ e0) {
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * blockDim.x;
+  const int64_t r = r0 + threadIdx.x;
+  if (terms == nullptr) {  // the begin: the block's lanes' hit slots, 16 bytes a store
+    const int64_t lanes = R - r0 < blockDim.x ? R - r0 : blockDim.x;
+    longlong2* dst = reinterpret_cast<longlong2*>(buf + r0 * H * 4);
+    for (int64_t i = threadIdx.x; i < lanes * H * 2; i += blockDim.x)
+      dst[i] = make_longlong2(0, 0);
+  }
+  if (r >= R || (terms != nullptr && act[r] == 0)) return;
+  const bool rc = is_rc[r] != 0;
+  const int64_t len = ldg(lens2 + r);
+  const int64_t* row = anc2 + r * S;
+  // smallest lane-local anchor position >= nxt, else S (ops/mmp.py _next_anchor_pos)
+  auto next_anchor_pos = [&](int64_t nxt) -> int64_t {
+    const int64_t col = rc ? len - k - nxt : nxt;
+    const int64_t v = ldg(row + clamp64(col, 0, S - 1));
+    if (!rc) return nxt < S ? v : S;
+    return col >= 0 && v >= 0 ? len - k - v : S;
+  };
+  int64_t p;
+  bool tr = false;
+  if (terms == nullptr) {
+    p = next_anchor_pos(0);
+    n[r] = 0;
+    trunc[r] = 0;
+  } else {
+    int64_t b1 = 0, e1 = 0, mlen = 0;
+    for (int q = 0; q < P; ++q) {
+      const int64_t* tq = terms + static_cast<int64_t>(q) * 3 * R;
+      b1 += ldg(tq + r);
+      e1 += ldg(tq + R + r);
+      mlen += ldg(tq + 2 * R + r);
+    }
+    const int64_t pc = posc[r];
+    const int64_t nn = n[r];
+    tr = nn >= H;
+    if (tr) {
+      trunc[r] = 1;
+    } else {
+      put_slot(buf + (r * H + nn) * 4, pc, mlen, b1, e1);
+      n[r] = nn + 1;
+    }
+    const int64_t adv = mlen - k + 1;
+    p = next_anchor_pos(pc + (adv > 1 ? adv : 1));
+  }
+  pos[r] = p;
+  const int64_t pc = clamp64(p, 0, S - 1);
+  const int64_t col = clamp64(rc ? len - k - pc : pc, 0, S - 1);
+  act[r] = p < S && !tr ? 1 : 0;
+  posc[r] = pc;
+  b0[r] = ldg(db2 + r * S + col);
+  e0[r] = ldg(de2 + r * S + col);
 }
 
 __global__ void extend_charwise_kernel(
@@ -1016,8 +1137,8 @@ int launch_trip(const void* preads, const void* next_bad, const void* lens2,
                 const Traffic& tr, void* stream) {
   if (R <= 0 || L <= 0 || W < 1 || n_local < 0 || n_local > ix.n_sa)
     return static_cast<int>(cudaErrorInvalidValue);
-  sharded_trip_kernel<kCount><<<static_cast<unsigned>((R + kMaxLanes - 1) / kMaxLanes),
-                                kMaxLanes, 0, static_cast<cudaStream_t>(stream)>>>(
+  sharded_trip_kernel<kCount><<<static_cast<unsigned>((R + kTripLanes - 1) / kTripLanes),
+                                kTripLanes, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(preads), static_cast<const int64_t*>(next_bad),
       static_cast<const int64_t*>(lens2), static_cast<const int64_t*>(col_off2),
       static_cast<const int64_t*>(b0), static_cast<const int64_t*>(e0),
@@ -1404,4 +1525,29 @@ extern "C" int tqm_sharded_trip_traffic(
                            make_index(sa_cmp, n_sa, F, text2q, nw), base, n_local, R, L, k, steps,
                            W, b_out, e_out, mlen_out,
                            make_traffic(tensors, regions, 10, bits, word_off, rows), stream);
+}
+
+// The split walk's trip at home (parallel/sharded.py sharded_advance, K11),
+// on the row's home device: terms (P, 3, R) int64, the P shards' (b, e, mlen)
+// of the trip, 1 <= P <= kMaxShards, or null for the begin (P unread); the
+// tables db2, de2, anc2 (R, S) int64, is_rc (R,) bytes, lens2 (R,) int64;
+// the state pos, n (R,) int64, trunc (R,) bytes, buf (R, H, 4) int64 and the
+// next trip's act (R,) bytes, posc, b0, e0 (R,) int64, updated in place (the
+// begin writes every byte of them).
+extern "C" int tqm_sharded_advance(const void* terms, int P, const void* db2, const void* de2,
+                                   const void* anc2, const void* is_rc, const void* lens2,
+                                   int64_t R, int S, int k, int H, void* pos, void* n,
+                                   void* trunc, void* buf, void* act, void* posc, void* b0,
+                                   void* e0, void* stream) {
+  if (R <= 0 || S <= 0 || H <= 0 || (terms != nullptr && (P < 1 || P > kMaxShards)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  sharded_advance_kernel<<<static_cast<unsigned>((R + kAdvanceLanes - 1) / kAdvanceLanes),
+                           kAdvanceLanes, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(terms), P, static_cast<const int64_t*>(db2),
+      static_cast<const int64_t*>(de2), static_cast<const int64_t*>(anc2),
+      static_cast<const uint8_t*>(is_rc), static_cast<const int64_t*>(lens2), R, S, k, H,
+      static_cast<int64_t*>(pos), static_cast<int64_t*>(n), static_cast<uint8_t*>(trunc),
+      static_cast<int64_t*>(buf), static_cast<uint8_t*>(act), static_cast<int64_t*>(posc),
+      static_cast<int64_t*>(b0), static_cast<int64_t*>(e0));
+  return static_cast<int>(cudaGetLastError());
 }

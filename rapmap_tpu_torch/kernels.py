@@ -42,6 +42,7 @@ LAUNCHES: dict[str, int] = {
     "sharded_walk": 0,          # csrc/walk.cu, sharded index, strand-paired lanes
     "sharded_walk_lanes": 0,    # csrc/walk.cu, sharded index, explicit lanes
     "sharded_trip": 0,          # csrc/walk.cu, one shard's trip of the split sharded walk
+    "sharded_advance": 0,       # csrc/walk.cu, the split sharded walk's trip at home
 }
 
 _lock = threading.Lock()

@@ -289,50 +289,105 @@ def _extend(didx, reads, lens, b0, e0, pos, active, k: int, ext_steps: int):
     return b, e, d
 
 
+class WalkTables(NamedTuple):
+    """A walk's lane-aligned tables, built once a program: interval begins
+    and ends and the next-anchor (forward lanes) or previous-anchor (rc
+    lanes, forward columns) table, (R, S) int64 each, as `anchor_tables` or
+    `next_anchor_table` build them; which lanes are rc (mirrored columns);
+    the lanes' read lengths."""
+
+    db2: torch.Tensor    # (R, S) int64
+    de2: torch.Tensor    # (R, S) int64
+    anc2: torch.Tensor   # (R, S) int64, S and -1 where there is none
+    is_rc: torch.Tensor  # (R,) bool
+    lens2: torch.Tensor  # (R,) int64
+
+
+class WalkState(NamedTuple):
+    """The lockstep walk between two trips: each lane's next anchor `pos`,
+    hit count `n`, overflow flag `trunc` and hit buffer `buf` (R, H, 4)
+    [pos, mlen, b, e], and the next trip's extension inputs: whether the
+    lane is active, its clamped position and its anchor's interval."""
+
+    pos: torch.Tensor    # (R,) int64
+    n: torch.Tensor      # (R,) int64
+    trunc: torch.Tensor  # (R,) bool
+    buf: torch.Tensor    # (R, H, 4) int64
+    act: torch.Tensor    # (R,) bool
+    posc: torch.Tensor   # (R,) int64
+    b0: torch.Tensor     # (R,) int64
+    e0: torch.Tensor     # (R,) int64
+
+
+def _at2(arr2d, col):
+    return row_gather(arr2d, col.clamp(0, arr2d.shape[1] - 1)[:, None])[:, 0]
+
+
+def _next_anchor_pos(t: WalkTables, nxt, k: int):
+    """Smallest lane-local anchor position >= nxt, else S (full width)."""
+    S = t.anc2.shape[1]
+    col = torch.where(t.is_rc, t.lens2 - k - nxt, nxt)
+    v = _at2(t.anc2, col)
+    fwd_next = torch.where(nxt < S, v, S)
+    rc_next = torch.where((col >= 0) & (v >= 0), t.lens2 - k - v, S)
+    return torch.where(t.is_rc, rc_next, fwd_next)
+
+
+def _with_trip(t: WalkTables, pos, n, trunc, buf, k: int) -> WalkState:
+    """The state with the next trip's inputs: act, posc and the anchor's
+    interval (gathered on every lane)."""
+    S = t.db2.shape[1]
+    posc = pos.clamp(0, S - 1)
+    col = torch.where(t.is_rc, t.lens2 - k - posc, posc)
+    return WalkState(pos, n, trunc, buf, (pos < S) & ~trunc, posc, _at2(t.db2, col),
+                     _at2(t.de2, col))
+
+
+def walk_begin(t: WalkTables, *, k: int, H: int) -> WalkState:
+    """The walk before its first trip: every lane at its first anchor, no
+    hit, and the first trip's inputs."""
+    R = t.lens2.shape[0]
+    pos = _next_anchor_pos(t, torch.zeros_like(t.lens2), k)
+    buf = torch.zeros((R, H, 4), dtype=torch.int64, device=t.lens2.device)
+    return _with_trip(t, pos, torch.zeros_like(t.lens2), torch.zeros_like(t.is_rc), buf, k)
+
+
+def walk_advance(t: WalkTables, s: WalkState, b1, e1, mlen, *, k: int, H: int,
+                 jump: int | None = None) -> WalkState:
+    """One trip's home half, after its extension (b1, e1, mlen): an active
+    lane records its hit at slot n (or, with n = H, sets trunc) and moves to
+    the next anchor at or past posc + max(mlen - k + 1, 1) (the NIP skip),
+    or with `jump` posc + jump (the pseudo walks' jump-ahead k); then the
+    next trip's inputs. s.buf is written in place."""
+    lane = torch.arange(t.lens2.shape[0], device=t.lens2.device)
+    slot = s.n.clamp(0, H - 1)
+    overflow = s.act & (s.n >= H)
+    write = s.act & ~overflow
+    rows4 = torch.stack([s.posc, mlen, b1, e1], dim=-1)
+    s.buf[lane, slot] = torch.where(write[:, None], rows4, s.buf[lane, slot])
+    adv = (mlen - k + 1).clamp(min=1) if jump is None else jump
+    pos = torch.where(s.act, _next_anchor_pos(t, s.posc + adv, k), s.pos)
+    return _with_trip(t, pos, s.n + write, s.trunc | overflow, s.buf, k)
+
+
+def walk_hits(s: WalkState) -> ScanHits:
+    return ScanHits(q=s.buf[..., 0], l=s.buf[..., 1], b=s.buf[..., 2], e=s.buf[..., 3],
+                    n=s.n, truncated=s.trunc)
+
+
 def _walk_plain(db2, de2, anc2, is_rc, lens2, extend, k: int, H: int,
                 jump: int | None = None) -> ScanHits:
     """H + 1 lockstep trips over lane-aligned tables (R, S): forward lanes
     take the next anchor from anc2, rc lanes the previous one in mirrored
     columns; extend(b0, e0, pos, active) -> (b, e, mlen). After a hit the
     walk skips to posc + max(mlen - k + 1, 1) (the NIP skip), or with `jump`
-    to posc + jump (the pseudo walks' jump-ahead k)."""
-    R, S = db2.shape
-    dev = db2.device
-
-    def at2(arr2d, col):
-        return row_gather(arr2d, col.clamp(0, S - 1)[:, None])[:, 0]
-
-    def next_anchor_pos(nxt):
-        """Smallest lane-local anchor position >= nxt, else S (full width)."""
-        col = torch.where(is_rc, lens2 - k - nxt, nxt)
-        v = at2(anc2, col)
-        fwd_next = torch.where(nxt < S, v, S)
-        rc_next = torch.where((col >= 0) & (v >= 0), lens2 - k - v, S)
-        return torch.where(is_rc, rc_next, fwd_next)
-
-    pos = next_anchor_pos(torch.zeros_like(lens2))
-    n = torch.zeros_like(lens2)
-    trunc = torch.zeros_like(is_rc)
-    buf = torch.zeros((R, H, 4), dtype=torch.int64, device=dev)
-    lane = torch.arange(R, device=dev)
+    to posc + jump (the pseudo walks' jump-ahead k). A trip is walk_advance
+    after the extension, from walk_begin."""
+    t = WalkTables(db2, de2, anc2, is_rc, lens2)
+    s = walk_begin(t, k=k, H=H)
     for _ in range(H + 1):
-        act = (pos < S) & ~trunc
-        posc = pos.clamp(0, S - 1)
-        col = torch.where(is_rc, lens2 - k - posc, posc)
-        b1, e1, mlen = extend(at2(db2, col), at2(de2, col), posc, act)
-        slot = n.clamp(0, H - 1)
-        overflow = act & (n >= H)
-        write = act & ~overflow
-        rows4 = torch.stack([posc, mlen, b1, e1], dim=-1)
-        buf[lane, slot] = torch.where(write[:, None], rows4, buf[lane, slot])
-        adv = (mlen - k + 1).clamp(min=1) if jump is None else jump
-        pos = torch.where(act, next_anchor_pos(posc + adv), pos)
-        n = n + write
-        trunc = trunc | overflow
-    return ScanHits(
-        q=buf[..., 0], l=buf[..., 1], b=buf[..., 2], e=buf[..., 3],
-        n=n, truncated=trunc,
-    )
+        s = walk_advance(t, s, *extend(s.b0, s.e0, s.posc, s.act), k=k, H=H, jump=jump)
+    return walk_hits(s)
 
 
 def _plain_extend(didx, preads, next_bad, lens2, col_off2, codes, k: int, ext_steps: int):

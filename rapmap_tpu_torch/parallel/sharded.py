@@ -37,12 +37,15 @@ runs on either layout
      no shard owns it). On a ShardStack on the card: one launch of
      csrc/walk.cu's sharded build over the stacked shard tables (K8,
      counters `sharded_walk`, paired lanes, and `sharded_walk_lanes`,
-     explicit lanes). On a ShardSet: the trip loop on the home device, H + 1
-     lockstep trips in eager PyTorch, each trip's (b0, e0, pos, act) copied
-     to every shard's device, one launch of the sharded trip there (K10,
-     `sharded_trip`) for that shard's term, and the terms summed at home:
-     the reference's three psums a trip. On CPU tensors both take the plain
-     trip (`sharded_trip_plain`, inside `sharded_walk_plain` for a stack);
+     explicit lanes). On a ShardSet: the trip loop on the home device
+     (`trip_loop`), H + 1 lockstep trips, each trip's (b0, e0, pos, act)
+     copied to every shard's device, one launch of the sharded trip there
+     (K10, `sharded_trip`) for that shard's term in a (P, 3, R) buffer at
+     home, then one launch of the trip's home half (K11,
+     `sharded_advance`): the terms summed (the reference's three psums),
+     the hit written and the lane advanced, with no eager op inside a trip.
+     On CPU tensors both take the plain trip (`sharded_trip_plain`,
+     `sharded_advance_plain`; `sharded_walk_plain` for a stack);
   3. the collate with an expand_fn that resolves a global slot on its owning
      shard's sa_meta rows (the slots sent to each shard's device, the
      answers summed at home), and with --mappingScore the banded scores of
@@ -82,8 +85,8 @@ from rapmap_tpu_torch.ops.extend_packed import ext_words, extend_packed, pack_re
 from rapmap_tpu_torch.ops.gather import row_gather_nd
 from rapmap_tpu_torch.ops.lookup import _chd_hash, kmer_lookup
 from rapmap_tpu_torch.ops.mmp import (
-    WALK_FUSED_WORDS_MAX, ScanHits, WalkInputs, _cols, _walk_plain, anchor_tables,
-    next_anchor_table, walk_params,
+    WALK_FUSED_WORDS_MAX, ScanHits, WalkInputs, WalkState, WalkTables, _cols, _walk_plain,
+    anchor_tables, next_anchor_table, walk_advance, walk_begin, walk_hits, walk_params,
 )
 from rapmap_tpu_torch.ops.pairs import PairOut, merge_pairs_batch
 from rapmap_tpu_torch.parallel.dp import _join, _n_valid, _sum, norm_device
@@ -645,56 +648,75 @@ SHARDED_WALK_MAX_SHARDS = 1024  # csrc/walk.cu kMaxShards: the shard table in sh
 
 
 def sharded_trip_plain(didx: DeviceQuasiIndex, base: int, n_local: int, preads, next_bad,
-                       lens2, col_off2, b0, e0, pos, act, *, k: int,
-                       ext_steps: int) -> tuple:
+                       lens2, col_off2, b0, e0, pos, act, *, k: int, ext_steps: int,
+                       out=None) -> tuple:
     """One shard's term of one trip of the sharded walk, in PyTorch (the
     reference's trip body on one idx shard up to its three psums,
     rapmap_tpu/parallel/sharded.py :583-600 and :433-451): the active lanes
     whose GLOBAL b0 the shard owns, b0 - base in [0, n_local) with the TRUE
     slot count, tested before the rebase, extend over the shard's rows at
     local slots (ops.extend_packed) -> (b + base, e + base, mlen) int64 on
-    those lanes and (0, 0, 0) on the others."""
+    those lanes and (0, 0, 0) on the others; copied into `out`, three (R,)
+    tensors, when given."""
     lb = b0 - base
     mine = act & (lb >= 0) & (lb < n_local)
     bl, el, ml = extend_packed(
         didx, preads, next_bad, lens2, lb.clamp(0, n_local), (e0 - base).clamp(0, n_local),
         pos, mine, k, ext_steps, preads.shape[1], col_off=col_off2,
     )
-    return (torch.where(mine, bl + base, 0), torch.where(mine, el + base, 0),
-            torch.where(mine, ml, 0))
+    res = (torch.where(mine, bl + base, 0), torch.where(mine, el + base, 0),
+           torch.where(mine, ml, 0))
+    if out is None:
+        return res
+    for o, r in zip(out, res):
+        o.copy_(r)
+    return out
+
+
+def trip_terms(shards: ShardStack | ShardSet, w: WalkInputs, trip, *, k: int,
+               ext_steps: int):
+    """A trip's per-shard terms over a data row's shards -> terms(b0, e0,
+    pos, act, out=None) -> (P, 3, R) int64 on the lanes' device, [p] =
+    shard p's (b, e, mlen): the trip's lane values go to every shard's
+    device (copied once a device a trip; the lane inputs preads, next_bad,
+    lens2 and col_off2 once a device a program), trip(..., out=) gives that
+    shard's term there (sharded_trip_plain, or sharded_trip), written
+    straight into out[p] on the lanes' device and copied there from any
+    other. `out` is the buffer to reuse, else a new one."""
+    home = w.lens2.device
+    lanes = _copier(w.preads, w.next_bad, w.lens2, w.col_off2)
+    shape = (len(shards.bases), 3, w.lens2.shape[0])
+
+    def terms(b0, e0, pos, act, out=None):
+        out = torch.empty(shape, dtype=torch.int64, device=home) if out is None else out
+        at = _copier(b0, e0, pos, act)
+        for p, (base, n_local) in enumerate(shards.bases):
+            didx = shards.local(p)
+            dev = didx.sa_cmp.device
+            if dev == home:
+                trip(didx, base, n_local, *lanes(dev), *at(dev), k=k, ext_steps=ext_steps,
+                     out=out[p].unbind(0))
+            else:
+                out[p].copy_(torch.stack(trip(didx, base, n_local, *lanes(dev), *at(dev), k=k,
+                                              ext_steps=ext_steps)))
+        return out
+
+    return terms
 
 
 def trip_extension(shards: ShardStack | ShardSet, w: WalkInputs, trip, *, k: int,
                    ext_steps: int):
     """The walk's extension over a data row's shards -> extend(b0, e0, pos,
-    act): each trip's lane values go to every shard's device (copied once a
-    device a trip; the lane inputs preads, next_bad, lens2 and col_off2 once
-    a device a program), trip(...) gives that shard's term there
-    (sharded_trip_plain, or sharded_trip), and the terms come to the lanes'
-    device and are summed: the reference's three psums over the idx axis."""
-    home = w.lens2.device
-    lanes = _copier(w.preads, w.next_bad, w.lens2, w.col_off2)
-
-    def extend(b0, e0, pos, act):
-        at = _copier(b0, e0, pos, act)
-        b1 = e1 = mlen = torch.zeros_like(b0)
-        for p, (base, n_local) in enumerate(shards.bases):
-            didx = shards.local(p)
-            dev = didx.sa_cmp.device
-            tb, te, tm = trip(didx, base, n_local, *lanes(dev), *at(dev), k=k,
-                              ext_steps=ext_steps)
-            b1, e1, mlen = b1 + tb.to(home), e1 + te.to(home), mlen + tm.to(home)
-        return b1, e1, mlen
-
-    return extend
+    act) -> (b, e, mlen): the sum of trip_terms' shard terms, the
+    reference's three psums over the idx axis."""
+    terms = trip_terms(shards, w, trip, k=k, ext_steps=ext_steps)
+    return lambda b0, e0, pos, act: tuple(terms(b0, e0, pos, act).sum(0))
 
 
-def trip_loop(shards: ShardStack | ShardSet, w: WalkInputs, trip, *, k: int, H: int,
-              ext_steps: int, paired: bool) -> ScanHits:
-    """H + 1 lockstep trips of the sharded walk on the lanes' device, as the
-    reference's while_loop runs them (finished lanes masked; a trip with no
-    lane active changes nothing), each trip's extension through
-    trip_extension(shards, w, trip)."""
+def walk_tables(w: WalkInputs, paired: bool) -> WalkTables:
+    """The walk's lane-aligned tables, as the plain walks build them:
+    strand-paired lanes through anchor_tables (rc lanes [R/2, R)), explicit
+    lanes through the next-anchor table, all forward."""
     R = w.lens2.shape[0]
     if paired:
         db2, de2, anc2 = anchor_tables(w.bf, w.ef, w.br, w.er, w.anch_f, w.anch_rF)
@@ -702,8 +724,25 @@ def trip_loop(shards: ShardStack | ShardSet, w: WalkInputs, trip, *, k: int, H: 
     else:
         db2, de2, anc2 = w.bf, w.ef, next_anchor_table(w.anch_f)
         is_rc = torch.zeros(w.lens2.shape, dtype=torch.bool, device=w.lens2.device)
-    extend = trip_extension(shards, w, trip, k=k, ext_steps=ext_steps)
-    return _walk_plain(db2, de2, anc2, is_rc, w.lens2, extend, k, H)
+    return WalkTables(db2, de2, anc2, is_rc, w.lens2)
+
+
+def trip_loop(shards: ShardStack | ShardSet, w: WalkInputs, trip, advance, *, k: int, H: int,
+              ext_steps: int, paired: bool) -> ScanHits:
+    """H + 1 lockstep trips of the sharded walk on the lanes' device, as the
+    reference's while_loop runs them (finished lanes masked; a trip with no
+    lane active changes nothing): advance(tables, None, None) begins the
+    walk, and each trip is the shards' terms (trip_terms(shards, w, trip),
+    one reused (P, 3, R) buffer) and then advance(tables, state, terms).
+    The trip count is fixed, so the loop does not wait on the device."""
+    t = walk_tables(w, paired)
+    terms = trip_terms(shards, w, trip, k=k, ext_steps=ext_steps)
+    s = advance(t, None, None, k=k, H=H)
+    buf = None
+    for _ in range(H + 1):
+        buf = terms(s.b0, s.e0, s.posc, s.act, out=buf)
+        s = advance(t, s, buf, k=k, H=H)
+    return walk_hits(s)
 
 
 def sharded_walk_plain(shards: ShardStack | ShardSet, preads, next_bad, lens2, col_off2, bf,
@@ -716,8 +755,8 @@ def sharded_walk_plain(shards: ShardStack | ShardSet, preads, next_bad, lens2, c
     shards of the owners' results, rebased to global slots — 0 for a lane
     no shard owns."""
     w = WalkInputs(preads, next_bad, lens2, col_off2, bf, ef, br, er, anch_f, anch_rF)
-    return trip_loop(shards, w, sharded_trip_plain, k=k, H=H, ext_steps=ext_steps,
-                     paired=paired)
+    extend = trip_extension(shards, w, sharded_trip_plain, k=k, ext_steps=ext_steps)
+    return _walk_plain(*walk_tables(w, paired), extend, k, H)
 
 
 def _check_shard_table(bases) -> None:
@@ -807,15 +846,17 @@ def sharded_walk(shards: ShardStack | ShardSet, w: WalkInputs, *, k: int, H: int
     shards whose slot ranges ascend and do not overlap (as
     shard_quasi_index cuts them); the wrapper raises on any other table,
     with no fallback. Over a ShardSet (the shards on their own devices): the
-    H + 1 lockstep trips in eager PyTorch on the lanes' device, each trip's
-    extension one `sharded_trip` a shard on the shard's device, K10 on
-    CUDA tensors (the plain extension never runs on the card) and
-    sharded_trip_plain on CPU ones, the terms summed on the lanes' device
-    (trip_extension). The trip count is fixed, so the loop does not wait on
+    H + 1 lockstep trips on the lanes' device, each trip's extension one
+    `sharded_trip` a shard on the shard's device, K10 on CUDA tensors
+    (the plain extension never runs on the card) and
+    sharded_trip_plain on CPU ones, and the trip's home half one
+    `sharded_advance` on the lanes' device, K11 on CUDA tensors and
+    sharded_advance_plain on CPU ones (trip_loop: no eager element-wise op
+    inside a trip). The trip count is fixed, so the loop does not wait on
     the device."""
     if isinstance(shards, ShardSet):
-        return trip_loop(shards, w, sharded_trip, k=k, H=H, ext_steps=ext_steps,
-                         paired=paired)
+        return trip_loop(shards, w, sharded_trip, sharded_advance, k=k, H=H,
+                         ext_steps=ext_steps, paired=paired)
     stack = shards
     if all(t.device.type == "cpu" for t in (*w, stack.sa_cmp, stack.text2q)):
         return sharded_walk_plain(stack, *w, k=k, H=H, ext_steps=ext_steps, paired=paired)
@@ -845,14 +886,15 @@ def sharded_walk(shards: ShardStack | ShardSet, w: WalkInputs, *, k: int, H: int
 TRIP_INPUTS = ("preads", "next_bad", "lens2", "col_off2", "b0", "e0", "pos", "act")
 
 
-def _check_trip_inputs(didx: DeviceQuasiIndex, lanes: tuple, n_local: int) -> None:
+def _check_trip_inputs(didx: DeviceQuasiIndex, lanes: tuple, n_local: int, out=()) -> None:
     """Raise on what tqm_sharded_trip does not take: anything but contiguous
     int64 lane tensors (preads and next_bad (R, L), lens2, col_off2, b0,
     e0 and pos (R,)) and a bool (R,) act, an int32 (n, 3 + F) sa_cmp of
     whole 8-byte rows on an 8-byte boundary with F <= WALK_FUSED_WORDS_MAX
-    and an int32 (nw, 4) text2q, all on one CUDA device, and a true slot
-    count in [0, n]."""
-    named = {**dict(zip(TRIP_INPUTS, lanes)), "sa_cmp": didx.sa_cmp, "text2q": didx.text2q}
+    and an int32 (nw, 4) text2q, all on one CUDA device with the three
+    int64 (R,) outputs `out` where given, and a true slot count in [0, n]."""
+    named = {**dict(zip(TRIP_INPUTS, lanes)), "sa_cmp": didx.sa_cmp, "text2q": didx.text2q,
+             **{f"out_{f}": o for f, o in zip(("b", "e", "mlen"), out)}}
     dev = lanes[0].device
     for name, t in named.items():
         if t.device != dev:
@@ -865,9 +907,11 @@ def _check_trip_inputs(didx: DeviceQuasiIndex, lanes: tuple, n_local: int) -> No
             raise TypeError(f"sharded_trip: {name} must be {want}, got {t.dtype}")
     preads = lanes[0]
     if preads.dim() != 2 or preads.shape[0] == 0 or lanes[1].shape != preads.shape or any(
-            t.shape != preads.shape[:1] for t in lanes[2:]):
+            t.shape != preads.shape[:1] for t in (*lanes[2:], *out)):
         raise ValueError("sharded_trip: preads and next_bad must be (R, L) and the other lane "
-                         "inputs (R,), R >= 1")
+                         "inputs and the outputs (R,), R >= 1")
+    if out and len(out) != 3:
+        raise ValueError("sharded_trip: out must be three (R,) tensors (b, e, mlen)")
     if didx.sa_cmp.dim() != 2 or not didx.sa_cmp.shape[0] or didx.sa_cmp.shape[1] % 2 \
             or not 3 < didx.sa_cmp.shape[1] <= 3 + WALK_FUSED_WORDS_MAX \
             or didx.sa_cmp.data_ptr() % 8:
@@ -899,19 +943,23 @@ def sharded_trip_args(didx: DeviceQuasiIndex, base: int, n_local: int, lanes: tu
 
 
 def sharded_trip(didx: DeviceQuasiIndex, base: int, n_local: int, preads, next_bad, lens2,
-                 col_off2, b0, e0, pos, act, *, k: int, ext_steps: int) -> tuple:
+                 col_off2, b0, e0, pos, act, *, k: int, ext_steps: int, out=None) -> tuple:
     """One shard's term of one trip of the sharded walk (the split path's
-    extension): on CUDA tensors one launch of csrc/walk.cu's
+    extension) -> (b, e, mlen), into `out` (three contiguous (R,) int64
+    tensors on the lanes' device, e.g. a shard's slice of trip_terms'
+    buffer) when given: on CUDA tensors one launch of csrc/walk.cu's
     tqm_sharded_trip on the shard's device (K10; one thread a lane, every
     output byte written by the kernel; counter `sharded_trip`), on CPU
     tensors sharded_trip_plain. Raises, with no fallback, on inputs the
     kernel does not take and when the build or the launch fails."""
     lanes = (preads, next_bad, lens2, col_off2, b0, e0, pos, act)
-    if all(t.device.type == "cpu" for t in (*lanes, didx.sa_cmp, didx.text2q)):
-        return sharded_trip_plain(didx, base, n_local, *lanes, k=k, ext_steps=ext_steps)
-    _check_trip_inputs(didx, lanes, n_local)
+    if all(t.device.type == "cpu" for t in (*lanes, *(out or ()), didx.sa_cmp, didx.text2q)):
+        return sharded_trip_plain(didx, base, n_local, *lanes, k=k, ext_steps=ext_steps,
+                                  out=out)
+    _check_trip_inputs(didx, lanes, n_local, tuple(out or ()))
     dev = preads.device
-    out = tuple(torch.empty(lens2.shape, dtype=torch.int64, device=dev) for _ in range(3))
+    if out is None:
+        out = tuple(torch.empty(lens2.shape, dtype=torch.int64, device=dev) for _ in range(3))
     types, vals = sharded_trip_args(didx, base, n_local, lanes, out, k=k, ext_steps=ext_steps)
     fn = kernels.library("walk").tqm_sharded_trip
     fn.argtypes = types + [ctypes.c_void_p]
@@ -922,6 +970,114 @@ def sharded_trip(didx: DeviceQuasiIndex, base: int, n_local: int, preads, next_b
         raise RuntimeError(f"tqm_sharded_trip launch failed: CUDA error {rc}")
     kernels.LAUNCHES["sharded_trip"] += 1
     return out
+
+
+# ---- the trip's home half (K11) --------------------------------------------------
+
+
+def sharded_advance_plain(t: WalkTables, s: WalkState | None, terms, *, k: int,
+                          H: int) -> WalkState:
+    """The split walk's trip at home, in PyTorch: with no state, the walk's
+    begin (walk_begin: every lane at its first anchor, the first trip's
+    inputs); else the P shards' terms (P, 3, R) summed into the step's (b,
+    e, mlen), the reference's three psums (an active lane no shard owns gets
+    (0, 0, 0)), and walk_advance: the hit written, the NIP skip, the next
+    trip's inputs. The plain walks run the same two functions
+    (ops/mmp.py _walk_plain)."""
+    if s is None:
+        return walk_begin(t, k=k, H=H)
+    b1, e1, mlen = terms.sum(0)
+    return walk_advance(t, s, b1, e1, mlen, k=k, H=H)
+
+
+def _check_advance_inputs(t: WalkTables, s: WalkState, terms) -> None:
+    """Raise on what tqm_sharded_advance does not take: anything but
+    contiguous tables db2, de2, anc2 (R, S) int64 and lens2 (R,) int64 with
+    a bool (R,) is_rc; a state of (R,) int64 pos, n, posc, b0, e0, bool
+    trunc and act, and an (R, H, 4) int64 buf, H >= 1; and, after the
+    begin, int64 terms (P, 3, R) with 1 <= P <= SHARDED_WALK_MAX_SHARDS,
+    all on one CUDA device."""
+    named = {**t._asdict(), **s._asdict(), **({} if terms is None else {"terms": terms})}
+    dev = t.lens2.device
+    for name, x in named.items():
+        if x.device != dev:
+            raise ValueError(f"sharded_advance: {name} lies on {x.device}, lens2 on {dev}")
+        if not x.is_contiguous():
+            raise ValueError(f"sharded_advance: {name} must be contiguous")
+        want = torch.bool if name in ("is_rc", "trunc", "act") else torch.int64
+        if x.dtype != want:
+            raise TypeError(f"sharded_advance: {name} must be {want}, got {x.dtype}")
+    if t.db2.dim() != 2 or 0 in t.db2.shape or t.de2.shape != t.db2.shape \
+            or t.anc2.shape != t.db2.shape:
+        raise ValueError("sharded_advance: db2, de2 and anc2 must share one (R, S) shape, "
+                         "R, S >= 1")
+    R = t.db2.shape[0]
+    if any(x.shape != (R,) for x in (t.is_rc, t.lens2, *s[:3], *s[4:])):
+        raise ValueError("sharded_advance: is_rc, lens2 and the state's lane tensors must "
+                         "be (R,)")
+    if s.buf.dim() != 3 or s.buf.shape[0] != R or s.buf.shape[1] < 1 or s.buf.shape[2] != 4:
+        raise ValueError("sharded_advance: buf must be (R, H, 4), H >= 1")
+    if terms is not None and (terms.dim() != 3 or terms.shape[1:] != (3, R)
+                              or not 1 <= terms.shape[0] <= SHARDED_WALK_MAX_SHARDS):
+        raise ValueError("sharded_advance: terms must be (P, 3, R), 1 <= P <= "
+                         f"{SHARDED_WALK_MAX_SHARDS}")
+    if dev.type != "cuda":
+        raise ValueError(f"sharded_advance: no kernel for device {dev}")
+
+
+def sharded_advance_args(t: WalkTables, s: WalkState, terms, *, k: int) -> tuple[list, list]:
+    """tqm_sharded_advance's ctypes argument types and values up to its
+    stream (terms None: the begin, which reads no terms)."""
+    R, S = t.db2.shape
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    types = [vp, i32] + [vp] * 5 + [i64] + [i32] * 3 + [vp] * 8
+    vals = [None if terms is None else terms.data_ptr(),
+            0 if terms is None else terms.shape[0], *(x.data_ptr() for x in t), R, S, k,
+            s.buf.shape[1], *(x.data_ptr() for x in s)]
+    return types, vals
+
+
+def sharded_advance(t: WalkTables, s: WalkState | None, terms, *, k: int,
+                    H: int) -> WalkState:
+    """The split walk's trip at home (its begin with s None, else the trip
+    after its terms): on CUDA tensors one launch of csrc/walk.cu's
+    tqm_sharded_advance on the lanes' device (K11; one thread a lane;
+    counter `sharded_advance`), which begins into a new state (every byte,
+    the hit buffer's zeros included, written by the kernel) or advances `s`
+    IN PLACE and returns it; on CPU tensors sharded_advance_plain. Raises,
+    with no fallback, on inputs the kernel does not take and when the build
+    or the launch fails."""
+    if all(x.device.type == "cpu" for x in (*t, *(s or ()),
+                                            *(() if terms is None else (terms,)))):
+        return sharded_advance_plain(t, s, terms, k=k, H=H)
+    if (s is None) != (terms is None):
+        raise ValueError("sharded_advance: the begin takes neither a state nor terms, a trip "
+                         "both")
+    if s is None:
+        dev = t.lens2.device
+        R = t.lens2.shape[0]
+
+        def lane(dt):
+            return torch.empty((R,), dtype=dt, device=dev)
+
+        s = WalkState(pos=lane(torch.int64), n=lane(torch.int64), trunc=lane(torch.bool),
+                      buf=torch.empty((R, H, 4), dtype=torch.int64, device=dev),
+                      act=lane(torch.bool), posc=lane(torch.int64), b0=lane(torch.int64),
+                      e0=lane(torch.int64))
+    if s.buf.dim() == 3 and s.buf.shape[1] != H:
+        raise ValueError(f"sharded_advance: buf holds {s.buf.shape[1]} hit slots, H = {H}")
+    _check_advance_inputs(t, s, terms)
+    types, vals = sharded_advance_args(t, s, terms, k=k)
+    fn = kernels.library("walk").tqm_sharded_advance
+    fn.argtypes = types + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    dev = t.lens2.device
+    with torch.cuda.device(dev):
+        rc = fn(*vals, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"tqm_sharded_advance launch failed: CUDA error {rc}")
+    kernels.LAUNCHES["sharded_advance"] += 1
+    return s
 
 
 def scan_inputs(shards: ShardStack | ShardSet, st: EngineStatic, reads, lens, cfg: MapConfig):

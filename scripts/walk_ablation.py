@@ -4,6 +4,7 @@ simpler forms of itself on one CUDA card.
 
     python3 scripts/walk_ablation.py [--parent DIR] [--rounds 2] [--seed 0]
     python3 scripts/walk_ablation.py --k8 [--parent DIR] [--rounds 3] [--seed 0]
+    python3 scripts/walk_ablation.py --k10 [--parent DIR] [--rounds 3] [--seed 0]
 
 Builds walk.cu as it stands (`as_is`) and with a design item swapped in or
 out, each a text edit of the source that must apply exactly once:
@@ -67,6 +68,28 @@ pseudo_walk_plain, extend_packed); then all are timed warm and cold, in
 turn and in reverse turn for each round. The JSON line also carries nvcc's
 -Xptxas -v lines (registers, spills) for every anchor_walk_kernel
 instantiation of this walk.cu and the parent's.
+
+--k10 times one shard's trip of the split sharded walk (K10,
+tqm_sharded_trip) instead: walk.cu as it stands and, by text edits as
+above,
+
+  no_prefetch        without the owned lane's prefetch of its first row;
+  lanes64, lanes128  64 or 128 lanes a block (256 as it stands);
+  compacted          256-lane blocks that store their zeros first and
+                     extend a shared-memory list of their owned lanes on
+                     their first threads (tried, slower, not kept);
+
+and, with --parent DIR, that checkout's walk.cu (any walk.cu with the same tqm_sharded_trip
+entry, such as the one-thread-a-lane form this design replaced). On
+chip_smoke.py's world cut into its 4 shards, each uploaded on its own
+(split_idx=True), one data row's program (16,384 reads: 32,768 lanes)
+runs through the plain trip loop, which records each trip's inputs; every
+build is checked on 0xFF-filled outputs against sharded_trip_plain and
+timed at the program's first trip, its second (trip 1) and its first trip
+with no active lane, on each of the 4 shards, warm and cold, in turn and
+in reverse turn for each round. The JSON line carries the means over the
+shards a trip and build, and nvcc's -Xptxas -v lines for the
+sharded_trip_kernel instantiations of this walk.cu and the parent's.
 """
 
 from __future__ import annotations
@@ -301,6 +324,118 @@ K8_VARIANTS = {
 }
 
 
+# ---- forms of the sharded trip (--k10)
+
+def trip_lanes(n: int):  # K10's lanes a block (256 as it stands)
+    return ("constexpr int kTripLanes = 256;", "constexpr int kAdvanceLanes",
+            f"constexpr int kTripLanes = {n};\n")
+
+
+# the owned-lane prefetch of the first compared row left out
+NO_PREFETCH = (
+    "    if (lb < le) {  // the first compare's row",
+    "    extend_lane<kCount>(ix, preads + r * L, next_bad + r * L, len, off,",
+    "",
+)
+
+# blocks of 256 lanes that store their zeros first, compact their owned lanes
+# into a shared-memory list (a warp ballot, a prefix over the warps' counts)
+# and extend them on the block's first threads; a block with none exits
+# (tried, slower, not kept)
+COMPACTED = (
+    "// One shard's term of one trip of the sharded walk (K10, the split path;",
+    "// The split walk's trip at home (K11;",
+    """// n int64 zeros from p, stored by the block's threads together: 16 bytes a
+// store, neighbouring threads on neighbouring addresses, where p is 16-byte
+// aligned.
+__device__ __forceinline__ void zero_span(int64_t* p, int n) {
+  if ((reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+    longlong2* v = reinterpret_cast<longlong2*>(p);
+    for (int i = threadIdx.x; i < n / 2; i += blockDim.x) v[i] = make_longlong2(0, 0);
+    if ((n & 1) && threadIdx.x == 0) p[n - 1] = 0;
+  } else {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) p[i] = 0;
+  }
+}
+
+// One shard's term of one trip of the sharded walk (K10, the split path;
+// rapmap_tpu/parallel/sharded.py _sharded_scan_paired :583-600 and
+// _sharded_scan :433-451 on one idx shard, up to the psums): lane r is the
+// shard's when it is active and its GLOBAL b0 lies in [base, base +
+// n_local), n_local the true slot count, tested before the rebase; it
+// extends over the shard's rows at local slots (extend_lane, as K8 does on
+// the owner it finds) and writes (b + base, e + base, mlen), and every other
+// lane (0, 0, 0) without reading its row. A block of kTripLanes lanes writes
+// its zeros first, compacts its owned lanes into a list in lane order (a
+// warp's ballot, a prefix over the warps' popcounts) and extends them on its
+// first threads; a block that owns no lane exits after its stores. Every
+// output byte is written.
+template <bool kCount>
+__global__ void __launch_bounds__(kTripLanes) sharded_trip_kernel(
+    const int64_t* __restrict__ preads, const int64_t* __restrict__ next_bad,
+    const int64_t* __restrict__ lens2, const int64_t* __restrict__ col_off2,
+    const int64_t* __restrict__ b0, const int64_t* __restrict__ e0,
+    const int64_t* __restrict__ pos, const uint8_t* __restrict__ active, Index ix, int64_t base,
+    int64_t n_local, int64_t R, int L, int k, int steps, int W, int64_t* __restrict__ b_out,
+    int64_t* __restrict__ e_out, int64_t* __restrict__ mlen_out, Traffic tr) {
+  __shared__ int owned[kTripLanes];         // the owned lanes, offsets from r0, in lane order
+  __shared__ int64_t owned_lb[kTripLanes];  // their b0 - base
+  __shared__ int warp_owned[kTripLanes / 32];
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * kTripLanes;
+  const int nl = static_cast<int>(R - r0 < kTripLanes ? R - r0 : kTripLanes);
+  zero_span(b_out + r0, nl);
+  zero_span(e_out + r0, nl);
+  zero_span(mlen_out + r0, nl);
+  const int t = threadIdx.x;
+  int64_t lb = -1;
+  if (t < nl) {
+    touch<kCount>(tr, kActive, active + r0 + t, 1);
+    if (active[r0 + t] != 0) lb = load<kCount>(tr, kB0, b0 + r0 + t) - base;
+  }
+  const bool mine = lb >= 0 && lb < n_local;
+  const unsigned ballot = __ballot_sync(0xFFFFFFFFu, mine);
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  if (lane == 0) warp_owned[warp] = __popc(ballot);
+  __syncthreads();  // also orders the zero stores before the owned lanes' results
+  int before = 0, total = 0;
+  for (int w = 0; w < kTripLanes / 32; ++w) {
+    const int c = warp_owned[w];
+    before += w < warp ? c : 0;
+    total += c;
+  }
+  if (total == 0) return;  // the same total in every thread of the block
+  if (mine) {
+    const int i = before + __popc(ballot & ((1u << lane) - 1u));
+    owned[i] = t;
+    owned_lb[i] = lb;
+  }
+  __syncthreads();
+  if (t < total) {  // total <= kTripLanes: one owned lane a thread
+    const int64_t r = r0 + owned[t];
+    int64_t b, e, mlen;
+    extend_lane<kCount>(ix, preads + r * L, next_bad + r * L, load<kCount>(tr, kLens, lens2 + r),
+                        load<kCount>(tr, kColOff, col_off2 + r), owned_lb[t],
+                        clamp64(load<kCount>(tr, kE0, e0 + r) - base, 0, n_local),
+                        load<kCount>(tr, kPos, pos + r), true, k, steps, L, W, b, e, mlen, tr);
+    b_out[r] = b + base;
+    e_out[r] = e + base;
+    mlen_out[r] = mlen;
+  }
+}
+
+""",
+)
+
+K10_VARIANTS = {
+    "as_is": (),
+    "no_prefetch": (NO_PREFETCH,),
+    "lanes64": (trip_lanes(64),),
+    "lanes128": (trip_lanes(128),),
+    "compacted": (COMPACTED,),
+}
+
+
 def edit(src: str, edits) -> str:
     for start, end, text in edits:
         if src.count(start) != 1 or src.count(end) != 1:
@@ -331,8 +466,8 @@ def finish_builds(procs: dict, out: str) -> tuple[dict, dict]:
     return {n: ctypes.CDLL(os.path.join(out, f"{n}.so")) for n in procs}, logs
 
 
-def walk_registers(log: str) -> dict:
-    """ptxas's lines for each anchor_walk_kernel instantiation in an nvcc
+def walk_registers(log: str, kernel: str = "anchor_walk_kernel") -> dict:
+    """ptxas's lines for each instantiation of `kernel` in an nvcc
     -Xptxas -v log -> {kernel (demangled where cu++filt is found): "Used N
     registers, ...; ... spill stores, ... spill loads"}."""
     from rapmap_tpu_torch import kernels
@@ -341,7 +476,7 @@ def walk_registers(log: str) -> dict:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            cur = m.group(1) if "anchor_walk_kernel" in m.group(1) else None
+            cur = m.group(1) if kernel in m.group(1) else None
         elif cur and ("spill stores" in line or "Used " in line):
             found.setdefault(cur, []).append(line.split(":", 1)[-1].strip())
     names = list(found)
@@ -691,11 +826,108 @@ def main_k8(args, torch) -> int:
     return 0 if all(v["equal_plain"] for v in res.values()) else 1
 
 
+def main_k10(args, torch) -> int:
+    """One shard's trip of the split sharded walk (K10) as it stands, at
+    128 lanes a block, and the parent's (--k10)."""
+    import chip_smoke as cs
+    from rapmap_tpu_torch.config import MapConfig
+    from rapmap_tpu_torch.parallel import sharded
+
+    out = os.path.join(ROOT, "build", "ablation_k10")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(ROOT, "rapmap_tpu_torch", "csrc", "walk.cu")) as f:
+        src = f.read()
+    sources = {}
+    for name, edits in K10_VARIANTS.items():
+        sources[name] = os.path.join(out, f"{name}.cu")
+        with open(sources[name], "w") as f:
+            f.write(edit(src, edits))
+    if args.parent:
+        sources["parent"] = os.path.join(args.parent, "rapmap_tpu_torch", "csrc", "walk.cu")
+    procs = start_builds(sources, out, verbose=("as_is", "parent"))
+
+    work = os.path.join(ROOT, "build", "smoke")
+    os.makedirs(work, exist_ok=True)
+    idx, codes, lens, _, _ = cs.build_world(args.seed, 10_000, 262_144, work)
+    dev = torch.device("cuda")
+    arr, st, _, _ = cs.sharded_world(idx, dev)
+    (sset,) = sharded.upload_sharded(arr, [[dev] * cs.SHARDS], split_idx=True)
+    n = 262_144 // cs.BATCHES // 2  # a data row's program of sharded_path
+    r = torch.from_numpy(np.ascontiguousarray(codes[:n])).to(dev)
+    ln = torch.from_numpy(lens[:n].astype(np.int64)).to(dev)
+    w, kw = sharded.scan_inputs(sset, st, r, ln, MapConfig(k=cs.K))
+    saved = []  # (trip, shard, index, base, count, lane inputs), the plain loop's
+
+    def recorder(didx, base, n_local, *lanes, k, ext_steps, out=None):
+        trip, p = divmod(len(saved), cs.SHARDS)
+        saved.append((trip, p, didx, base, n_local, lanes[:4] + tuple(t.clone()
+                                                                     for t in lanes[4:])))
+        return sharded.sharded_trip_plain(didx, base, n_local, *lanes, k=k,
+                                          ext_steps=ext_steps, out=out)
+
+    sharded.trip_loop(sset, w, recorder, sharded.sharded_advance_plain, **kw)
+    active = [int(x[5][7].sum()) for x in saved[::cs.SHARDS]]
+    trips = {"first": 0, "trip1": 1, "empty": active.index(0)}
+    libs, logs = finish_builds(procs, out)
+    registers = {n: walk_registers(logs[n], "sharded_trip_kernel")
+                 for n in ("as_is", "parent") if n in logs}
+
+    k, steps = kw["k"], kw["ext_steps"]
+    shard_gos, res, sets = {}, {}, {}  # (trip, build): the 4 shards' launchers
+    for tname, trip in trips.items():
+        for t_, p, didx, base, n_local, lanes in saved:
+            if t_ != trip:
+                continue
+            want = sharded.sharded_trip_plain(didx, base, n_local, *lanes, k=k, ext_steps=steps)
+            outs = tuple((torch.empty(lanes[2].shape, dtype=torch.int64, device=dev), -1)
+                         for _ in range(3))
+            act, b0 = lanes[7], lanes[4]
+            sets[f"{tname}_s{p}"] = dict(trip=trip, shard=p, active=int(act.sum()), owned=int(
+                (act & (b0 - base >= 0) & (b0 - base < n_local)).sum()))
+            types, vals = sharded.sharded_trip_args(didx, base, n_local, lanes,
+                                                    [t for t, _ in outs], k=k, ext_steps=steps)
+            for name, lib in libs.items():
+                go = entry(lib, "tqm_sharded_trip", types, vals)
+                shard_gos.setdefault(f"{tname}_{name}", []).append(go)
+                res[f"{tname}_s{p}_{name}"] = checked(go, outs, lambda o: [t for t, _ in o],
+                                                      want)
+
+    # each (trip, build) timed over its 4 shards' launches, the mean a launch:
+    # warm 100 rounds of the 4 back to back, cold 50 with a 1 GiB fill before
+    # each launch; the pairs in turn, then in reverse turn
+    flush = torch.empty(1 << 28, dtype=torch.int32, device=dev)
+    means = {key: dict(warm_ms=[], cold_ms=[]) for key in shard_gos}
+    for rnd in range(args.rounds):
+        for key in list(shard_gos)[::-1] if rnd % 2 else list(shard_gos):
+            gos_ = shard_gos[key]
+
+            def warm():
+                for _ in range(100):
+                    for go in gos_:
+                        go()
+
+            def cold():
+                for _ in range(50):
+                    for go in gos_:
+                        flush.fill_(1)
+                        go()
+
+            means[key]["warm_ms"].append(kernel_ms(warm, "sharded_trip_kernel"))
+            means[key]["cold_ms"].append(kernel_ms(cold, "sharded_trip_kernel"))
+    print(json.dumps({"device": cs.nvidia_smi_line(), "lanes": int(w.lens2.shape[0]),
+                      "trips": trips, "active_lanes_by_trip": active, "sets": sets,
+                      "registers": registers, "mean_a_launch_over_shards": means,
+                      "checks": res}), flush=True)
+    return 0 if all(v["equal_plain"] for v in res.values()) else 1
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="checkout whose csrc/walk.cu to time beside this one")
     ap.add_argument("--k8", action="store_true", help="time the sharded walks (K8) and, with "
                     "--parent, every other build against the parent's")
+    ap.add_argument("--k10", action="store_true", help="time the split walk's sharded trip "
+                    "(K10) and, with --parent, the parent's")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -706,6 +938,8 @@ def main() -> int:
         print("walk_ablation: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    if args.k10:
+        return main_k10(args, torch)
     return main_k8(args, torch) if args.k8 else main_walk(args, torch)
 
 

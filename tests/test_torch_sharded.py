@@ -16,7 +16,13 @@ sharded_walk_plain, and the wrapper refuses shard tables the kernel cannot
 search before any launch. One trip's per-shard terms (sharded_trip_plain)
 sum to the walk's extension and to the replicated index's, and a scalar
 per-lane model of the sharded trip kernel (K10) equals each term; its
-wrapper refuses what the kernel does not take.
+wrapper refuses what the kernel does not take. The trip's home half (K11):
+ops/mmp.py walk_begin and walk_advance, which every plain walk now runs,
+give the old _walk_plain loop's state after every trip (a verbatim copy of
+it here) on seeded random lanes, as does a scalar per-lane model of K11;
+sharded_advance_plain over trip_terms' (P, 3, R) terms equals walk_advance
+over trip_extension at P = 1, 3, 4; and K11's wrapper refuses what the
+kernel does not take.
 
 tests/test_sharded.py::test_slot64_requires_x64 has no twin: it tests that
 the reference refuses slot64 while 64-bit JAX is off, a JAX switch the port
@@ -38,6 +44,8 @@ from rapmap_tpu_torch.index.format import index_from_reference
 from rapmap_tpu_torch.models.quasi import QuasiMapper, _host
 from rapmap_tpu_torch.ops.device_index import upload_index
 from rapmap_tpu_torch.ops.extend_packed import extend_packed
+from rapmap_tpu_torch.ops.gather import row_gather
+from rapmap_tpu_torch.ops.mmp import WalkTables, anchor_tables, next_anchor_table
 from rapmap_tpu_torch.parallel import sharded as psh
 from tests.test_device_parity import batch_of
 from tests.test_torch_pe import jax_cache_off  # noqa: F401
@@ -773,13 +781,15 @@ def test_sharded_trip_terms_sum_to_walk_extension(k8_world, n_idx, gap, paired):
     ("valid", ValueError, "no kernel for device"), ("act_int64", TypeError, "act must be"),
     ("b0_int32", TypeError, "b0 must be"), ("pos_on_cpu", ValueError, "pos lies on"),
     ("short_e0", ValueError, "lane inputs"), ("count_past_rows", ValueError, "true slot count"),
-    ("odd_rows", ValueError, "sa_cmp must be"),
+    ("odd_rows", ValueError, "sa_cmp must be"), ("valid_out", ValueError, "no kernel for device"),
+    ("out_int32", TypeError, "out_b must be"), ("short_out", ValueError, "the outputs"),
 ])
 def test_sharded_trip_wrapper_refuses(case, exc, match):
     """Off the CPU the trip's wrapper launches K10 or raises, before any
-    launch and with no fallback, on what the kernel does not take; valid
-    inputs reach the device check (meta tensors stand in for a device that
-    is not the CPU)."""
+    launch and with no fallback, on what the kernel does not take, its
+    outputs `out` (a shard's slice of the trip's (P, 3, R) buffer) included;
+    valid inputs reach the device check (meta tensors stand in for a device
+    that is not the CPU)."""
     R, L, n = 6, 20, 16
 
     def meta(*shape, dt=torch.int64, dev="meta"):
@@ -799,7 +809,269 @@ def test_sharded_trip_wrapper_refuses(case, exc, match):
         lanes["pos"] = meta(R, dev="cpu")
     elif case == "short_e0":
         lanes["e0"] = meta(R - 1)
+    out = {"valid_out": meta(3, R).unbind(0), "short_out": meta(3, R - 1).unbind(0),
+           "out_int32": meta(3, R, dt=torch.int32).unbind(0)}.get(case)
     kernels.reset_launches()
     with pytest.raises(exc, match=match):
-        psh.sharded_trip(didx, 100, n_local, *lanes.values(), k=11, ext_steps=5)
+        psh.sharded_trip(didx, 100, n_local, *lanes.values(), k=11, ext_steps=5, out=out)
     assert kernels.LAUNCHES["sharded_trip"] == 0
+
+
+# ---- the trip's home half (K11) and the factored walk --------------------------
+
+
+def old_walk_trips(t, extend, k, H):
+    """ops/mmp.py _walk_plain's loop as it stood before walk_begin and
+    walk_advance were factored out of it, verbatim but for its records:
+    each trip's extension inputs (b0, e0, posc, act) and the state after
+    the trip (pos, n, trunc, buf)."""
+    db2, de2, anc2, is_rc, lens2 = t
+    R, S = db2.shape
+    dev = db2.device
+
+    def at2(arr2d, col):
+        return row_gather(arr2d, col.clamp(0, S - 1)[:, None])[:, 0]
+
+    def next_anchor_pos(nxt):
+        col = torch.where(is_rc, lens2 - k - nxt, nxt)
+        v = at2(anc2, col)
+        fwd_next = torch.where(nxt < S, v, S)
+        rc_next = torch.where((col >= 0) & (v >= 0), lens2 - k - v, S)
+        return torch.where(is_rc, rc_next, fwd_next)
+
+    pos = next_anchor_pos(torch.zeros_like(lens2))
+    n = torch.zeros_like(lens2)
+    trunc = torch.zeros_like(is_rc)
+    buf = torch.zeros((R, H, 4), dtype=torch.int64, device=dev)
+    lane = torch.arange(R, device=dev)
+    records = []
+    for _ in range(H + 1):
+        act = (pos < S) & ~trunc
+        posc = pos.clamp(0, S - 1)
+        col = torch.where(is_rc, lens2 - k - posc, posc)
+        inputs = (at2(db2, col), at2(de2, col), posc, act)
+        b1, e1, mlen = extend(*inputs)
+        slot = n.clamp(0, H - 1)
+        overflow = act & (n >= H)
+        write = act & ~overflow
+        rows4 = torch.stack([posc, mlen, b1, e1], dim=-1)
+        buf[lane, slot] = torch.where(write[:, None], rows4, buf[lane, slot])
+        adv = (mlen - k + 1).clamp(min=1)
+        pos = torch.where(act, next_anchor_pos(posc + adv), pos)
+        n = n + write
+        trunc = trunc | overflow
+        records.append((inputs, (pos.clone(), n.clone(), trunc.clone(), buf.clone())))
+    return records
+
+
+class AdvanceLaneModel:
+    """csrc/walk.cu's sharded_advance_kernel (K11), lane by lane, on numpy
+    copies of a state it updates in place: a lane that is not active
+    returns before it reads anything else (an empty trip changes nothing);
+    an active lane sums its P terms, writes its hit at slot n or sets trunc,
+    takes the NIP skip through its next-anchor row, and writes the next
+    trip's inputs. With no terms, the begin: n = 0, no trunc, the hit
+    buffer zeroed, the first anchor."""
+
+    def __init__(self, t, k):
+        self.db2, self.de2, self.anc2, self.is_rc, self.lens2 = (x.numpy() for x in t)
+        self.S = self.db2.shape[1]
+        self.k = k
+
+    def next_anchor_pos(self, r, nxt):
+        S, k = self.S, self.k
+        rc, ln = bool(self.is_rc[r]), int(self.lens2[r])
+        col = ln - k - nxt if rc else nxt
+        v = int(self.anc2[r, clamp(col, 0, S - 1)])
+        if not rc:
+            return v if nxt < S else S
+        return ln - k - v if col >= 0 and v >= 0 else S
+
+    def run(self, s, terms):
+        st = {f: getattr(s, f).numpy().copy() for f in s._fields}
+        H = st["buf"].shape[1]
+        S, k = self.S, self.k
+        if terms is None:
+            st["buf"][:] = 0
+        for r in range(st["pos"].shape[0]):
+            tr = False
+            if terms is None:
+                p = self.next_anchor_pos(r, 0)
+                st["n"][r], st["trunc"][r] = 0, False
+            else:
+                if not st["act"][r]:
+                    continue
+                b1, e1, mlen = (int(terms[:, i, r].sum()) for i in range(3))
+                pc, nn = int(st["posc"][r]), int(st["n"][r])
+                tr = nn >= H
+                if tr:
+                    st["trunc"][r] = True
+                else:
+                    st["buf"][r, nn] = (pc, mlen, b1, e1)
+                    st["n"][r] = nn + 1
+                p = self.next_anchor_pos(r, pc + max(mlen - k + 1, 1))
+            st["pos"][r] = p
+            pc = clamp(p, 0, S - 1)
+            ln = int(self.lens2[r])
+            col = clamp(ln - k - pc if self.is_rc[r] else pc, 0, S - 1)
+            st["act"][r] = p < S and not tr
+            st["posc"][r] = pc
+            st["b0"][r], st["e0"][r] = self.db2[r, col], self.de2[r, col]
+        return st
+
+
+def random_lanes(rng, B, S, k, paired):
+    """Seeded random lanes over S columns -> WalkTables: read lengths from
+    below k (no window, a lane past S from the start) to S + k - 1, anchor
+    masks from empty to dense, intervals of any width (strand-paired: R =
+    2B lanes through anchor_tables; else R = B forward lanes)."""
+    R = 2 * B if paired else B
+    lens = rng.integers(k - 2, S + k, size=B)
+    cols = np.arange(S)[None, :]
+    dens = rng.choice([0.0, 0.2, 0.6, 1.0], size=(B, 1))
+    live = cols + k <= lens[:, None]
+    anch_f, anch_r = ((rng.random((B, S)) < dens) & live for _ in range(2))
+    bf, br = (rng.integers(0, 1000, size=(B, S)) for _ in range(2))
+    ef, er = bf + rng.integers(1, 4, size=(B, S)), br + rng.integers(1, 4, size=(B, S))
+    tt = [torch.from_numpy(a) for a in (bf, ef, br, er, anch_f, anch_r)]
+    lens2 = torch.from_numpy(np.concatenate([lens, lens]) if paired else lens)
+    if paired:
+        db2, de2, anc2 = anchor_tables(*tt)
+    else:
+        db2, de2, anc2 = tt[0], tt[1], next_anchor_table(tt[4])
+    return WalkTables(db2, de2, anc2, torch.arange(R) >= (B if paired else R), lens2)
+
+
+@pytest.mark.parametrize("paired,H,P", [(True, 2, 1), (True, 3, 4), (False, 2, 3)],
+                         ids=["paired_H2_P1", "paired_H3_P4", "lanes_H2_P3"])
+def test_walk_begin_advance_equal_old_walk_trip(paired, H, P):
+    """walk_begin and walk_advance, and sharded_advance_plain over P random
+    shard terms a trip, give exactly the old _walk_plain loop's extension
+    inputs and state after every trip, tolerance zero, on seeded random
+    lanes: forward and rc lanes, lanes past S from the start, lanes that
+    fill their H slots (overflow, then trunc), active lanes no shard owns
+    ((0, 0, 0) in every term) and lanes the NIP skip takes past S. The
+    scalar model of K11 (AdvanceLaneModel) gives the same state on every
+    trip and at the begin; the wrapper takes the plain version on CPU
+    tensors, with no launch."""
+    rng = np.random.default_rng(1400 + H + P)
+    k, S = 5, 12
+    t = random_lanes(rng, 40, S, k, paired)
+    R = t.lens2.shape[0]
+    terms = []
+    for _ in range(H + 1):
+        owner = rng.integers(-1, P, size=R)  # -1: no shard owns the lane
+        tm = np.zeros((P, 3, R), np.int64)
+        for r in np.flatnonzero(owner >= 0):
+            b = int(rng.integers(0, 900))
+            tm[owner[r], :, r] = (b, b + int(rng.integers(1, 3)), k + int(rng.integers(0, 8)))
+        terms.append(torch.from_numpy(tm))
+    trips = iter(terms)
+    old = old_walk_trips(t, lambda b0, e0, pos, act: tuple(next(trips).sum(0)), k, H)
+    model = AdvanceLaneModel(t, k)
+    kernels.reset_launches()
+    s = psh.sharded_advance(t, None, None, k=k, H=H)
+    assert all(np.array_equal(v, getattr(s, f).numpy()) for f, v in model.run(s, None).items())
+    seen = dict(overflow=0, unowned=0, past_s=0)
+    for (inputs, state), tm in zip(old, terms):
+        assert all(torch.equal(a, b) for a, b in zip(inputs, (s.b0, s.e0, s.posc, s.act)))
+        seen["overflow"] += int((s.act & (s.n >= H)).sum())
+        seen["unowned"] += int((s.act & (tm.sum((0, 1)) == 0)).sum())
+        want = model.run(s, tm.numpy())
+        nxt = psh.walk_advance(t, s._replace(buf=s.buf.clone()), *tm.sum(0), k=k, H=H)
+        s = psh.sharded_advance(t, s, tm, k=k, H=H)
+        assert all(torch.equal(a, b) for a, b in zip(state, s[:4]))
+        assert all(torch.equal(a, b) for a, b in zip(s, nxt))
+        assert all(np.array_equal(v, getattr(s, f).numpy()) for f, v in want.items())
+    seen["past_s"] = int((s.pos >= S).sum())
+    assert kernels.LAUNCHES["sharded_advance"] == 0
+    assert all(seen.values()) and bool(s.trunc.any()), seen
+
+
+@pytest.mark.parametrize("n_idx,gap,paired", [(1, False, True), (3, True, True), (4, False, False)],
+                         ids=["P1_paired", "P3_shard1_gap_paired", "P4_lanes"])
+def test_sharded_advance_sums_terms_as_trip_extension(k8_world, n_idx, gap, paired):
+    """The split walk trip by trip on the CPU: trip_terms' (P, 3, R) terms,
+    each shard over its own upload, sum to the stack's trip_extension, and
+    sharded_advance_plain of them equals walk_advance of that extension on
+    every trip (P = 1, 3, 4; shard 1 without slots leaves active lanes no
+    shard owns); the loop's hits equal sharded_walk_plain's, and no kernel
+    launches."""
+    pidx, codes, lens = k8_world
+    kw = dict(k=pidx.k, max_hits_per_strand=4, expand_budget=128, max_out=32)
+    arr, st = psh.shard_quasi_index(pidx, n_idx, canonical=paired)
+    if gap:
+        arr = arr._replace(slot_base=arr.slot_base.copy())
+        arr.slot_base[1, 1] = 0
+    (stack,) = psh.upload_sharded(arr, [["cpu"] * n_idx])
+    (sset,) = psh.upload_sharded(arr, [["cpu"] * n_idx], split_idx=True)
+    w, wkw = psh.scan_inputs(stack, st, *_tensors(codes, lens), MapConfig(**kw))
+    k, H, steps = wkw["k"], wkw["H"], wkw["ext_steps"]
+    t = psh.walk_tables(w, paired)
+    terms = psh.trip_terms(sset, w, psh.sharded_trip, k=k, ext_steps=steps)
+    ext = psh.trip_extension(stack, w, psh.sharded_trip_plain, k=k, ext_steps=steps)
+    kernels.reset_launches()
+    s = psh.sharded_advance_plain(t, None, None, k=k, H=H)
+    unowned = 0
+    for _ in range(H + 1):
+        tm = terms(s.b0, s.e0, s.posc, s.act)
+        assert tm.shape == (n_idx, 3, t.lens2.shape[0])
+        e = ext(s.b0, s.e0, s.posc, s.act)
+        assert all(torch.equal(a, b) for a, b in zip(tm.sum(0), e))
+        unowned += int((s.act & (e[2] == 0)).sum())
+        want = psh.walk_advance(t, s._replace(buf=s.buf.clone()), *e, k=k, H=H)
+        s = psh.sharded_advance_plain(t, s, tm, k=k, H=H)
+        assert all(torch.equal(a, b) for a, b in zip(s, want))
+    assert kernels.LAUNCHES["sharded_trip"] + kernels.LAUNCHES["sharded_advance"] == 0
+    plain = psh.sharded_walk_plain(stack, *w, **wkw)
+    assert all(torch.equal(a, b) for a, b in zip(psh.walk_hits(s), plain))
+    assert (unowned > 0) == gap and int(s.n.sum()) > 0
+
+
+@pytest.mark.parametrize("case, exc, match", [
+    ("valid", ValueError, "no kernel for device"), ("begin", ValueError, "no kernel for device"),
+    ("state_without_terms", ValueError, "the begin takes"),
+    ("trunc_int64", TypeError, "trunc must be"), ("db2_int32", TypeError, "db2 must be"),
+    ("pos_on_cpu", ValueError, "pos lies on"), ("strided_anc2", ValueError, "anc2 must be cont"),
+    ("short_b0", ValueError, "lane tensors"), ("buf_other_H", ValueError, "hit slots"),
+    ("terms_other_R", ValueError, "terms must be"), ("too_many_shards", ValueError, "terms must"),
+])
+def test_sharded_advance_wrapper_refuses(case, exc, match):
+    """Off the CPU the trip's home half launches K11 or raises, before any
+    launch and with no fallback, on what the kernel does not take; valid
+    inputs, a trip's and the begin's, reach the device check (meta tensors
+    stand in for a device that is not the CPU)."""
+    R, S, H = 6, 9, 4
+
+    def meta(*shape, dt=torch.int64, dev="meta"):
+        return torch.empty(shape, dtype=dt, device=dev)
+
+    t = dict(db2=meta(R, S), de2=meta(R, S), anc2=meta(R, S), is_rc=meta(R, dt=torch.bool),
+             lens2=meta(R))
+    s = dict(pos=meta(R), n=meta(R), trunc=meta(R, dt=torch.bool), buf=meta(R, H, 4),
+             act=meta(R, dt=torch.bool), posc=meta(R), b0=meta(R), e0=meta(R))
+    terms = meta(3, 3, R)
+    if case == "trunc_int64":
+        s["trunc"] = meta(R)
+    elif case == "db2_int32":
+        t["db2"] = meta(R, S, dt=torch.int32)
+    elif case == "pos_on_cpu":
+        s["pos"] = meta(R, dev="cpu")
+    elif case == "strided_anc2":
+        t["anc2"] = meta(S, R).t()
+    elif case == "short_b0":
+        s["b0"] = meta(R - 1)
+    elif case == "buf_other_H":
+        s["buf"] = meta(R, H + 1, 4)
+    elif case == "terms_other_R":
+        terms = meta(3, 3, R + 1)
+    elif case == "too_many_shards":
+        terms = meta(psh.SHARDED_WALK_MAX_SHARDS + 1, 3, R)
+    elif case == "state_without_terms":
+        terms = None
+    state = None if case == "begin" else psh.WalkState(**s)
+    kernels.reset_launches()
+    with pytest.raises(exc, match=match):
+        psh.sharded_advance(psh.WalkTables(**t), state, None if case == "begin" else terms,
+                            k=3, H=H)
+    assert kernels.LAUNCHES["sharded_advance"] == 0
