@@ -56,7 +56,9 @@ pseudo oracle), 32,768 pairs in unchunked batches of 4,096 (pseudo_pe_path,
 explicit lanes) and in the big-occ layout, both equal to pseudo_path's, and
 the command line's pseudomap, single-end and paired-end, on the card and on
 the CPU (SAM equal apart from @PG). Then the host-staged engine and the
-compact artifacts (see phase_anchor_kernel, phase_artifacts, phase_staged).
+compact artifacts (see phase_anchor_kernel, phase_artifacts, phase_staged),
+the int64-SA layout on the staged engine and the genome-scale script at
+0.02 Gbase (phase_staged_bigsa).
 Then data parallel and the SA-sharded engine: two replicas on the card
 (parallel/dp.py) against the single-device program on a batch of reads and
 one of pairs (dp_path, dp_pe_path); the sharded walk (csrc/walk.cu's
@@ -3369,6 +3371,97 @@ def phase_staged(dev, idx, midx, cfg, codes, lens, B: int, refs: dict, pidx, pcf
     return launches
 
 
+def phase_staged_bigsa(dev, cfg, work: str, B: int, n_txps: int, seed: int, cuda: bool,
+                       force_cpu: bool, cli_bs: int) -> dict:
+    """The int64-SA layout on the host-staged engine: a second quasi index
+    of the world's first n_txps transcripts built with big_sa=True (its SA
+    int64), and the default int32 one of the same FASTA; one batch of B
+    reads sampled from them mapped staged over STAGED_SHARDS shards on both
+    (staged_bigsa_path, staged_bigsa_int32_twin), each equal to the
+    replicated engine on the int32 index; the command line's `quasimap
+    --engine staged` on the big-SA index (cli_bigsa_staged), its SAM equal
+    to the int32 index's replicated SAM apart from @PG; then
+    scripts/genome_scale_torch.py as a process at 0.02 Gbase (--big-sa, 4
+    shards, its own reads and oracle sample), whose JSON line is this
+    phase's record -> launch counts by path."""
+    import torch
+
+    from rapmap_tpu_torch.index.builder import build_quasi_index
+    from rapmap_tpu_torch.parallel.staged import StagedQuasiMapper
+
+    t0 = time.time()
+    fa = os.path.join(work, "bigsa.fa")
+    with open(os.path.join(work, "txome.fa")) as f, open(fa, "w") as g:
+        for i, line in enumerate(f):
+            if i >= 2 * n_txps:
+                break
+            g.write(line)
+    big_dir, small_dir = os.path.join(work, "bigsa_idx"), os.path.join(work, "int32_idx")
+    big = build_quasi_index(fa, big_dir, k=K, big_sa=True)
+    small = build_quasi_index(fa, small_dir, k=K)
+    build_s = time.time() - t0
+    dtypes = (str(np.asarray(big.sa).dtype), str(np.asarray(small.sa).dtype))
+    if dtypes != ("int64", "int32") or not np.array_equal(big.sa, small.sa):
+        raise RuntimeError(f"staged_bigsa_path: SA layouts {dtypes}, or the two SAs differ")
+    codes, truth = sample_reads(small, np.random.default_rng(seed + 40), B, READ_LEN, 0.01)
+    lens = np.full(B, READ_LEN, np.int32)
+    from rapmap_tpu_torch.models.quasi import QuasiMapper
+
+    rep = QuasiMapper(small, cfg, device=dev)
+    want = rep.fetch(rep.map_se_async(codes, lens))
+    del rep
+    if cuda:
+        torch.cuda.empty_cache()
+    launches = {}
+    for phase, ix, kind in (("staged_bigsa_path", big, "quasi, int64 SA"),
+                            ("staged_bigsa_int32_twin", small, "quasi, int32 SA")):
+        sq = StagedQuasiMapper(ix, cfg, batch=B, read_len=READ_LEN, n_shards=STAGED_SHARDS,
+                               device=dev)
+        rec = staged_run(phase, sq, [("se", codes, lens)], [want], cuda, index=kind,
+                         sa_dtype=str(np.asarray(ix.sa).dtype), txps=n_txps,
+                         index_build_s=build_s, map_rate=want.counters["reads_mapped"] / B)
+        launches[phase] = rec["launches"]
+        if cuda and rec["launches"]["extend_packed_anchors"] < STAGED_SHARDS:
+            raise RuntimeError(f"{phase}: kernel launches {rec['launches']}")
+        del sq
+    fq = write_fastq(os.path.join(work, "bigsa.fq"), codes[: 2 * cli_bs], truth)
+    rep_sam, st_sam = os.path.join(work, "bigsa_int32_rep.sam"), os.path.join(work, "bigsa.sam")
+    run_cli("cli_bigsa_int32_replicated", ["-i", small_dir, "-r", fq, "-o", rep_sam,
+                                           "--engine", "replicated"], work, force_cpu)
+    r = run_cli("cli_bigsa_staged", ["-i", big_dir, "-r", fq, "-o", st_sam, "--engine",
+                                     "staged"], work, force_cpu)
+    launches["cli_bigsa_staged"] = r["launches"]
+    same = sam_body(st_sam) == sam_body(rep_sam)
+    emit("cli_bigsa_staged_checks", sam_equals_int32_replicated=same)
+    if not same or (cuda and not r["launches"]["extend_packed_anchors"]):
+        raise RuntimeError("cli_bigsa_staged: SAM differs from the int32 index's replicated "
+                           f"SAM, or no kernel launched ({r['launches']})")
+    del big, small
+
+    # the genome-scale script as a process at a size the smoke affords
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                          "genome_scale_torch.py")
+    size = (["--gbase", "0.02", "--reads", "8192", "--batch", "8192", "--oracle-sample", "512"]
+            if cuda else ["--gbase", "0.001", "--reads", "512", "--batch", "512",
+                          "--oracle-sample", "64", "--device", "cpu"])
+    argv = [sys.executable, script, *size, "--allow-small", "--big-sa", "--shards", "4",
+            "--workdir", os.path.join(work, "genome")]
+    t0 = time.time()
+    out = subprocess.run(argv, capture_output=True, text=True, timeout=600)
+    wall = time.time() - t0
+    lines = out.stdout.strip().splitlines()
+    rec = json.loads(lines[-1]) if out.returncode == 0 and lines else None
+    emit("genome_scale_script", argv=argv[2:], rc=out.returncode, wall_s=wall, record=rec,
+         stderr_tail=None if rec else out.stderr[-3000:])
+    n_or = rec and rec["oracle_parity"].split("/")
+    if rec is None or n_or[0] != n_or[1] or not rec["every_shard_swept"] or (
+            cuda and rec["launches"]["extend_packed_anchors"] < 4):
+        raise RuntimeError("genome_scale_script: the run failed, its oracle parity is not "
+                           "full, or a shard was not swept through K9")
+    launches["genome_scale_script"] = rec["launches"]
+    return launches
+
+
 def head_of(path: str, n: int) -> list[str]:
     """A SAM file's lines without @PG, of its first n reads (pairs) only:
     read names start r<i>: or p<i>:."""
@@ -4251,6 +4344,11 @@ def main() -> int:
                                  "cli_pe_staged_default")
         if cuda and quasi_staged != bool(r["launches"]["extend_packed_anchors"]):
             raise RuntimeError(f"{phase}: kernel launches {r['launches']}")
+    # the int64-SA layout on the staged engine, and the genome-scale script
+    if cuda:
+        torch.cuda.empty_cache()
+    staged_cli.update(phase_staged_bigsa(dev, cfg, work, B, min(2000, args.txps), args.seed,
+                                         cuda, force_cpu, cli_bs))
     staged_path_launches = {**staged_launches, **staged_cli}
 
     # ---- data parallel, the SA-sharded engine, two command-line ranks -------

@@ -83,13 +83,27 @@ def _build_sa(text: np.ndarray, n_text: int) -> np.ndarray:
     return suffix_array_numpy(text[:n_text])
 
 
-def _sa_txp_of(sa: np.ndarray, txp_offsets: np.ndarray, txp_lens: np.ndarray) -> np.ndarray:
-    # transcript t owns global positions [off_t, off_t + len_t]  (incl. its '$');
-    # materialize pos->txp once and gather — one O(1) load per SA slot instead
-    # of a binary search over the offsets per slot
+def sa_txp_tpos(sa: np.ndarray, txp_offsets: np.ndarray, txp_lens: np.ndarray,
+                chunk: int = 1 << 26) -> tuple[np.ndarray, np.ndarray]:
+    """(sa_txp, sa_tpos) int32: each SA slot's transcript and its position in
+    it. Transcript t owns global positions [off_t, off_t + len_t] (incl. its
+    '$'); a pos->txp map is materialized once and gathered, one O(1) load a
+    slot instead of a binary search over the offsets. Both come out in
+    chunks of slots, so no int64 temporary spans the SA (one would take 17.6
+    GB at 2.2e9 slots), and the pos->txp map is gone before sa_tpos is
+    allocated: the peak is the two results' bytes."""
     spans = txp_lens.astype(np.int64) + 1
     pos2txp = np.repeat(np.arange(len(txp_lens), dtype=np.int32), spans)
-    return pos2txp[np.asarray(sa)]
+    sa = np.asarray(sa)
+    sa_txp = np.empty(len(sa), np.int32)
+    for s in range(0, len(sa), chunk):
+        sa_txp[s : s + chunk] = pos2txp[sa[s : s + chunk]]
+    del pos2txp
+    off = np.asarray(txp_offsets, dtype=np.int64)
+    sa_tpos = np.empty(len(sa), np.int32)
+    for s in range(0, len(sa), chunk):
+        sa_tpos[s : s + chunk] = sa[s : s + chunk] - off[sa_txp[s : s + chunk]]
+    return sa_txp, sa_tpos
 
 
 def build_quasi_index(
@@ -139,14 +153,15 @@ def build_quasi_index(
     th_sa.join()
     if "exc" in sa_box:
         raise sa_box["exc"]
-    sa = sa_box["sa"]
+    sa = sa_box.pop("sa")  # the box must not keep a second SA alive
     if big_sa:
-        sa = sa.astype(np.int64)
+        sa = sa.astype(np.int64, copy=False)
     log.info("suffix array + text pack built (%.1fs, overlapped)", time.time() - t0)
     t0 = time.time()
     khi, klo, kb, ke = build_kmer_table(
         text[:n_text], sa, k, packed_smask=(text2b, smask2b)
     )
+    del smask2b
     log.info("k-mer table: %d distinct %d-mers (%.1fs)", len(kb), k, time.time() - t0)
     t0 = time.time()
     # canonical-class CHD perfect hash (BooPHF role): the device resolves
@@ -178,12 +193,7 @@ def build_quasi_index(
         nk = max(1, len(kb))
         prefix_bases = max(4, min(k, 12, _math.ceil(_math.log(nk, 4)) + 1))
     lut = build_prefix_lut(khi, klo, k, prefix_bases)
-    sa_txp = _sa_txp_of(sa, offsets, lens)
-    sa_np = np.asarray(sa)
-    if sa_np.dtype == np.int32:  # offsets fit int32 whenever the SA does
-        sa_tpos = sa_np - offsets.astype(np.int32)[sa_txp]
-    else:
-        sa_tpos = (sa_np - offsets[sa_txp]).astype(np.int32)
+    sa_txp, sa_tpos = sa_txp_tpos(sa, offsets, lens)
     log.info("lut/pack/sa_txp derived (%.1fs)", time.time() - t0)
     t0 = time.time()
     pre_hashes: dict = {}

@@ -304,21 +304,26 @@ def save_core_index(idx: QuasiIndex, outdir: str,
     load and checked against this header's content hashes, which are taken
     here of the full index's arrays. Returns {"bytes": total, "per_array":
     {name: bytes}}."""
-    from numpy.lib.format import open_memmap
+    from numpy.lib.format import dtype_to_descr, write_array_header_1_0
 
     os.makedirs(outdir, exist_ok=True)
     sa = np.asarray(idx.sa)
-    sa_stored_dtype = np.uint32 if len(idx.text) < 2**32 else np.int64
+    sa_stored_dtype = np.dtype(np.uint32 if len(idx.text) < 2**32 else np.int64)
     stored = ["text", "sa", "txp_offsets", "txp_lens"]
 
-    out = open_memmap(os.path.join(outdir, "sa.npy"), mode="w+",
-                      dtype=sa_stored_dtype, shape=(len(sa),))
-    for i in range(0, len(sa), chunk_rows):
-        j = min(i + chunk_rows, len(sa))
-        out[i:j] = sa[i:j].astype(sa_stored_dtype, copy=False)
-    out.flush()
-    hashes = {"sa_stored": _sha(np.asarray(out))}
-    del out
+    # the narrowed SA is written and hashed a chunk at a time through plain
+    # file writes: a memory-mapped output's dirty pages (8.8 GB at 2.2e9
+    # slots) count against a host's memory limit on top of the index
+    h = hashlib.sha256()
+    with open(os.path.join(outdir, "sa.npy"), "wb") as f:
+        write_array_header_1_0(f, {"descr": dtype_to_descr(sa_stored_dtype),
+                                   "fortran_order": False, "shape": (len(sa),)})
+        for i in range(0, len(sa), chunk_rows):
+            part = memoryview(np.ascontiguousarray(
+                sa[i : i + chunk_rows].astype(sa_stored_dtype, copy=False))).cast("B")
+            f.write(part)
+            h.update(part)
+    hashes = {"sa_stored": h.hexdigest()[:16]}
 
     for name in ("text", "txp_offsets", "txp_lens"):
         arr = np.asarray(getattr(idx, name))
@@ -373,7 +378,7 @@ def _load_core_index(indir: str, header: dict, verify: bool = True) -> QuasiInde
     {text, sa} and (verify=True, the default: the rebuild's correctness is
     the point) check every derived array against the header's content
     hashes from save time."""
-    from rapmap_tpu_torch.index.builder import _sa_txp_of
+    from rapmap_tpu_torch.index.builder import sa_txp_tpos
     from rapmap_tpu_torch.index.kmer_table import (
         build_kmer_table, build_prefix_lut, pack_text_2bit,
     )
@@ -387,6 +392,7 @@ def _load_core_index(indir: str, header: dict, verify: bool = True) -> QuasiInde
                 raise ValueError(f"core index array {name} failed content-hash validation")
     sa_dtype = np.int64 if header["big_sa"] else np.int32
     sa = np.asarray(sa_stored).astype(sa_dtype, copy=False)
+    del sa_stored  # a widened copy drops the mapping (8.8 GB at 2.2e9 slots)
     offsets = np.load(os.path.join(indir, "txp_offsets.npy"))
     lens = np.load(os.path.join(indir, "txp_lens.npy"))
     n_text, k = header["n_text"], header["k"]
@@ -397,11 +403,7 @@ def _load_core_index(indir: str, header: dict, verify: bool = True) -> QuasiInde
         text_arr[:n_text], sa, k, packed_smask=(text2b, smask2b)
     )
     lut = build_prefix_lut(khi, klo, k, header["prefix_bases"])
-    sa_txp = _sa_txp_of(sa, offsets, lens)
-    if sa.dtype == np.int32:
-        sa_tpos = sa - offsets.astype(np.int32)[sa_txp]
-    else:
-        sa_tpos = (sa - offsets[sa_txp]).astype(np.int32)
+    sa_txp, sa_tpos = sa_txp_tpos(sa, offsets, lens)
     if verify:
         derived = {
             "sa": sa, "text2b": text2b, "sa_txp": sa_txp, "sa_tpos": sa_tpos,

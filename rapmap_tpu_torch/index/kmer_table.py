@@ -94,27 +94,34 @@ def build_kmer_table(
     return hi, lo, kb.astype(slot_dt), ke.astype(slot_dt)
 
 
-def build_prefix_lut(kmer_hi: np.ndarray, kmer_lo: np.ndarray, k: int, prefix_bases: int) -> np.ndarray:
+def build_prefix_lut(kmer_hi: np.ndarray, kmer_lo: np.ndarray, k: int, prefix_bases: int,
+                     chunk: int = 1 << 26) -> np.ndarray:
     """prefix_lut[v] = first k-mer-table row whose first-p-bases value >= v.
 
     len = 4^p + 1; bucket for prefix v is rows [lut[v], lut[v+1]).
     """
     p = prefix_bases
     sh = 2 * (k - p)
-    # one pass into a single int64 buffer (bincount wants intp; feeding it
-    # uint32 triggers a pathologically slow cast path on this host), avoiding
-    # chained big temporaries — large fresh allocations fault erratically here
-    pref = np.empty(len(kmer_hi), dtype=np.int64)
-    if sh >= 32:
-        # prefix lives entirely in the hi word — skip the uint64 key build
-        np.right_shift(kmer_hi, np.uint32(sh - 32), out=pref, casting="unsafe")
-    else:
-        key = (kmer_hi.astype(np.uint64) << np.uint64(32)) | kmer_lo.astype(np.uint64)
-        np.right_shift(key, np.uint64(sh), out=pref, casting="unsafe")
     # the table is key-sorted, so lut[v] = #rows with prefix < v: one counting
-    # pass + cumsum instead of 4^p binary searches over the table
+    # pass + cumsum instead of 4^p binary searches over the table. The
+    # prefixes go into one int64 buffer a chunk of rows (bincount wants intp;
+    # feeding it uint32 triggers a pathologically slow cast path), so no
+    # temporary spans the table (one would take 17.6 GB at 2.2e9 k-mers).
+    counts = np.zeros(4**p, dtype=np.int64)
+    pref = np.empty(min(chunk, len(kmer_hi)), dtype=np.int64)
+    for s in range(0, len(kmer_hi), chunk):
+        hi = kmer_hi[s : s + chunk]
+        out = pref[: len(hi)]
+        if sh >= 32:
+            # prefix lives entirely in the hi word — skip the uint64 key build
+            np.right_shift(hi, np.uint32(sh - 32), out=out, casting="unsafe")
+        else:
+            key = (hi.astype(np.uint64) << np.uint64(32)) | kmer_lo[s : s + chunk].astype(
+                np.uint64)
+            np.right_shift(key, np.uint64(sh), out=out, casting="unsafe")
+        counts += np.bincount(out, minlength=4**p)
     lut = np.zeros(4**p + 1, dtype=np.int64)
-    np.cumsum(np.bincount(pref, minlength=4**p), out=lut[1:])
+    np.cumsum(counts, out=lut[1:])
     # LUT values are k-mer table ROWS; keep int64 when the table can exceed
     # 2^31 rows (genome-scale bigSA indexes)
     return lut.astype(np.int32 if len(kmer_hi) < 2**31 else np.int64)

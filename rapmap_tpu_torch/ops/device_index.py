@@ -125,9 +125,11 @@ def sa_cmp_rows(sa, tend, k: int, t2b: np.ndarray) -> np.ndarray:
     gpk = np.asarray(sa, dtype=np.int64) + k
     wi = gpk >> 4
     sub = (gpk & 15).astype(np.uint32)
-    t2p = np.concatenate(
-        [np.asarray(t2b, dtype=np.uint32), np.zeros(SA_CMP_WORDS + 2, np.uint32)]
-    )
+    # words past the packed text read as 0; the pad is copied on only when a
+    # row reaches past it (a text's own zero tail usually covers the rows)
+    t2p = np.asarray(t2b, dtype=np.uint32)
+    if len(wi) and int(wi.max()) + SA_CMP_WORDS + 1 >= len(t2p):
+        t2p = np.concatenate([t2p, np.zeros(SA_CMP_WORDS + 2, np.uint32)])
     sh = sub << 1
     sh2 = (np.uint32(32) - sh) % np.uint32(32)
     cols = [base[:, 0], base[:, 1], base[:, 2]]

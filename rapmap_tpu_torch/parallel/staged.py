@@ -56,10 +56,19 @@ log = logging.getLogger("tqm.staged")
 # the tests force it tiny so that every shard array goes up in pieces)
 _MAX_XFER = int(os.environ.get("TQM_STAGED_XFER_MB", "256")) << 20
 
-# Per-shard local occurrence offsets ride int32 on the device: a pseudo
-# shard's occurrence span must stay below this (a module constant so that
-# the occurrence-skew re-cut of staged_geometry_pseudo is testable small).
+# Per-shard local slots and occurrence offsets ride int32 on the device: a
+# shard's span must stay below this (a module constant so that the
+# occurrence-skew re-cut of staged_geometry_pseudo is testable small).
 _S_PAD_LIMIT = 2**31
+
+# A shard's sa_cmp rows are derived this many slots at a time, the pieces
+# spread over up to _SLICE_THREADS threads (numpy releases the GIL), so the
+# host's transients stay a few pieces wide at any shard size.
+_SLICE_ROWS = 1 << 20
+_SLICE_THREADS = min(8, os.cpu_count() or 1)
+
+# rows of the k-mer table a chunk of _max_width's pass takes
+_ROWS = 1 << 26
 
 _TORCH_DTYPES = {np.dtype(np.int8): torch.int8, np.dtype(np.int32): torch.int32,
                  np.dtype(np.int64): torch.int64, np.dtype(np.bool_): torch.bool}
@@ -114,14 +123,26 @@ def staged_geometry(idx: QuasiIndex, n_shards: int) -> StagedGeometry:
     # per-shard local prefix LUTs share one step bound (max local bucket)
     lut_d = np.diff(lut)
     steps = max(1, int(math.ceil(math.log2(int(lut_d.max()) + 1))) + 1) if len(lut_d) else 1
-    # mapping-only artifacts store interval widths (uint32); the full index
-    # derives them from the two slot columns
+    if S_pad >= _S_PAD_LIMIT:
+        raise ValueError(f"a shard spans {S_pad:,} SA slots (>= 2^31): its local int32 "
+                         "slots overflow — raise n_shards")
+    return StagedGeometry(row_cuts, slot_cuts, K_pad, S_pad, steps, idx.prefix_bases,
+                          _max_width(idx))
+
+
+def _max_width(idx) -> int:
+    """The widest k-mer interval, a chunk of rows at a time (a whole-table
+    difference would be a 17.6 GB temporary at 2.2e9 k-mers). Mapping-only
+    artifacts store the widths (uint32); the full index derives them from
+    the two slot columns."""
     w = getattr(idx, "kmer_w", None)
-    widths = np.asarray(w) if w is not None else (
-        np.asarray(idx.kmer_e) - np.asarray(idx.kmer_b)
-    )
-    max_w = int(widths.max()) if len(widths) else 1
-    return StagedGeometry(row_cuts, slot_cuts, K_pad, S_pad, steps, idx.prefix_bases, max_w)
+    K = len(idx.kmer_b)
+    if not K:
+        return 1
+    return max(int((np.asarray(w[s : s + _ROWS]) if w is not None
+                    else np.asarray(idx.kmer_e[s : s + _ROWS])
+                    - np.asarray(idx.kmer_b[s : s + _ROWS])).max())
+               for s in range(0, K, _ROWS))
 
 
 def shard_device_arrays(idx: QuasiIndex, geo: StagedGeometry, p: int):
@@ -155,15 +176,20 @@ def shard_device_arrays(idx: QuasiIndex, geo: StagedGeometry, p: int):
     kmer_rows[r1 - r0 :, 1] = -1
     lut = build_prefix_lut(khi, klo, idx.k, geo.prefix_bases).astype(np.int64)
     lut_rows = np.stack([lut[:-1], lut[1:]], axis=1).astype(np.int32)
-    sa_sl = np.asarray(idx.sa[s0:s1], dtype=np.int64)
-    sa_txp = np.asarray(idx.sa_txp[s0:s1], dtype=np.int64)
-    off = np.asarray(idx.txp_offsets, dtype=np.int64)
-    tl = np.asarray(idx.txp_lens, dtype=np.int64)
-    tend = off[sa_txp] + tl[sa_txp]
-    cmp_rows = sa_cmp_rows(sa_sl, tend, idx.k, np.asarray(idx.text2b, dtype=np.uint32))
-    if len(cmp_rows) < geo.S_pad:
-        pad = np.zeros((geo.S_pad - len(cmp_rows), cmp_rows.shape[1]), np.int32)
-        cmp_rows = np.concatenate([cmp_rows, pad])
+    # rows past the shard's slots stay zero (S_pad is the widest shard's)
+    cmp_rows = np.zeros((geo.S_pad, 3 + SA_CMP_WORDS), np.int32)
+    tend_of = (np.asarray(idx.txp_offsets, dtype=np.int64)
+               + np.asarray(idx.txp_lens, dtype=np.int64))
+    t2b = np.asarray(idx.text2b, dtype=np.uint32)
+
+    def rows(a: int) -> None:
+        b = min(a + _SLICE_ROWS, s1 - s0)
+        cmp_rows[a:b] = sa_cmp_rows(np.asarray(idx.sa[s0 + a : s0 + b], dtype=np.int64),
+                                    tend_of[np.asarray(idx.sa_txp[s0 + a : s0 + b])],
+                                    idx.k, t2b)
+
+    with ThreadPoolExecutor(_SLICE_THREADS) as ex:
+        list(ex.map(rows, range(0, s1 - s0, _SLICE_ROWS)))
     didx = DeviceQuasiIndex(
         text2q=np.zeros((1, 4), np.int32),
         sa_meta=np.zeros((1, 2), np.int32),  # expansion happens on the host
@@ -838,12 +864,18 @@ class StagedMapper:
         return out
 
 
+def staged_device_bytes(idx) -> int:
+    """Device bytes of every shard's arrays together: the sa_cmp rows and
+    the k-mer rows (the local LUTs and the padding to the widest shard
+    aside)."""
+    return len(idx.sa) * (3 + SA_CMP_WORDS) * 4 + len(idx.kmer_b) * 16
+
+
 def staged_shards(idx) -> int:
-    """The quasi engine's shard count: device bytes of a shard's arrays
-    (sa_cmp rows and k-mer rows) over TQM_STAGED_SHARD_GB (default 2)."""
+    """The quasi engine's shard count: staged_device_bytes over
+    TQM_STAGED_SHARD_GB (default 2)."""
     per = float(os.environ.get("TQM_STAGED_SHARD_GB", "2")) * 2**30
-    dev_bytes = len(idx.sa) * (3 + SA_CMP_WORDS) * 4 + len(idx.kmer_b) * 16
-    return max(1, math.ceil(dev_bytes / per))
+    return max(1, math.ceil(staged_device_bytes(idx) / per))
 
 
 class StagedQuasiMapper:
