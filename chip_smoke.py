@@ -58,7 +58,9 @@ the command line's pseudomap, single-end and paired-end, on the card and on
 the CPU (SAM equal apart from @PG). Then the host-staged engine and the
 compact artifacts (see phase_anchor_kernel, phase_artifacts, phase_staged),
 the int64-SA layout on the staged engine and the genome-scale script at
-0.02 Gbase (phase_staged_bigsa).
+0.02 Gbase with its core artifact, `quasimap --engine auto` from that core
+as a child process and the core's reload by
+scripts/core_artifact_genome_torch.py (phase_staged_bigsa).
 Then data parallel and the SA-sharded engine: two replicas on the card
 (parallel/dp.py) against the single-device program on a batch of reads and
 one of pairs (dp_path, dp_pe_path); the sharded walk (csrc/walk.cu's
@@ -3382,8 +3384,11 @@ def phase_staged_bigsa(dev, cfg, work: str, B: int, n_txps: int, seed: int, cuda
     --engine staged` on the big-SA index (cli_bigsa_staged), its SAM equal
     to the int32 index's replicated SAM apart from @PG; then
     scripts/genome_scale_torch.py as a process at 0.02 Gbase (--big-sa, 4
-    shards, its own reads and oracle sample), whose JSON line is this
-    phase's record -> launch counts by path."""
+    shards, its own reads and oracle sample; --save-core --cli: the command
+    line from the core as a child, every read's records equal to the
+    library sweep's, K9 once a shard), whose JSON line is this phase's
+    record, and scripts/core_artifact_genome_torch.py reloading that core
+    with every hash checked -> launch counts by path."""
     import torch
 
     from rapmap_tpu_torch.index.builder import build_quasi_index
@@ -3438,27 +3443,53 @@ def phase_staged_bigsa(dev, cfg, work: str, B: int, n_txps: int, seed: int, cuda
                            f"SAM, or no kernel launched ({r['launches']})")
     del big, small
 
-    # the genome-scale script as a process at a size the smoke affords
-    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
-                          "genome_scale_torch.py")
+    # the genome-scale script as a process at a size the smoke affords, with
+    # its core artifact and `quasimap --engine auto` from it as a child
+    # process (the device budget made tiny so that auto picks the staged
+    # engine, as an index past the card's memory does), then the core
+    # reloaded by the twin of scripts/core_artifact_genome.py
+    scripts = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts")
     size = (["--gbase", "0.02", "--reads", "8192", "--batch", "8192", "--oracle-sample", "512"]
             if cuda else ["--gbase", "0.001", "--reads", "512", "--batch", "512",
                           "--oracle-sample", "64", "--device", "cpu"])
-    argv = [sys.executable, script, *size, "--allow-small", "--big-sa", "--shards", "4",
-            "--workdir", os.path.join(work, "genome")]
+    gwork = os.path.join(work, "genome")
+    argv = [sys.executable, os.path.join(scripts, "genome_scale_torch.py"), *size,
+            "--allow-small", "--big-sa", "--shards", "4", "--workdir", gwork,
+            "--save-core", "--cli"]
+    env = dict(os.environ, TQM_HBM_GB="0.000001")
     t0 = time.time()
-    out = subprocess.run(argv, capture_output=True, text=True, timeout=600)
+    out = subprocess.run(argv, capture_output=True, text=True, timeout=600, env=env)
     wall = time.time() - t0
     lines = out.stdout.strip().splitlines()
     rec = json.loads(lines[-1]) if out.returncode == 0 and lines else None
     emit("genome_scale_script", argv=argv[2:], rc=out.returncode, wall_s=wall, record=rec,
          stderr_tail=None if rec else out.stderr[-3000:])
     n_or = rec and rec["oracle_parity"].split("/")
+    cli = rec and rec["cli"]
     if rec is None or n_or[0] != n_or[1] or not rec["every_shard_swept"] or (
             cuda and rec["launches"]["extend_packed_anchors"] < 4):
         raise RuntimeError("genome_scale_script: the run failed, its oracle parity is not "
                            "full, or a shard was not swept through K9")
+    if (not cli or cli["rc"] != 0 or cli["reads_unequal"] or cli["reads_not_in_batch"]
+            or cli["engine"] != "staged" or (
+                cuda and cli["launches"]["extend_packed_anchors"] < cli["want_shards"])):
+        raise RuntimeError("genome_scale_script: the command line's child failed, picked "
+                           "another engine, launched K9 less than once a shard or wrote "
+                           "other records")
     launches["genome_scale_script"] = rec["launches"]
+    launches["genome_scale_script_cli"] = cli["launches"]
+    argv = [sys.executable, os.path.join(scripts, "core_artifact_genome_torch.py"),
+            "--core", os.path.join(gwork, "core")]
+    t0 = time.time()
+    out = subprocess.run(argv, capture_output=True, text=True, timeout=600)
+    wall = time.time() - t0
+    lines = out.stdout.strip().splitlines()
+    twin = json.loads(lines[-1]) if out.returncode == 0 and lines else None
+    emit("core_artifact_script", argv=argv[2:], rc=out.returncode, wall_s=wall, record=twin,
+         stderr_tail=None if twin else out.stderr[-3000:])
+    if twin is None or twin["n_text"] != rec["n_text"] or twin["sa_dtype"] != "int64":
+        raise RuntimeError("core_artifact_script: the reload failed its hashes or does not "
+                           "hold the genome run's index")
     return launches
 
 

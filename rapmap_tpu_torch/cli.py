@@ -329,33 +329,38 @@ def _map(args, pseudo: bool, world: int, rank: int) -> int:
     device = _pick_device(args.cmd)
     if device is None:
         return 1
-    idx = load_index(args.index)
+    from rapmap_tpu_torch.utils.timers import StageTimers, device_trace
+
+    timers = StageTimers()
+    with timers.stage("index_load"):
+        idx = load_index(args.index)
     cfg = _cfg_from_args(args, idx.k)
 
-    if pseudo:
-        if _choose_pseudo_engine(args, idx, device) == "staged":
-            from rapmap_tpu_torch.parallel.staged import StagedPseudoMapper
+    with timers.stage("engine_setup"):
+        if pseudo:
+            if _choose_pseudo_engine(args, idx, device) == "staged":
+                from rapmap_tpu_torch.parallel.staged import StagedPseudoMapper
 
-            mapper = StagedPseudoMapper(idx, cfg, batch=args.batchSize,
-                                        read_len=args.maxReadLen, device=device)
+                mapper = StagedPseudoMapper(idx, cfg, batch=args.batchSize,
+                                            read_len=args.maxReadLen, device=device)
+            else:
+                from rapmap_tpu_torch.models.pseudo import PseudoMapper
+
+                mapper = PseudoMapper(idx, cfg, device=device)
+        elif mapping_only or _choose_quasi_engine(args, idx, device) == "staged":
+            from rapmap_tpu_torch.ops.device_index import SA_CMP_WORDS
+            from rapmap_tpu_torch.parallel.staged import StagedQuasiMapper
+
+            cap = idx.k + 16 * SA_CMP_WORDS
+            if args.maxReadLen > cap:
+                log.info("staged engine caps reads at %d bases (k=%d); "
+                         "longer reads will be refused", cap, idx.k)
+            mapper = StagedQuasiMapper(idx, cfg, batch=args.batchSize,
+                                       read_len=min(args.maxReadLen, cap), device=device)
         else:
-            from rapmap_tpu_torch.models.pseudo import PseudoMapper
+            from rapmap_tpu_torch.models.quasi import QuasiMapper
 
-            mapper = PseudoMapper(idx, cfg, device=device)
-    elif mapping_only or _choose_quasi_engine(args, idx, device) == "staged":
-        from rapmap_tpu_torch.ops.device_index import SA_CMP_WORDS
-        from rapmap_tpu_torch.parallel.staged import StagedQuasiMapper
-
-        cap = idx.k + 16 * SA_CMP_WORDS
-        if args.maxReadLen > cap:
-            log.info("staged engine caps reads at %d bases (k=%d); "
-                     "longer reads will be refused", cap, idx.k)
-        mapper = StagedQuasiMapper(idx, cfg, batch=args.batchSize,
-                                   read_len=min(args.maxReadLen, cap), device=device)
-    else:
-        from rapmap_tpu_torch.models.quasi import QuasiMapper
-
-        mapper = QuasiMapper(idx, cfg, device=device)
+            mapper = QuasiMapper(idx, cfg, device=device)
 
     cl = " ".join(sys.argv)
     t0 = time.time()
@@ -413,9 +418,6 @@ def _map(args, pseudo: bool, world: int, rank: int) -> int:
             from rapmap_tpu_torch.oracle import pseudomap as oracle_mod
         else:
             from rapmap_tpu_torch.oracle import quasimap as oracle_mod
-        from rapmap_tpu_torch.utils.timers import StageTimers, device_trace
-
-        timers = StageTimers()
         use_fallback = not args.noFallback
         # per batch: fetch -> fallback -> score filter -> SAM, as tqm drains;
         # the filter re-derives the counters (score_filtered among them)
@@ -530,6 +532,10 @@ def _map(args, pseudo: bool, world: int, rank: int) -> int:
                 drained()
         if args.profile:
             timers.log(log)
+            from rapmap_tpu_torch import kernels
+
+            log.info("kernel launches: %s",
+                     json.dumps({k: v for k, v in kernels.LAUNCHES.items() if v}))
 
     dt = time.time() - t0
     totals["wall_s"] = round(dt, 3)

@@ -91,13 +91,14 @@ def sa_txp_tpos(sa: np.ndarray, txp_offsets: np.ndarray, txp_lens: np.ndarray,
     slot instead of a binary search over the offsets. Both come out in
     chunks of slots, so no int64 temporary spans the SA (one would take 17.6
     GB at 2.2e9 slots), and the pos->txp map is gone before sa_tpos is
-    allocated: the peak is the two results' bytes."""
+    allocated: the peak is the two results' bytes and a chunk's."""
     spans = txp_lens.astype(np.int64) + 1
     pos2txp = np.repeat(np.arange(len(txp_lens), dtype=np.int32), spans)
     sa = np.asarray(sa)
     sa_txp = np.empty(len(sa), np.int32)
     for s in range(0, len(sa), chunk):
-        sa_txp[s : s + chunk] = pos2txp[sa[s : s + chunk]]
+        # clip: indices are in range, and take() buffers its out= otherwise
+        np.take(pos2txp, sa[s : s + chunk], out=sa_txp[s : s + chunk], mode="clip")
     del pos2txp
     off = np.asarray(txp_offsets, dtype=np.int64)
     sa_tpos = np.empty(len(sa), np.int32)

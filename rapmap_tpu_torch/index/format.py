@@ -372,50 +372,113 @@ def _write_header(outdir: str, idx: QuasiIndex, itype: str, hashes: dict,
         json.dump(header, f, indent=1)
 
 
-def _load_core_index(indir: str, header: dict, verify: bool = True) -> QuasiIndex:
+def _widen_stored_sa(path: str, dtype, hashes: dict, chunk: int) -> np.ndarray:
+    """The stored (uint32, or int64 past 2^32) SA of a core artifact read a
+    chunk at a time straight into its full-width array. The stored bytes
+    and the widened array are hashed as the chunks come (on two worker
+    threads, each chunk's hash behind the previous one), and a hash that
+    differs from the header's raises. The file's pages are dropped from the
+    page cache behind the read (8.8 GB at 2.2e9 slots would otherwise sit
+    there beside the index)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from numpy.lib import format as npf
+
+    h_stored, h_sa = hashlib.sha256(), hashlib.sha256()
+    pending = [None, None]
+    fadvise = getattr(os, "posix_fadvise", None)
+    with open(path, "rb") as f, ThreadPoolExecutor(1) as ex_stored, \
+            ThreadPoolExecutor(1) as ex_sa:
+        version = npf.read_magic(f)
+        read_header = npf.read_array_header_1_0 if version == (1, 0) else \
+            npf.read_array_header_2_0
+        (n,), _, stored_dt = read_header(f)
+        sa = np.empty(n, dtype=dtype)
+        for i in range(0, n, chunk):
+            j = min(i + chunk, n)
+            off = f.tell()
+            buf = np.fromfile(f, dtype=stored_dt, count=j - i)
+            if len(buf) != j - i:
+                raise ValueError(f"{path} ends before its array does")
+            sa[i:j] = buf
+            if fadvise is not None:
+                fadvise(f.fileno(), off, buf.nbytes, os.POSIX_FADV_DONTNEED)
+            for w, (ex, h, arr) in enumerate(((ex_stored, h_stored, buf),
+                                              (ex_sa, h_sa, sa[i:j]))):
+                if pending[w] is not None:
+                    pending[w].result()
+                pending[w] = ex.submit(h.update, memoryview(arr).cast("B"))
+        for fut in pending:
+            if fut is not None:
+                fut.result()
+    if h_stored.hexdigest()[:16] != hashes["sa_stored"]:
+        raise ValueError("core index array sa_stored failed content-hash validation")
+    if h_sa.hexdigest()[:16] != hashes["sa"]:
+        raise ValueError("core index reconstruction of sa does not match the "
+                         "save-time content hash — refusing to map from it")
+    return sa
+
+
+def _load_core_index(indir: str, header: dict, chunk: int = 1 << 24) -> QuasiIndex:
     """Rebuild a full QuasiIndex from a quasi_core artifact: re-derive the
     k-mer interval table, prefix LUT, 2-bit text and sa_txp/sa_tpos from
-    {text, sa} and (verify=True, the default: the rebuild's correctness is
-    the point) check every derived array against the header's content
-    hashes from save time."""
+    {text, sa} and check every array against the header's content hashes
+    from save time (the rebuild's correctness is the point).
+
+    Bounded in host memory: the stored SA is widened a chunk at a time
+    straight from its file; the 2-bit pack, the k-mer scan, the prefix LUT
+    and sa_txp/sa_tpos hold one chunk besides their results; and each array
+    is hashed in place once it is produced, on worker threads while the
+    next one is derived. sa_txp/sa_tpos come last: their one transient
+    over every base, the position -> transcript map, is as large as
+    sa_tpos and is gone before sa_tpos is made, so the load peaks at its
+    finished arrays plus chunks (the k-mer scan's sentinel mask, 1/16 of
+    the text's words, is dropped before that)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from rapmap_tpu_torch.index.builder import sa_txp_tpos
     from rapmap_tpu_torch.index.kmer_table import (
         build_kmer_table, build_prefix_lut, pack_text_2bit,
     )
 
     hashes = header["hashes"]
-    text = np.load(os.path.join(indir, "text.npy"), mmap_mode="r")
-    sa_stored = np.load(os.path.join(indir, "sa.npy"), mmap_mode="r")
-    if verify:
-        for name, arr in (("text", text), ("sa_stored", sa_stored)):
-            if _sha(np.asarray(arr)) != hashes[name]:
-                raise ValueError(f"core index array {name} failed content-hash validation")
+    n_text, k = header["n_text"], header["k"]
     sa_dtype = np.int64 if header["big_sa"] else np.int32
-    sa = np.asarray(sa_stored).astype(sa_dtype, copy=False)
-    del sa_stored  # a widened copy drops the mapping (8.8 GB at 2.2e9 slots)
+    text = np.load(os.path.join(indir, "text.npy"), mmap_mode="r")
     offsets = np.load(os.path.join(indir, "txp_offsets.npy"))
     lens = np.load(os.path.join(indir, "txp_lens.npy"))
-    n_text, k = header["n_text"], header["k"]
+    with ThreadPoolExecutor(4) as pool:
+        sums: dict = {}
 
-    text_arr = np.asarray(text)
-    text2b, smask2b = pack_text_2bit(text_arr)
-    khi, klo, kb, ke = build_kmer_table(
-        text_arr[:n_text], sa, k, packed_smask=(text2b, smask2b)
-    )
-    lut = build_prefix_lut(khi, klo, k, header["prefix_bases"])
-    sa_txp, sa_tpos = sa_txp_tpos(sa, offsets, lens)
-    if verify:
-        derived = {
-            "sa": sa, "text2b": text2b, "sa_txp": sa_txp, "sa_tpos": sa_tpos,
-            "kmer_hi": khi, "kmer_lo": klo, "kmer_b": kb, "kmer_e": ke,
-            "prefix_lut": lut,
-        }
-        for name, arr in derived.items():
-            if _sha(np.ascontiguousarray(arr)) != hashes[name]:
-                raise ValueError(
-                    f"core index reconstruction of {name} does not match the "
-                    f"save-time content hash — refusing to map from it"
-                )
+        def check(*names: str) -> None:
+            for name in names:
+                if sums.pop(name).result() != hashes[name]:
+                    raise ValueError(
+                        f"core index array {name} failed content-hash validation"
+                        if name == "text" else
+                        f"core index reconstruction of {name} does not match the "
+                        f"save-time content hash — refusing to map from it")
+
+        def hashed(**arrays):
+            for name, arr in arrays.items():
+                sums[name] = pool.submit(_sha, arr)
+
+        hashed(text=text)
+        text_arr = np.asarray(text)
+        text2b, smask2b = pack_text_2bit(text_arr)
+        hashed(text2b=text2b)
+        sa = _widen_stored_sa(os.path.join(indir, "sa.npy"), sa_dtype, hashes, chunk)
+        check("text")
+        khi, klo, kb, ke = build_kmer_table(
+            text_arr[:n_text], sa, k, chunk=chunk, packed_smask=(text2b, smask2b)
+        )
+        del smask2b
+        hashed(kmer_hi=khi, kmer_lo=klo, kmer_b=kb, kmer_e=ke)
+        lut = build_prefix_lut(khi, klo, k, header["prefix_bases"])
+        hashed(prefix_lut=lut)
+        sa_txp, sa_tpos = sa_txp_tpos(sa, offsets, lens, chunk=chunk)
+        hashed(sa_txp=sa_txp, sa_tpos=sa_tpos)
+        check("text2b", "kmer_hi", "kmer_lo", "kmer_b", "kmer_e", "prefix_lut",
+              "sa_txp", "sa_tpos")
     chd = {}
     for name in _QUASI_OPTIONAL:
         p = os.path.join(indir, f"{name}.npy")
@@ -450,7 +513,7 @@ def load_index(indir: str, mmap: bool = True, verify: bool = False):
     header = load_header(indir)
     itype = header["index_type"]
     if itype == "quasi_core":
-        return _load_core_index(indir, header, verify=True)
+        return _load_core_index(indir, header)
     is_quasi = itype == "quasi"
     if itype == "quasi_map":
         names, opt = list(_QUASI_MAP_ARRAYS), []

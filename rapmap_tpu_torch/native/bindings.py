@@ -28,7 +28,7 @@ _BUILD_DIR = os.path.join(
 # must equal native/abi.cpp's tqm_abi_version(); a mismatched (stale) .so is
 # rebuilt once, and rejected if still stale — calling through a changed
 # signature corrupts memory silently, the numpy fallbacks are always safe
-ABI_VERSION = 7
+ABI_VERSION = 8
 
 # the file name carries the ABI version: a process that has loaded a stale
 # build gets the same stale handle back from dlopen() of the same path, so a
@@ -123,8 +123,9 @@ def _load() -> ctypes.CDLL | None:
             fn.restype = ctypes.c_int64
             fn.argtypes = [
                 ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_int32,
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int64,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int64,
             ]
         P, I64, I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
         lib.tqm_sam_se.restype = I64
@@ -184,15 +185,18 @@ def suffix_array(text_codes: np.ndarray) -> np.ndarray:
     return sa
 
 
-def kmer_table(sa: np.ndarray, packed: np.ndarray, smask: np.ndarray, k: int):
+def kmer_table(sa: np.ndarray, packed: np.ndarray, smask: np.ndarray, k: int,
+               chunk: int = 1 << 22):
     """SA -> (kmer_hi, kmer_lo, kmer_b, kmer_e) via the native packed-word
     scan; None when the library is missing.
 
     Slot intervals (kmer_b/e) follow the SA dtype: int64 SA (bigSA regime,
     possibly >= 2^31 slots) -> int64 intervals, else int32.
 
-    packed/smask are pack_text_2bit words; this pads them with 2 sentinel
-    words so the 3-word window loads never run off the end."""
+    packed/smask are pack_text_2bit words (words past them read as
+    sentinels). The scan goes `chunk` slots at a time, twice: once to count
+    the groups, then into outputs of exactly that many rows, so besides its
+    results it holds one chunk's keys and flags (9 bytes a slot)."""
     lib = _load()
     if lib is None:
         return None
@@ -200,24 +204,23 @@ def kmer_table(sa: np.ndarray, packed: np.ndarray, smask: np.ndarray, k: int):
     big = sa_c.dtype == np.int64
     if not big:
         sa_c = np.ascontiguousarray(sa_c, dtype=np.int32)
-    tw = np.concatenate([np.ascontiguousarray(packed, np.uint32), np.zeros(2, np.uint32)])
-    sm = np.concatenate(
-        [np.ascontiguousarray(smask, np.uint32), np.full(2, 0xFFFFFFFF, np.uint32)]
-    )
+    tw = np.ascontiguousarray(packed, np.uint32)
+    sm = np.ascontiguousarray(smask, np.uint32)
+    if len(tw) != len(sm):
+        raise ValueError("packed text and sentinel mask differ in length")
     n = len(sa_c)
-    hi = np.empty(n, np.uint32)
-    lo = np.empty(n, np.uint32)
-    slot_dt = np.int64 if big else np.int32
-    kb = np.empty(n, slot_dt)
-    ke = np.empty(n, slot_dt)
     fn = lib.tqm_kmer_table_i64 if big else lib.tqm_kmer_table_i32
-    ng = fn(
-        sa_c.ctypes.data, n, tw.ctypes.data, sm.ctypes.data, k,
-        hi.ctypes.data, lo.ctypes.data, kb.ctypes.data, ke.ctypes.data,
-    )
+    args = (sa_c.ctypes.data, n, tw.ctypes.data, sm.ctypes.data, len(tw), k, int(chunk))
+    ng = fn(*args, None, None, None, None, 0)
     if ng < 0:
         raise ValueError(f"tqm_kmer_table failed with code {ng}")
-    return _shrink(hi, ng), _shrink(lo, ng), _shrink(kb, ng), _shrink(ke, ng)
+    slot_dt = np.int64 if big else np.int32
+    hi, lo = np.empty(ng, np.uint32), np.empty(ng, np.uint32)
+    kb, ke = np.empty(ng, slot_dt), np.empty(ng, slot_dt)
+    got = fn(*args, hi.ctypes.data, lo.ctypes.data, kb.ctypes.data, ke.ctypes.data, ng)
+    if got != ng:
+        raise ValueError(f"tqm_kmer_table wrote {got} groups, counted {ng}")
+    return hi, lo, kb, ke
 
 
 def _shrink(arr: np.ndarray, n: int) -> np.ndarray:

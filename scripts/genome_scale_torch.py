@@ -12,8 +12,13 @@ is csrc/walk.cu's tqm_extend_packed_lanes, counter extend_packed_anchors),
 and holds a read sample to the numpy oracle (rapmap_tpu_torch.oracle).
 
 Host plan: text 1 + SA 8 + k-mer hi/lo 8 + b/e 16 + sa_txp/sa_tpos 8 +
-text2b 0.25 ~= 41 B a base (~90 GB at 2.2 Gbase), plus one shard's
-transients (the build peaks at ~43 B a base); --save-index writes about as much to disk. Before any FASTA or
+text2b 0.25 ~= 41 B a base (~90 GB at 2.2 Gbase), where the build peaks
+too, plus one shard's transients in the sweep; --save-index writes about as
+much to disk. --save-core --cli writes the core artifact (~5 B a base) and
+then maps the reads with `python -m rapmap_tpu_torch.cli quasimap --engine
+auto` from it as a child process, once this process has dropped its index:
+the child's core load rebuilds the same arrays holding a chunk besides them,
+and every read's SAM records must equal the library sweep's. Before any FASTA or
 build work a preflight reckons that plan against MemAvailable and the free
 space of --workdir; when either is short it prints one JSON line with
 "skipped", both figures and the plan, and exits 2. It never maps a smaller
@@ -58,8 +63,24 @@ def log(msg: str) -> None:
     print(f"# [{time.strftime('%H:%M:%S')}] {msg}", file=sys.stderr, flush=True)
 
 
+def proc_status_kb(pid, key: str) -> int:
+    """A kB line of /proc/<pid>/status (0 once the process has exited)."""
+    try:
+        with open(f"/proc/{pid}/status") as f:
+            for line in f:
+                if line.startswith(key):
+                    return int(line.split()[1])
+    except OSError:
+        pass
+    return 0
+
+
 def rss_gb() -> float:
-    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+    """This process's peak resident set, in GB: VmHWM where the kernel
+    keeps it, else getrusage's maxrss (which, across fork and exec, starts
+    from the parent's peak on Linux)."""
+    kb = proc_status_kb("self", "VmHWM:")
+    return (kb or resource.getrusage(resource.RUSAGE_SELF).ru_maxrss) * 1024 / 1e9
 
 
 def gen_fasta(path: str, target_chars: int, seed: int = 5):
@@ -112,36 +133,51 @@ def disk_free_bytes(path: str) -> int:
     return shutil.disk_usage(path).free
 
 
+# What each process holds above the mapping arrays, measured at 2.2 Gbase
+# on the H100's host (runs/genome_torch_r16.json, whose index is 90.80 GB):
+# the build's process peaked at 99.50 GB (torch, the CUDA runtime, the heap
+# its FASTA parse leaves), the library sweep at 103.14 GB and the command
+# line's child at 99.88 GB, each beside 3 shards' transients (6.44 GB), the
+# child's exec'd parent holding 0.10 GB.
+BUILD_OVER = 8_700_000_000
+SWEEP_OVER = 5_900_000_000
+CLI_OVER = 2_800_000_000
+
+
 def plan_bytes(target: int, big_sa: bool, shard_gb: float, fasta: bool, save_index: bool,
-               save_core: bool, ckpt_bytes: int) -> dict:
+               save_core: bool, ckpt_bytes: int, cli: bool = False) -> dict:
     """What a run at `target` bases holds in host memory and writes to disk,
     with w = 8 bytes a slot in the int64 layout, else 4.
 
-    Host, the larger of two peaks. The build's (index/builder.py), at the
-    end of the native k-mer scan: text 1, SA w, the 2-bit text and its
-    sentinel mask with the scan's padded copies 1, the scan's keys and
-    valid flags 9 and its outputs (hi/lo 8, b/e 2w) bytes a base. The
-    sweep's: the mapping arrays (text 1, SA w, k-mer hi/lo 8, b/e 2w,
-    sa_txp and sa_tpos 8, text2b 0.25 bytes a base) and one shard's
-    transients (its slice peaks at ~2x its finished arrays while the
-    previous shard's arrays go up: 3 shards' bytes). Both add 3 GiB for the
-    process itself (torch and the CUDA runtime, the pinned upload pieces;
-    the build's measured peak at 2.2 Gbase stood ~3 GB above its count).
-    --cli reloads the core artifact, which peaks as the build. Disk: the FASTA (~1 byte a base) unless it is
-    there, the saved index (the mapping arrays), the core artifact (text 1
-    + SA 4, or 8 past 2^32) and the sweep checkpoint."""
+    Host, the largest of three peaks, each the mapping arrays (text 1, SA
+    w, k-mer hi/lo 8, b/e 2w, sa_txp and sa_tpos 8, text2b 0.25 bytes a
+    base) and what its process holds above them (measured, above). The
+    build (index/builder.py) peaks at the arrays: its k-mer scan and 2-bit
+    pack hold one chunk besides their results, and sa_txp_tpos's position
+    map is as large as sa_tpos and gone before it. The sweep adds one
+    shard's transients (its slice peaks at ~2x its finished arrays while
+    the previous shard's arrays go up: 3 shards' bytes). With --cli the
+    command line maps from the saved index or the core artifact as a child
+    process: its load peaks at the arrays (index/format.py's core load
+    holds a chunk besides them), its sweep as the sweep, and its parent is
+    a fresh process holding no index. Disk: the FASTA (~1 byte a base)
+    unless it is there, the saved index (the mapping arrays), the core
+    artifact (text 1 + SA 4, or 8 past 2^32) and the sweep checkpoint."""
     w = 8 if big_sa else 4
     per_base = 1 + w + 8 + 2 * w + 8 + 0.25
-    build = int((1 + w + 1 + 9 + 8 + 2 * w) * target) + 3 * GIB
-    sweep = dict(index=int(per_base * target), shard_transients=int(3 * shard_gb * GIB),
-                 runtime=3 * GIB)
+    index = int(per_base * target)
+    shards = int(3 * shard_gb * GIB)
+    build = index + BUILD_OVER
+    sweep = dict(index=index, shard_transients=shards, runtime=SWEEP_OVER)
+    child = dict(index=index, shard_transients=shards, runtime=CLI_OVER) if cli else {}
     core_w = 4 if target < 2**32 else 8
     disk = dict(fasta=int(1.01 * target) if fasta else 0,
-                index=int(per_base * target) if save_index else 0,
+                index=index if save_index else 0,
                 core=int((1 + core_w) * target) if save_core else 0,
                 checkpoint=ckpt_bytes)
     return dict(host_bytes_per_base=per_base, host_build=build, host_sweep=sweep,
-                host_total=max(build, sum(sweep.values())), disk=disk,
+                host_cli=child,
+                host_total=max(build, sum(sweep.values()), sum(child.values())), disk=disk,
                 disk_total=sum(disk.values()))
 
 
@@ -156,7 +192,7 @@ def preflight(args, target: int, fa: str, idx_dir: str) -> dict:
         target, big_sa=args.big_sa or target >= 2**31 - 2, shard_gb=shard_gb,
         fasta=not (os.path.exists(fa) and os.path.getsize(fa) >= target),
         save_index=args.save_index and not have_idx, save_core=args.save_core,
-        ckpt_bytes=n_batches * 2 * args.batch * S * 21)
+        ckpt_bytes=n_batches * 2 * args.batch * S * 21, cli=args.cli)
     mem, disk = mem_available_bytes(), disk_free_bytes(args.workdir)
     short = [what for what, need, got in (("host memory", plan["host_total"], mem),
                                           ("disk", plan["disk_total"], disk)) if need > got]
@@ -289,42 +325,71 @@ def sam_records(path: str) -> dict[str, list]:
     return {q: sorted(v) for q, v in out.items()}
 
 
-def cli_run(index_dir: str, codes, results, sel, batch: int, names, workdir: str,
-            device: str) -> dict:
-    """`quasimap --engine auto --batchSize <reads>` (in process) over the
-    run's reads written as FASTQ: one batch, so one sweep; the sampled
-    reads' SAM records against the library's."""
-    from rapmap_tpu_torch import cli
+def rss_now_gb() -> float:
+    """This process's resident set now (VmRSS), in GB."""
+    return proc_status_kb("self", "VmRSS:") * 1024 / 1e9
 
-    fq, sam, stats = (os.path.join(workdir, f) for f in ("reads.fq", "reads.sam",
-                                                         "reads_stats.json"))
-    with open(fq, "w") as f:
-        for i, c in enumerate(codes):
-            f.write(f"@r{i}\n{''.join('NACGTN'[int(x)] for x in c)}\n+\n{'I' * len(c)}\n")
-    old = os.environ.pop("TQM_FORCE_CPU", None)
+
+def cli_run(index_dir: str, want: list, workdir: str, device: str, want_shards: int) -> dict:
+    """`python -m rapmap_tpu_torch.cli quasimap --engine auto --batchSize
+    <reads> --profile` over the run's reads (workdir/reads.fq), as a child
+    process (one batch, so one sweep): its peak RSS (wait4's maxrss, which
+    on Linux starts from this process's peak: cli_stage runs in a fresh
+    one; and the largest VmRSS read every 0.2 s), the index load
+    and engine set-up seconds and kernel launches it logs under --profile,
+    its --statsJson, and every read's SAM records against `want` (the
+    library sweep's, as [txp name, reverse, 1-based pos] lists). Parent and
+    child share the host's memory: the parent holds no index."""
+    fq, sam, stats, err_path = (os.path.join(workdir, f) for f in (
+        "reads.fq", "reads.sam", "reads_stats.json", "cli_child.err"))
+    env = {k: v for k, v in os.environ.items() if k != "TQM_FORCE_CPU"}
     if device == "cpu":
-        os.environ["TQM_FORCE_CPU"] = "1"
+        env["TQM_FORCE_CPU"] = "1"
+    argv = [sys.executable, "-m", "rapmap_tpu_torch.cli", "quasimap", "-i", index_dir,
+            "-r", fq, "-o", sam, "--engine", "auto", "--batchSize", str(len(want)),
+            "--statsJson", stats, "--profile"]
+    watch = MemWatch()
+    parent_rss = rss_now_gb()
     t0 = time.time()
-    try:
-        rc = cli.main(["quasimap", "-i", index_dir, "-r", fq, "-o", sam, "--engine", "auto",
-                       "--batchSize", str(len(codes)), "--statsJson", stats])
-    finally:
-        os.environ.pop("TQM_FORCE_CPU", None)
-        if old is not None:
-            os.environ["TQM_FORCE_CPU"] = old
+    with open(err_path, "w") as err:
+        child = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
+                                 stderr=err)
+        polled = 0
+        while True:
+            pid, status, usage = os.wait4(child.pid, os.WNOHANG)
+            if pid:
+                break
+            polled = max(polled, proc_status_kb(child.pid, "VmRSS:"))
+            time.sleep(0.2)
+        child.returncode = os.waitstatus_to_exitcode(status)
     wall = time.time() - t0
-    if rc != 0:
-        raise RuntimeError(f"quasimap returned {rc}")
-    got = sam_records(sam)
-    unequal = 0
-    for i in sel:
-        bi, ri = divmod(int(i), batch)
-        want = sorted((names[t], s == 1, max(p, 0) + 1) for t, p, s, _ in results[bi][ri])
-        unequal += got.get(f"r{i}", []) != want
+    with open(err_path) as f:
+        log_text = f.read()
+    rec = dict(argv=argv[2:], index=index_dir, rc=child.returncode, wall_s=wall,
+               parent_rss_gb_at_start=parent_rss, child_peak_rss_gb=usage.ru_maxrss * 1024 / 1e9,
+               child_rss_polled_max_gb=polled * 1024 / 1e9,
+               mem_available_low_bytes=watch.low, want_shards=want_shards)
+    if child.returncode != 0:
+        return dict(rec, stderr_tail=log_text[-3000:])
+    from rapmap_tpu_torch import kernels
+
+    stage = {}
+    launches = dict.fromkeys(kernels.LAUNCHES, 0)
+    for line in log_text.splitlines():
+        body = line.split("] ", 1)[-1]
+        if body.startswith("stage "):
+            name, secs = body.split()[1:3]
+            stage[name] = float(secs.rstrip("s"))
+        elif body.startswith("kernel launches: "):
+            launches.update(json.loads(body[len("kernel launches: "):]))
     with open(stats) as f:
         st = json.load(f)
-    return dict(index=index_dir, wall_s=wall, stats=st, sample_checked=len(sel),
-                sample_unequal=unequal)
+    got = sam_records(sam)
+    unequal = sum(got.pop(f"r{i}", []) != [tuple(r) for r in w] for i, w in enumerate(want))
+    return dict(rec, engine="staged" if "-> host-staged engine" in log_text else "replicated",
+                load_s=stage.get("index_load"), engine_setup_s=stage.get("engine_setup"),
+                sweep_s=st["wall_s"], stages_s=stage, launches=launches, stats=st,
+                reads_checked=len(want), reads_unequal=unequal, reads_not_in_batch=len(got))
 
 
 # ---- main ------------------------------------------------------------------------
@@ -359,7 +424,8 @@ def parser() -> argparse.ArgumentParser:
                     help="hold K9 to its plain version on shard 0 and time it (card only)")
     ap.add_argument("--cli", action="store_true",
                     help="also map the reads with `quasimap --engine auto` from the saved "
-                         "index (--save-index) or core artifact (--save-core)")
+                         "index (--save-index) or core artifact (--save-core), as a child "
+                         "process once this one has dropped its index")
     ap.add_argument("--json-out", default=None,
                     help="also write the record, with the per-shard timings, here")
     return ap
@@ -368,12 +434,27 @@ def parser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None) -> int:
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(asctime)s %(name)s: %(message)s")
-    return run(parser(), argv)[0]
+    ap = parser()
+    ap.add_argument("--cli-from", default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.cli_from:
+        return cli_stage(args.cli_from)[0]
+    rc, out, _, _ = run(ap, argv, cli_inline=False)
+    if out is not None and "cli_state" in out:
+        # the command line's run in a fresh process, this one's memory gone
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os.execv(sys.executable, [sys.executable, os.path.abspath(__file__),
+                                  "--cli-from", out["cli_state"]])
+    return rc
 
 
-def run(ap: argparse.ArgumentParser, argv: list[str] | None = None):
+def run(ap: argparse.ArgumentParser, argv: list[str] | None = None, cli_inline: bool = True):
     """The run -> (exit code, its record or None, the per-batch records of
-    the staged engine or None, the read codes or None)."""
+    the staged engine or None, the read codes or None). With --cli it
+    writes the command line's state file; cli_inline runs the command line
+    from it here, else the record carries the file as "cli_state" (main()
+    then execs into the command line's stage)."""
     args = ap.parse_args(argv)
     import torch
 
@@ -461,6 +542,7 @@ def run(ap: argparse.ArgumentParser, argv: list[str] | None = None):
     device_bytes = staged_device_bytes(idx)
     card_bytes = torch.cuda.get_device_properties(0).total_memory if cuda else None
     engine_auto = cli_engine_choice(idx, device)
+    cli_shards = staged_shards(idx)  # the command line's own shard count
     log(f"shard arrays {device_bytes / 1e9:.2f} GB; card {card_bytes}; "
         f"quasimap --engine auto: {engine_auto}")
 
@@ -562,7 +644,7 @@ def run(ap: argparse.ArgumentParser, argv: list[str] | None = None):
         "map_rate_pct": 100.0 * mapped / n_reads,
         "slice_s_total": t_slice,
         "upload_s_total": t_upload,
-        "upload_gb_total": up_mb / 1024,
+        "upload_gib_total": up_mb / 1024,
         "upload_MBps": up_mb / max(t_upload, 1e-9),
         "device_union_s_total": t_dev,
         "launches": launches,
@@ -581,34 +663,83 @@ def run(ap: argparse.ArgumentParser, argv: list[str] | None = None):
         "preflight": pre,
     }
 
-    def record():
-        if args.json_out:
-            with open(args.json_out, "w") as f:
-                json.dump({**out, "shard_timings": timings}, f, indent=1)
-            log(f"record written to {args.json_out}")
-
-    record()  # kept should the command line's run below not come back
-    cli = None
-    if args.cli:
-        src = idx_dir if args.save_index else os.path.join(args.workdir, "core")
-        names = list(idx.txp_names)
-        del idx
-        gc.collect()
-        cli = out["cli"] = cli_run(src, codes, results, sel, args.batch, names,
-                                   args.workdir, args.device)
-        out["peak_rss_gb"], out["mem_available_low_bytes"] = rss_gb(), watch.low
-        log(f"quasimap --engine auto: {cli['wall_s']:.1f}s, "
-            f"{cli['sample_unequal']} of {cli['sample_checked']} sampled reads unequal")
-        record()
-    print(json.dumps(out), flush=True)
+    if args.json_out:  # kept should a later step not come back
+        write_record(args.json_out, out, timings)
     failed = [what for what, bad_ in (
         ("oracle parity", bad), ("a shard was not swept through K9", not swept),
-        ("K9 disagrees with its plain version", k9 is not None and k9["max_abs_err"]),
-        ("the command line's records differ", cli is not None and cli["sample_unequal"]))
+        ("K9 disagrees with its plain version", k9 is not None and k9["max_abs_err"]))
         if bad_]
+    if not args.cli:
+        return finish(out, failed), out, results, codes
+    # the command line's run, from a state file: what it maps and what its
+    # records must be (every read's, from the library sweep)
+    names = list(idx.txp_names)
+    src = os.path.abspath(idx_dir if args.save_index else os.path.join(args.workdir, "core"))
+    state = os.path.join(os.path.abspath(args.workdir), "cli_state.json")
+    write_fastq(os.path.join(args.workdir, "reads.fq"), codes)
+    with open(state, "w") as f:
+        json.dump(dict(record=out, timings=timings, failed=failed, index_dir=src,
+                       workdir=os.path.abspath(args.workdir), device=args.device,
+                       json_out=args.json_out, want_shards=cli_shards,
+                       want=[sorted((names[t], s_ == 1, max(p_, 0) + 1)
+                                    for t, p_, s_, _ in results[i // args.batch][
+                                        i % args.batch]) for i in range(n_reads)]), f)
+    del idx, names
+    if not cli_inline:
+        return 0, dict(out, cli_state=state), results, codes
+    rc, out = cli_stage(state)
+    return rc, out, results, codes
+
+
+def write_fastq(path: str, codes) -> None:
+    with open(path, "w") as f:
+        for i, c in enumerate(codes):
+            f.write(f"@r{i}\n{''.join('NACGTN'[int(x)] for x in c)}\n+\n{'I' * len(c)}\n")
+
+
+def write_record(path: str, out: dict, timings: list) -> None:
+    with open(path, "w") as f:
+        json.dump({**out, "shard_timings": timings}, f, indent=1)
+    log(f"record written to {path}")
+
+
+def finish(out: dict, failed: list[str]) -> int:
+    """Print the record as the last line of standard output -> exit code."""
+    print(json.dumps(out), flush=True)
     if failed:
         log("FAILED: " + "; ".join(failed))
-    return int(bool(failed)), out, results, codes
+    return int(bool(failed))
+
+
+def cli_stage(state_path: str):
+    """The command line's run of a state file that run() wrote: `quasimap
+    --engine auto` as a child process (cli_run), its records against every
+    read's, added to the record -> (exit code, record). main() runs it in
+    a fresh process (run() execs into it), so that the library run's
+    torch, CUDA context and heap are gone while the child holds the index."""
+    sys.path.insert(0, ROOT)
+    with open(state_path) as f:
+        st = json.load(f)
+    out = st["record"]
+    cli = out["cli"] = cli_run(st["index_dir"], st["want"], st["workdir"], st["device"],
+                               st["want_shards"])
+    if cli["rc"] == 0:
+        log(f"quasimap --engine auto ({cli['engine']}, child process): {cli['wall_s']:.1f}s "
+            f"(load {cli['load_s']:.1f}s, sweep {cli['sweep_s']:.1f}s), peak RSS "
+            f"{cli['child_peak_rss_gb']:.2f} GB beside this process's "
+            f"{cli['parent_rss_gb_at_start']:.2f}; {cli['launches']}; "
+            f"{cli['reads_unequal']} of {cli['reads_checked']} reads unequal")
+    else:
+        log(f"quasimap returned {cli['rc']}:\n{cli['stderr_tail']}")
+    if st["json_out"]:
+        write_record(st["json_out"], out, st["timings"])
+    cli_bad = (cli["rc"] != 0 or cli["reads_unequal"] or cli["reads_not_in_batch"]
+               or cli["engine"] != out["cli_engine_auto"]["engine"]
+               or (st["device"] == "cuda" and cli["engine"] == "staged"
+                   and cli["launches"]["extend_packed_anchors"] < st["want_shards"]))
+    failed = st["failed"] + (["the command line failed, picked another engine, skipped K9 "
+                              "on a shard or wrote other records"] if cli_bad else [])
+    return finish(out, failed), out
 
 
 if __name__ == "__main__":

@@ -65,8 +65,9 @@ def test_pipeline_equals_reference_staged(gs, tmp_path):
     """The script's whole pipeline, saving its index: its staged records
     equal rapmap_tpu.parallel.staged's StagedMapper on the same (saved)
     index and reads, every read agrees with the oracle, the SA is int64,
-    every shard was swept, the command line's records of the sampled reads
-    equal the library's, and --drop-fasta removed the FASTA once built."""
+    every shard was swept, the command line's records of every read (a
+    child process) equal the library's, and --drop-fasta removed the FASTA
+    once built."""
     from rapmap_tpu.config import MapConfig as RefConfig
     from rapmap_tpu.index.format import load_index as ref_load
     from rapmap_tpu.parallel.staged import StagedMapper as RefStaged
@@ -78,7 +79,7 @@ def test_pipeline_equals_reference_staged(gs, tmp_path):
     assert out["int64_sa"] and out["sa_dtype"] == "int64"
     assert out["oracle_parity"] == "256/256" and out["every_shard_swept"]
     assert out["n_shards"] == 3 and out["map_rate_pct"] > 90
-    assert out["cli"]["sample_checked"] == 256 and out["cli"]["sample_unequal"] == 0
+    assert out["cli"]["reads_checked"] == 256 and out["cli"]["reads_unequal"] == 0
     ridx = ref_load(os.path.join(work, "idx"))
     assert np.asarray(ridx.sa).dtype == np.int64
     ref = RefStaged(ridx, RefConfig(k=31, max_hits_per_strand=8), n_shards=3, read_len=76,
@@ -103,13 +104,21 @@ def test_preflight_refuses_short_memory(gs, tmp_path, monkeypatch, capsys):
 
 def test_preflight_plan_at_genome_scale(gs):
     """The plan at 2.2 Gbase in the int64 layout: ~41 B a base of mapping
-    arrays, the build's ~43 B a base, and with --save-index as much disk."""
+    arrays, where the build peaks too (its scans hold a chunk besides their
+    results), each process's measured share above them, and with
+    --save-index as much disk; --cli adds the command line's child, which
+    peaks below the library sweep."""
     p = gs.plan_bytes(int(2.2e9), big_sa=True, shard_gb=2, fasta=True, save_index=True,
                       save_core=True, ckpt_bytes=0)
+    index = int(41.25 * 2.2e9)
     assert p["host_bytes_per_base"] == 41.25
-    assert p["host_build"] == int(43 * 2.2e9) + 3 * 2**30
-    assert p["host_total"] == int(41.25 * 2.2e9) + 6 * 2**30 + 3 * 2**30
-    assert p["disk"]["index"] == int(41.25 * 2.2e9) and p["disk"]["core"] == int(5 * 2.2e9)
+    assert p["host_build"] == index + gs.BUILD_OVER
+    assert p["host_total"] == index + 6 * 2**30 + gs.SWEEP_OVER
+    assert p["disk"]["index"] == index and p["disk"]["core"] == int(5 * 2.2e9)
+    c = gs.plan_bytes(int(2.2e9), big_sa=True, shard_gb=2, fasta=True, save_index=False,
+                      save_core=True, ckpt_bytes=0, cli=True)
+    assert sum(c["host_cli"].values()) == index + 6 * 2**30 + gs.CLI_OVER
+    assert c["host_total"] == p["host_total"] and not p["host_cli"]
 
 
 def test_no_card_fails(gs, tmp_path, monkeypatch):

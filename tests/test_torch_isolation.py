@@ -218,11 +218,13 @@ def _imports(path: str) -> set[str]:
 
 
 @pytest.mark.parametrize("where", ["parallel", "chip_smoke.py",
-                                   "scripts/genome_scale_torch.py"])
+                                   "scripts/genome_scale_torch.py",
+                                   "scripts/core_artifact_genome_torch.py"])
 def test_no_jax_imports(where):
     """The parallel subpackage (staged, dp, multihost, sharded),
-    chip_smoke.py and scripts/genome_scale_torch.py name neither jax nor
-    rapmap_tpu in any import statement (the run above refuses them at
+    chip_smoke.py, scripts/genome_scale_torch.py and
+    scripts/core_artifact_genome_torch.py name neither jax nor rapmap_tpu
+    in any import statement (the run above refuses them at
     import; this reads the source, so an import on a path the run does not
     take counts too)."""
     root = os.path.join(REPO, "rapmap_tpu_torch", where) if where == "parallel" else REPO
