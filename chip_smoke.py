@@ -60,7 +60,10 @@ compact artifacts (see phase_anchor_kernel, phase_artifacts, phase_staged),
 the int64-SA layout on the staged engine and the genome-scale script at
 0.02 Gbase with its core artifact, `quasimap --engine auto` from that core
 as a child process and the core's reload by
-scripts/core_artifact_genome_torch.py (phase_staged_bigsa).
+scripts/core_artifact_genome_torch.py (phase_staged_bigsa); then
+scripts/scale_world_torch.py, the production-scale transcriptome's run, as a
+process at 2 Mbase with its sharded and command-line parts
+(phase_scale_world).
 Then data parallel and the SA-sharded engine: two replicas on the card
 (parallel/dp.py) against the single-device program on a batch of reads and
 one of pairs (dp_path, dp_pe_path); the sharded walk (csrc/walk.cu's
@@ -114,6 +117,12 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate (NVIDIA data sheet)
 # of the data sheet is the fp32 rate with an FMA counted as two operations.
 INT_OPS_PER_CLOCK_PER_SM = 64
 INT_OPS_PER_S = 132 * 64 * 1.98e9  # H100 SXM's nominal; main() sets the card's
+# 32-bit integer operations of one compare-exchange of the bitonic sort's
+# 64-bit keys, as csrc/sort2.cu's exchange() does it: the unsigned compare as
+# two 32-bit compares (low word, then high with the carry) and the two 64-bit
+# selects (min, max) as four 32-bit ones; its shuffle and cluster strides do
+# at least as many
+SORT_OPS_PER_EXCHANGE = 6
 READ_LEN = 76
 BATCHES = 8  # per run; each batch is 4 chunks
 PE_BATCHES = 4  # paired-end batches, of 4 chunks each
@@ -329,14 +338,15 @@ def phase_sort_kernel(dev, timer):
     library_ms, _ = device_ms(lambda: torch.sort(key), 200, cuda)
     log2n = n.bit_length() - 1
     nbytes = 16 * n                         # read hi, lo once; write them once
-    ops = (n // 2) * log2n * (log2n + 1) // 2  # 64-bit compare-exchanges
+    exchanges = (n // 2) * log2n * (log2n + 1) // 2  # 64-bit compare-exchanges
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT_OPS_PER_S * 1e3
+    t_ops = exchanges * SORT_OPS_PER_EXCHANGE / INT_OPS_PER_S * 1e3
     timing = dict(
         n=n, path=path(n), ms=ms, wrapper_ms=wrapper_ms, device_ms_by_kernel=ms_by,
         plain_ms=plain_ms, library_ms=library_ms, library_wrapper_ms=library_wrapper_ms,
         bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
-        bytes=nbytes, compare_exchanges=ops,
+        bytes=nbytes, compare_exchanges=exchanges, ops_per_exchange=SORT_OPS_PER_EXCHANGE,
+        bytes_bound_ms=t_bytes, operations_bound_ms=t_ops,
     )
     emit("kernel_vs_plain", kernel="bitonic_sort_pairs", ok=ok, max_abs_err=max_err,
          checks=checks, timing=timing)
@@ -3493,6 +3503,56 @@ def phase_staged_bigsa(dev, cfg, work: str, B: int, n_txps: int, seed: int, cuda
     return launches
 
 
+def phase_scale_world(work: str, cuda: bool) -> dict:
+    """scripts/scale_world_torch.py as a process at a size the smoke affords
+    (2 Mbase, 65,536 reads in one batch; on the CPU rehearsal 0.05 Mbase):
+    its SE, PE and bitonic passes, the CPU's plain batches, 512 reads and
+    256 pairs held to the oracle after the fallback, `quasimap --engine auto`
+    as child processes (SE and PE, every read's SAM lines against the
+    library's), and the 96 slot64 sharded reads; its JSON line is this
+    phase's record -> launch counts by path (K1, the walk and K8 must each
+    launch on the card)."""
+    scripts = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts")
+    size = (["--mbase", "2", "--reads", "65536", "--batch", "65536", "--oracle-sample", "512"]
+            if cuda else ["--mbase", "0.05", "--reads", "512", "--batch", "256",
+                          "--oracle-sample", "64", "--device", "cpu"])
+    argv = [sys.executable, os.path.join(scripts, "scale_world_torch.py"), *size,
+            "--sharded", "--cli", "--workdir", os.path.join(work, "scale")]
+    t0 = time.time()
+    out = subprocess.run(argv, capture_output=True, text=True, timeout=600)
+    wall = time.time() - t0
+    lines = out.stdout.strip().splitlines()
+    rec = json.loads(lines[-1]) if out.returncode == 0 and lines else None
+    emit("scale_world_script", argv=argv[2:], rc=out.returncode, wall_s=wall, record=rec,
+         stderr_tail=None if rec else out.stderr[-3000:])
+    if rec is None:
+        raise RuntimeError("scale_world_script: the run failed (a read, a pair, a SAM line or "
+                           "a sharded read differs, or a kernel did not launch)")
+    orc, cli, sh = rec["oracle"], rec["cli"], rec["sharded"]
+    launches = {"scale_world_script_se": rec["se"]["launches"],
+                "scale_world_script_pe": rec["pe"]["launches"],
+                "scale_world_script_bitonic": rec["bitonic_pass"]["launches"],
+                "scale_world_script_sharded": sh["launches"],
+                "scale_world_script_cli_se": cli["se"]["launches"],
+                "scale_world_script_cli_pe": cli["pe"]["launches"]}
+    equal = (not orc["oracle_se"]["unequal"] and not orc["oracle_pe"]["unequal"]
+             and rec["cpu_plain"]["se_equal"] and rec["cpu_plain"]["pe_equal"]
+             and rec["bitonic_pass"]["equal_twin"] and not sh["unequal"]
+             and all(c["engine"] == "replicated" and not c["unequal"] and not c["extra"]
+                     for c in cli.values()))
+    launched = not cuda or all(launches[path].get(kernel, 0) > 0 for path, kernel in (
+        ("scale_world_script_bitonic", "bitonic_sort_pairs"),
+        ("scale_world_script_se", "anchor_walk"), ("scale_world_script_pe", "anchor_walk"),
+        ("scale_world_script_sharded", "sharded_walk"),
+        ("scale_world_script_cli_se", "anchor_walk"),
+        ("scale_world_script_cli_pe", "anchor_walk")))
+    if not (equal and launched):
+        raise RuntimeError("scale_world_script: a compared read differs, the command line did "
+                           f"not pick the replicated engine, or a kernel did not launch "
+                           f"({launches})")
+    return launches
+
+
 def head_of(path: str, n: int) -> list[str]:
     """A SAM file's lines without @PG, of its first n reads (pairs) only:
     read names start r<i>: or p<i>:."""
@@ -4381,6 +4441,10 @@ def main() -> int:
     staged_cli.update(phase_staged_bigsa(dev, cfg, work, B, min(2000, args.txps), args.seed,
                                          cuda, force_cpu, cli_bs))
     staged_path_launches = {**staged_launches, **staged_cli}
+    # the production-scale transcriptome's script (BASELINE.json config 4)
+    if cuda:
+        torch.cuda.empty_cache()
+    scale_launches = phase_scale_world(work, cuda)
 
     # ---- data parallel, the SA-sharded engine, two command-line ranks -------
     # two replicas on the card against the single-device program; the
@@ -4420,6 +4484,9 @@ def main() -> int:
     def on_staged(kernel):
         return {path: n[kernel] for path, n in staged_path_launches.items()}
 
+    def on_scale(kernel):
+        return {path: n.get(kernel, 0) for path, n in scale_launches.items()}
+
     cli_launches = {"cli_default": cli_default["launches"], "cli_chunked": cli_chunked["launches"],
                     "cli_fallback_starved": rep["starved"]["launches"],
                     "cli_fallback_ample": rep["ample"]["launches"],
@@ -4453,10 +4520,12 @@ def main() -> int:
         "launches": launches["bitonic_sort_pairs"],
         "launches_on_cli_paths": on_cli("bitonic_sort_pairs"),
         "launches_on_pe_paths": on_pe("bitonic_sort_pairs"),
-        "launches_on_pseudo_paths": on_ps("bitonic_sort_pairs"), "max_abs_err": sort_err,
+        "launches_on_pseudo_paths": on_ps("bitonic_sort_pairs"),
+        "launches_on_scale_paths": on_scale("bitonic_sort_pairs"), "max_abs_err": sort_err,
         "matches_plain": sort_ok, "ms": sort_t["ms"], "wrapper_ms": sort_t["wrapper_ms"],
         "plain_ms": sort_t["plain_ms"], "bound_ms": sort_t["bound_ms"],
-        "bound_by": sort_t["bound_by"], "library_ms": sort_t["library_ms"],
+        "bound_by": sort_t["bound_by"], "bytes_bound_ms": sort_t["bytes_bound_ms"],
+        "operations_bound_ms": sort_t["operations_bound_ms"], "library_ms": sort_t["library_ms"],
         "library_wrapper_ms": sort_t["library_wrapper_ms"],
     }, {
         "name": "anchor_walk", "route": "cuda",
@@ -4465,7 +4534,8 @@ def main() -> int:
         "launches": launches["anchor_walk"],
         "launches_on_cli_paths": on_cli("anchor_walk"),
         "launches_on_pe_paths": on_pe("anchor_walk"),
-        "launches_on_pseudo_paths": on_ps("anchor_walk"), "max_abs_err": walk_err,
+        "launches_on_pseudo_paths": on_ps("anchor_walk"),
+        "launches_on_scale_paths": on_scale("anchor_walk"), "max_abs_err": walk_err,
         "matches_plain": walk_ok, "ms": walk_t["ms"], "cold_ms": walk_t["cold_ms"],
         "wrapper_ms": walk_t["wrapper_ms"], "plain_ms": walk_t["plain_ms"],
         "bound_ms": walk_t["bound_ms"], "bound_by": walk_t["bound_by"], "library_ms": None,
@@ -4544,6 +4614,7 @@ def main() -> int:
         "replaces": "rapmap_tpu/parallel/sharded.py:619",
         "launches": sh_launches["sharded_path"]["sharded_walk"],
         "launches_on_parallel_paths": on_par("sharded_walk"),
+        "launches_on_scale_paths": on_scale("sharded_walk"),
         "max_abs_err": k8_err, "matches_plain": k8_ok, **{x: k8_t["paired_row"][x] for x in (
             "ms", "cold_ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,

@@ -223,7 +223,7 @@ def _choose_quasi_engine(args, idx, device) -> str:
     budget = _device_budget_bytes(device)
     if n_slots >= 2**31 or est > budget:
         log.info(
-            "index needs ~%.2f GB on device (budget %.2f GB%s) -> "
+            "index needs ~%.2f GiB on device (budget %.2f GiB%s) -> "
             "host-staged engine",
             est / 2**30, budget / 2**30,
             "" if n_slots < 2**31 else "; >= 2^31 SA slots",
@@ -247,7 +247,7 @@ def _choose_pseudo_engine(args, idx, device) -> str:
     budget = _device_budget_bytes(device)
     if n_occ >= 2**32 or est > budget:
         log.info(
-            "pseudo index needs ~%.2f GB on device (budget %.2f GB%s) -> "
+            "pseudo index needs ~%.2f GiB on device (budget %.2f GiB%s) -> "
             "host-staged engine",
             est / 2**30, budget / 2**30,
             "" if n_occ < 2**32 else "; >= 2^32 occurrences",
@@ -595,7 +595,7 @@ def main(argv: list[str] | None = None) -> int:
             from rapmap_tpu_torch.index.format import save_core_index
 
             info = save_core_index(idx, args.index)
-            log.info("core index written to %s (%.2f GB on disk)",
+            log.info("core index written to %s (%.2f GiB on disk)",
                      args.index, info["bytes"] / 2**30)
         return 0
     if args.cmd == "pseudoindex":

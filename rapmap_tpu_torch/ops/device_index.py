@@ -19,11 +19,15 @@ drops sa_ext, kmer_rows, lut_rows, text and sa; the full upload keeps them,
 except text and sa for an int64 (big) SA; both keep the tiny txp_align.
 Words keep the reference's int32 bit patterns (ops.bits widens them on
 gather). All derived at upload from the on-disk arrays (disk format
-unchanged).
+unchanged), each table a piece of rows at a time and sent to the device
+before the next is made, so the host holds the index, one table and a few
+pieces at once.
 """
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -32,6 +36,29 @@ import torch
 
 from rapmap_tpu_torch.index.format import QuasiIndex
 from rapmap_tpu_torch.ops.align import make_txp_align
+
+
+# The upload's tables are made this many rows at a time, the pieces spread
+# over up to _PIECE_THREADS threads (numpy releases the GIL), so that their
+# transients stay a few pieces wide at any index size.
+_PIECE_ROWS = 1 << 20
+_PIECE_THREADS = min(8, os.cpu_count() or 1)
+
+
+def rows_in_pieces(n: int, width: int, fill, out: np.ndarray | None = None) -> np.ndarray:
+    """An (n, width) int32 table whose rows [a, b) are fill(a, b), made a
+    piece of _PIECE_ROWS rows at a time on _PIECE_THREADS threads; into the
+    first n rows of `out` when given."""
+    if out is None:
+        out = np.empty((n, width), np.int32)
+
+    def one(a: int) -> None:
+        b = min(a + _PIECE_ROWS, n)
+        out[a:b] = fill(a, b)
+
+    with ThreadPoolExecutor(_PIECE_THREADS) as ex:
+        list(ex.map(one, range(0, n, _PIECE_ROWS)))
+    return out
 
 
 class DeviceQuasiIndex(NamedTuple):
@@ -175,46 +202,35 @@ def canonical_class_rows(idx: QuasiIndex) -> np.ndarray:
     """(2^t_bits, 6) int32 CHD table rows [chi, clo, b_fwd, e_fwd, b_rc,
     e_rc]; the class key is the canonical (min of kmer, rc) orientation. An
     orientation absent from the text gets b=e=0 (empty interval -> not
-    found); empty slots get a sentinel row no query matches."""
+    found); empty slots get a sentinel row no query matches. Made in pieces
+    of slots: no temporary spans the table."""
     from rapmap_tpu_torch.index.chd import key64_of, rc_key64_np
 
-    perm = np.asarray(idx.chd_perm, dtype=np.int64)
-    pc = np.clip(perm, 0, None)
-    cls = np.asarray(idx.chd_cls, dtype=np.int64)  # (n_cls, 2)
-    fwd_r, rc_r = cls[:, 0], cls[:, 1]
-    key64 = key64_of(idx.kmer_hi, idx.kmer_lo)
-    ck = np.where(
-        fwd_r >= 0,
-        key64[np.clip(fwd_r, 0, None)],
-        rc_key64_np(key64[np.clip(rc_r, 0, None)], idx.k),
-    )
-    kb = np.asarray(idx.kmer_b, dtype=np.int32)
-    ke = np.asarray(idx.kmer_e, dtype=np.int32)
-
-    def iv(rowsel):
-        ok = rowsel >= 0
-        r = np.clip(rowsel, 0, None)
-        return (
-            np.where(ok, kb[r], 0).astype(np.int32),
-            np.where(ok, ke[r], 0).astype(np.int32),
-        )
-
-    bf, ef = iv(fwd_r)
-    br, er = iv(rc_r)
-    cls_rows = np.stack(
-        [
-            (ck >> np.uint64(32)).astype(np.uint32).view(np.int32),
-            (ck & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32),
-            bf, ef, br, er,
-        ],
-        axis=1,
-    )
+    perm = np.asarray(idx.chd_perm)
+    cls = np.asarray(idx.chd_cls)  # (n_cls, 2) [fwd_row, rc_row]
+    khi, klo = np.asarray(idx.kmer_hi), np.asarray(idx.kmer_lo)
+    kb, ke = np.asarray(idx.kmer_b), np.asarray(idx.kmer_e)
     sentinel = np.array([-1, -1, 0, 0, 0, 0], dtype=np.int32)
-    return np.where(
-        (perm >= 0)[:, None],
-        cls_rows[np.clip(pc, 0, len(cls_rows) - 1)],
-        sentinel[None, :],
-    ).astype(np.int32)
+    top = max(len(cls) - 1, 0)
+
+    def fill(a: int, b: int) -> np.ndarray:
+        p = perm[a:b]
+        if not len(cls):
+            return np.broadcast_to(sentinel, (b - a, 6))
+        c = cls[np.clip(p, 0, top)]
+        fwd_r, rc_r = c[:, 0], c[:, 1]
+        f, r = np.clip(fwd_r, 0, None), np.clip(rc_r, 0, None)
+        ck = np.where(fwd_r >= 0, key64_of(khi[f], klo[f]),
+                      rc_key64_np(key64_of(khi[r], klo[r]), idx.k))
+        rows = np.empty((b - a, 6), np.int32)
+        rows[:, 0] = (ck >> np.uint64(32)).astype(np.uint32).view(np.int32)
+        rows[:, 1] = (ck & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
+        for col, sel, bound in ((2, fwd_r, kb), (3, fwd_r, ke), (4, rc_r, kb), (5, rc_r, ke)):
+            rows[:, col] = np.where(sel >= 0, bound[np.clip(sel, 0, None)], 0).astype(np.int32)
+        rows[p < 0] = sentinel
+        return rows
+
+    return rows_in_pieces(len(perm), 6, fill)
 
 
 def kmer_table_rows(idx: QuasiIndex) -> np.ndarray:
@@ -236,12 +252,16 @@ def kmer_table_rows(idx: QuasiIndex) -> np.ndarray:
 def legacy_chd_rows(idx: QuasiIndex, kmer_rows: np.ndarray) -> np.ndarray:
     """(2^t_bits, 4) int32 per-strand CHD rows of a CHD that is not
     canonical: kmer_rows[perm], empty slots a row no query matches."""
-    perm = np.asarray(idx.chd_perm, dtype=np.int64)
+    perm = np.asarray(idx.chd_perm)
     sentinel = np.array([-1, -1, 0, 0], dtype=np.int32)
-    return np.where(
-        (perm >= 0)[:, None], kmer_rows[np.clip(perm, 0, len(kmer_rows) - 1)],
-        sentinel[None, :],
-    ).astype(np.int32)
+
+    def fill(a: int, b: int) -> np.ndarray:
+        p = perm[a:b]
+        rows = kmer_rows[np.clip(p, 0, len(kmer_rows) - 1)]
+        rows[p < 0] = sentinel
+        return rows
+
+    return rows_in_pieces(len(perm), 4, fill)
 
 
 def upload_index(
@@ -261,51 +281,61 @@ def upload_index(
         raise ValueError("lean upload requires a CHD-bearing index")
     big_sa = np.asarray(idx.sa).dtype == np.int64
     st = EngineStatic.for_index(idx)
+    sa = np.asarray(idx.sa)
+    n = len(sa)
     sa_txp = np.asarray(idx.sa_txp, dtype=np.int32)
     sa_tpos = np.asarray(idx.sa_tpos, dtype=np.int32)
     off = np.asarray(idx.txp_offsets, dtype=np.int64)
     tl = np.asarray(idx.txp_lens, dtype=np.int32)
-    tend = off[sa_txp] + tl[sa_txp]
-    if meta_pairs:
-        # pair rows [t_i, p_i, t_{i+1}, p_{i+1}]: one 16 B gather resolves
-        # TWO adjacent SA positions of an expansion interval (ops.collate
-        # cfg.expand_pairs path); the first two columns still serve any
-        # single-position gather. Last row duplicates itself as its pair.
-        nxt = np.minimum(np.arange(1, len(sa_txp) + 1), len(sa_txp) - 1)
-        sa_meta = np.stack([sa_txp, sa_tpos, sa_txp[nxt], sa_tpos[nxt]], axis=1)
-    else:
-        sa_meta = np.stack([sa_txp, sa_tpos], axis=1)
+    tend_of = off + tl  # a transcript's end, indexed by sa_txp a piece at a time
     t2b = np.asarray(idx.text2b, dtype=np.uint32)
-    nw = len(t2b)
-    t2p = np.concatenate([t2b, np.zeros(4, np.uint32)])
-    text2q = np.stack([t2p[i : i + nw] for i in range(4)], axis=1).view(np.int32)
-    sa_cmp = sa_cmp_rows(idx.sa, tend, idx.k, t2b)
-    kmer_rows = kmer_table_rows(idx)
 
     def dev(a, dtype=np.int32):
         a = np.ascontiguousarray(a, dtype=dtype)
         # arrays of a memory-mapped index are read-only; torch wants writable memory
         return torch.from_numpy(a if a.flags.writeable else a.copy()).to(device)
 
+    if meta_pairs:
+        # pair rows [t_i, p_i, t_{i+1}, p_{i+1}]: one 16 B gather resolves
+        # TWO adjacent SA positions of an expansion interval (ops.collate
+        # cfg.expand_pairs path); the first two columns still serve any
+        # single-position gather. Last row duplicates itself as its pair.
+        def meta(a: int, b: int) -> np.ndarray:
+            nxt = np.minimum(np.arange(a + 1, b + 1), n - 1)
+            return np.stack([sa_txp[a:b], sa_tpos[a:b], sa_txp[nxt], sa_tpos[nxt]], axis=1)
+
+        sa_meta = dev(rows_in_pieces(n, 4, meta))
+    else:
+        sa_meta = dev(rows_in_pieces(n, 2, lambda a, b: np.stack([sa_txp[a:b], sa_tpos[a:b]],
+                                                                  axis=1)))
+    sa_cmp = dev(rows_in_pieces(n, 3 + SA_CMP_WORDS, lambda a, b: sa_cmp_rows(
+        sa[a:b], tend_of[sa_txp[a:b]], idx.k, t2b)))
+    nw = len(t2b)
+    t2p = np.concatenate([t2b, np.zeros(4, np.uint32)])
+    text2q = dev(np.stack([t2p[i : i + nw] for i in range(4)], axis=1).view(np.int32))
+    del t2p
+    full = not lean
+    kmer_rows = kmer_table_rows(idx) if full or (st.use_chd and not st.chd_canonical) else None
+
     chd_dir = chd_rows = None
     if st.use_chd:
         chd_dir = dev(np.asarray(idx.chd_dir, dtype=np.int32))
         chd_rows = dev(canonical_class_rows(idx) if st.chd_canonical
                        else legacy_chd_rows(idx, kmer_rows))
-    full = not lean
     flat = full and not big_sa
     lut = np.asarray(idx.prefix_lut, dtype=np.int32)
     didx = DeviceQuasiIndex(
-        text2q=dev(text2q),
-        sa_meta=dev(sa_meta),
-        sa_cmp=dev(sa_cmp),
+        text2q=text2q,
+        sa_meta=sa_meta,
+        sa_cmp=sa_cmp,
         chd_dir=chd_dir,
         chd_rows=chd_rows,
-        sa_ext=dev(sa_ext_cols(idx.sa, tend, idx.k)) if full else None,
+        sa_ext=dev(rows_in_pieces(n, 3, lambda a, b: sa_ext_cols(
+            sa[a:b], tend_of[sa_txp[a:b]], idx.k))) if full else None,
         kmer_rows=dev(kmer_rows) if full else None,
         lut_rows=dev(np.stack([lut[:-1], lut[1:]], axis=1)) if full else None,
         text=dev(np.asarray(idx.text), np.int8) if flat else None,
-        sa=dev(np.asarray(idx.sa)) if flat else None,
+        sa=dev(sa) if flat else None,
         txp_align=dev(make_txp_align(off, tl)),
     )
     return didx, st

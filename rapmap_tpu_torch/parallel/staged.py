@@ -47,7 +47,7 @@ import torch
 from rapmap_tpu_torch.config import MapConfig
 from rapmap_tpu_torch.index.format import QuasiIndex
 from rapmap_tpu_torch.ops.device_index import (
-    SA_CMP_WORDS, DeviceQuasiIndex, EngineStatic, sa_cmp_rows,
+    SA_CMP_WORDS, DeviceQuasiIndex, EngineStatic, rows_in_pieces, sa_cmp_rows,
 )
 
 log = logging.getLogger("tqm.staged")
@@ -60,12 +60,6 @@ _MAX_XFER = int(os.environ.get("TQM_STAGED_XFER_MB", "256")) << 20
 # shard's span must stay below this (a module constant so that the
 # occurrence-skew re-cut of staged_geometry_pseudo is testable small).
 _S_PAD_LIMIT = 2**31
-
-# A shard's sa_cmp rows are derived this many slots at a time, the pieces
-# spread over up to _SLICE_THREADS threads (numpy releases the GIL), so the
-# host's transients stay a few pieces wide at any shard size.
-_SLICE_ROWS = 1 << 20
-_SLICE_THREADS = min(8, os.cpu_count() or 1)
 
 # rows of the k-mer table a chunk of _max_width's pass takes
 _ROWS = 1 << 26
@@ -182,14 +176,11 @@ def shard_device_arrays(idx: QuasiIndex, geo: StagedGeometry, p: int):
                + np.asarray(idx.txp_lens, dtype=np.int64))
     t2b = np.asarray(idx.text2b, dtype=np.uint32)
 
-    def rows(a: int) -> None:
-        b = min(a + _SLICE_ROWS, s1 - s0)
-        cmp_rows[a:b] = sa_cmp_rows(np.asarray(idx.sa[s0 + a : s0 + b], dtype=np.int64),
-                                    tend_of[np.asarray(idx.sa_txp[s0 + a : s0 + b])],
-                                    idx.k, t2b)
-
-    with ThreadPoolExecutor(_SLICE_THREADS) as ex:
-        list(ex.map(rows, range(0, s1 - s0, _SLICE_ROWS)))
+    # the rows a piece at a time (ops/device_index.py::rows_in_pieces), so
+    # the host's transients stay a few pieces wide at any shard size
+    rows_in_pieces(s1 - s0, 3 + SA_CMP_WORDS, lambda a, b: sa_cmp_rows(
+        np.asarray(idx.sa[s0 + a : s0 + b], dtype=np.int64),
+        tend_of[np.asarray(idx.sa_txp[s0 + a : s0 + b])], idx.k, t2b), out=cmp_rows)
     didx = DeviceQuasiIndex(
         text2q=np.zeros((1, 4), np.int32),
         sa_meta=np.zeros((1, 2), np.int32),  # expansion happens on the host

@@ -330,6 +330,48 @@ def rss_now_gb() -> float:
     return proc_status_kb("self", "VmRSS:") * 1024 / 1e9
 
 
+def run_child(argv: list[str], env: dict, err_path: str) -> dict:
+    """argv as a child process from the checkout's root, its standard error
+    to err_path -> its exit code, wall seconds, wait4's maxrss (on Linux it
+    starts from this process's peak), the largest VmRSS read every 0.2 s,
+    the lowest MemAvailable while it ran, and its standard error."""
+    watch = MemWatch()
+    t0 = time.time()
+    with open(err_path, "w") as err:
+        child = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
+                                 stderr=err)
+        polled = 0
+        while True:
+            pid, status, usage = os.wait4(child.pid, os.WNOHANG)
+            if pid:
+                break
+            polled = max(polled, proc_status_kb(child.pid, "VmRSS:"))
+            time.sleep(0.2)
+    wall = time.time() - t0
+    with open(err_path) as f:
+        log_text = f.read()
+    return dict(rc=os.waitstatus_to_exitcode(status), wall_s=wall,
+                maxrss_gb=usage.ru_maxrss * 1024 / 1e9, rss_polled_max_gb=polled * 1024 / 1e9,
+                mem_available_low_bytes=watch.low, log=log_text)
+
+
+def cli_profile(log_text: str) -> tuple[dict, dict]:
+    """The stage seconds and the kernel launches that `quasimap --profile`
+    logs -> ({stage: seconds}, {kernel: launches})."""
+    from rapmap_tpu_torch import kernels
+
+    stage = {}
+    launches = dict.fromkeys(kernels.LAUNCHES, 0)
+    for line in log_text.splitlines():
+        body = line.split("] ", 1)[-1]
+        if body.startswith("stage "):
+            name, secs = body.split()[1:3]
+            stage[name] = float(secs.rstrip("s"))
+        elif body.startswith("kernel launches: "):
+            launches.update(json.loads(body[len("kernel launches: "):]))
+    return stage, launches
+
+
 def cli_run(index_dir: str, want: list, workdir: str, device: str, want_shards: int) -> dict:
     """`python -m rapmap_tpu_torch.cli quasimap --engine auto --batchSize
     <reads> --profile` over the run's reads (workdir/reads.fq), as a child
@@ -348,40 +390,16 @@ def cli_run(index_dir: str, want: list, workdir: str, device: str, want_shards: 
     argv = [sys.executable, "-m", "rapmap_tpu_torch.cli", "quasimap", "-i", index_dir,
             "-r", fq, "-o", sam, "--engine", "auto", "--batchSize", str(len(want)),
             "--statsJson", stats, "--profile"]
-    watch = MemWatch()
     parent_rss = rss_now_gb()
-    t0 = time.time()
-    with open(err_path, "w") as err:
-        child = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
-                                 stderr=err)
-        polled = 0
-        while True:
-            pid, status, usage = os.wait4(child.pid, os.WNOHANG)
-            if pid:
-                break
-            polled = max(polled, proc_status_kb(child.pid, "VmRSS:"))
-            time.sleep(0.2)
-        child.returncode = os.waitstatus_to_exitcode(status)
-    wall = time.time() - t0
-    with open(err_path) as f:
-        log_text = f.read()
-    rec = dict(argv=argv[2:], index=index_dir, rc=child.returncode, wall_s=wall,
-               parent_rss_gb_at_start=parent_rss, child_peak_rss_gb=usage.ru_maxrss * 1024 / 1e9,
-               child_rss_polled_max_gb=polled * 1024 / 1e9,
-               mem_available_low_bytes=watch.low, want_shards=want_shards)
-    if child.returncode != 0:
+    ch = run_child(argv, env, err_path)
+    log_text = ch["log"]
+    rec = dict(argv=argv[2:], index=index_dir, rc=ch["rc"], wall_s=ch["wall_s"],
+               parent_rss_gb_at_start=parent_rss, child_peak_rss_gb=ch["maxrss_gb"],
+               child_rss_polled_max_gb=ch["rss_polled_max_gb"],
+               mem_available_low_bytes=ch["mem_available_low_bytes"], want_shards=want_shards)
+    if ch["rc"] != 0:
         return dict(rec, stderr_tail=log_text[-3000:])
-    from rapmap_tpu_torch import kernels
-
-    stage = {}
-    launches = dict.fromkeys(kernels.LAUNCHES, 0)
-    for line in log_text.splitlines():
-        body = line.split("] ", 1)[-1]
-        if body.startswith("stage "):
-            name, secs = body.split()[1:3]
-            stage[name] = float(secs.rstrip("s"))
-        elif body.startswith("kernel launches: "):
-            launches.update(json.loads(body[len("kernel launches: "):]))
+    stage, launches = cli_profile(log_text)
     with open(stats) as f:
         st = json.load(f)
     got = sam_records(sam)

@@ -180,13 +180,14 @@ def test_shard_slice_in_pieces(big_idx, monkeypatch):
     """A shard's arrays cut into sa_cmp pieces of 1,000 slots over 4 threads
     equal the one-piece slice; the widest interval, taken a chunk of rows
     at a time, equals the whole table's."""
+    import rapmap_tpu_torch.ops.device_index as di
     import rapmap_tpu_torch.parallel.staged as stg
     from rapmap_tpu_torch.ops.device_index import sa_cmp_rows
 
     geo = stg.staged_geometry(big_idx, 3)
     whole = [stg.shard_device_arrays(big_idx, geo, p) for p in range(3)]
-    monkeypatch.setattr(stg, "_SLICE_ROWS", 1000)
-    monkeypatch.setattr(stg, "_SLICE_THREADS", 4)
+    monkeypatch.setattr(di, "_PIECE_ROWS", 1000)
+    monkeypatch.setattr(di, "_PIECE_THREADS", 4)
     monkeypatch.setattr(stg, "_ROWS", 777)
     assert stg.staged_geometry(big_idx, 3) == geo
     assert geo.max_interval_idx == int((big_idx.kmer_e - big_idx.kmer_b).max())
