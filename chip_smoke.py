@@ -63,7 +63,10 @@ as a child process and the core's reload by
 scripts/core_artifact_genome_torch.py (phase_staged_bigsa); then
 scripts/scale_world_torch.py, the production-scale transcriptome's run, as a
 process at 2 Mbase with its sharded and command-line parts
-(phase_scale_world).
+(phase_scale_world); then bench.py's primary regime, the isoform
+transcriptome, by scripts/isoform_world_torch.py as a process on the full
+2,000-gene world at a cut depth, and the accuracy protocol by
+scripts/eval_accuracy_torch.py (phase_isoform_world).
 Then data parallel and the SA-sharded engine: two replicas on the card
 (parallel/dp.py) against the single-device program on a batch of reads and
 one of pairs (dp_path, dp_pe_path); the sharded walk (csrc/walk.cu's
@@ -3503,6 +3506,21 @@ def phase_staged_bigsa(dev, cfg, work: str, B: int, n_txps: int, seed: int, cuda
     return launches
 
 
+def script_record(argv: list[str], timeout: int) -> tuple[dict | None, list[str], dict]:
+    """A script as a process -> (its last line's JSON or None, its standard
+    output's lines, its exit code, wall seconds and, when it failed, the
+    tail of its standard error)."""
+    t0 = time.time()
+    out = subprocess.run(argv, capture_output=True, text=True, timeout=timeout)
+    lines = out.stdout.strip().splitlines()
+    try:
+        rec = json.loads(lines[-1]) if lines else None
+    except json.JSONDecodeError:
+        rec = None
+    return rec, lines, dict(rc=out.returncode, wall_s=time.time() - t0,
+                            stderr_tail=out.stderr[-3000:] if out.returncode else None)
+
+
 def phase_scale_world(work: str, cuda: bool) -> dict:
     """scripts/scale_world_torch.py as a process at a size the smoke affords
     (2 Mbase, 65,536 reads in one batch; on the CPU rehearsal 0.05 Mbase):
@@ -3518,14 +3536,9 @@ def phase_scale_world(work: str, cuda: bool) -> dict:
                           "--oracle-sample", "64", "--device", "cpu"])
     argv = [sys.executable, os.path.join(scripts, "scale_world_torch.py"), *size,
             "--sharded", "--cli", "--workdir", os.path.join(work, "scale")]
-    t0 = time.time()
-    out = subprocess.run(argv, capture_output=True, text=True, timeout=600)
-    wall = time.time() - t0
-    lines = out.stdout.strip().splitlines()
-    rec = json.loads(lines[-1]) if out.returncode == 0 and lines else None
-    emit("scale_world_script", argv=argv[2:], rc=out.returncode, wall_s=wall, record=rec,
-         stderr_tail=None if rec else out.stderr[-3000:])
-    if rec is None:
+    rec, _, ran = script_record(argv, 600)
+    emit("scale_world_script", argv=argv[2:], **ran, record=rec)
+    if ran["rc"] != 0 or rec is None:
         raise RuntimeError("scale_world_script: the run failed (a read, a pair, a SAM line or "
                            "a sharded read differs, or a kernel did not launch)")
     orc, cli, sh = rec["oracle"], rec["cli"], rec["sharded"]
@@ -3550,6 +3563,64 @@ def phase_scale_world(work: str, cuda: bool) -> dict:
         raise RuntimeError("scale_world_script: a compared read differs, the command line did "
                            f"not pick the replicated engine, or a kernel did not launch "
                            f"({launches})")
+    return launches
+
+
+def phase_isoform_world(work: str, cuda: bool) -> dict:
+    """bench.py's primary regime, the isoform transcriptome (2,000 genes of
+    2-8 isoforms, ~17 Mbase, its reads mapping to several transcripts), by
+    scripts/isoform_world_torch.py as a process at a cut depth (131,072
+    reads and 65,536 pairs; on the CPU rehearsal 40 genes): the auto-sized
+    budget with the pair pool, SE and PE passes, the bitonic pass (K1),
+    the CPU's plain batches, 512 reads and 256 pairs held to the oracle
+    (reads and pairs cut by a full record buffer or winner list counted
+    apart, in overflowed batches only), K2+K3 against its plain version,
+    and `quasimap` at its default flags as child processes, every SAM line
+    against the library's; then scripts/eval_accuracy_torch.py --isoform on
+    4,096 reads, plain and with --chimeraFrac 0.1 --mappingScore
+    --minScoreFraction 0.65. Their JSON lines are this phase's records ->
+    launch counts by path (the walk on SE, PE and both children, K1 in the
+    bitonic pass, the banded DP in the scored accuracy run)."""
+    scripts = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts")
+    size = (["--reads", "131072", "--oracle-sample", "512"] if cuda else
+            ["--genes", "40", "--reads", "1024", "--batch", "512", "--chunk", "256",
+             "--oracle-sample", "64", "--cli-batch", "256", "--device", "cpu"])
+    argv = [sys.executable, os.path.join(scripts, "isoform_world_torch.py"), *size, "--cli",
+            "--workdir", os.path.join(work, "isoform")]
+    rec, _, ran = script_record(argv, 900)
+    emit("isoform_world_script", argv=argv[2:], **ran, record=rec)
+    if ran["rc"] != 0 or rec is None or rec.get("failed"):
+        raise RuntimeError("isoform_world_script: the run failed "
+                           f"({(rec or {}).get('failed')})")
+    cli = rec["cli"]
+    launches = {"isoform_world_script_se": rec["se"]["launches"],
+                "isoform_world_script_pe": rec["pe"]["launches"],
+                "isoform_world_script_bitonic": rec["bitonic_pass"]["launches"],
+                "isoform_world_script_cli_se": cli["se"]["launches"],
+                "isoform_world_script_cli_pe": cli["pe"]["launches"]}
+    for name, flags in (("accuracy_script", []),
+                        ("accuracy_score_script", ["--chimeraFrac", "0.1", "--mappingScore",
+                                                   "--minScoreFraction", "0.65"])):
+        argv = [sys.executable, os.path.join(scripts, "eval_accuracy_torch.py"), "--isoform",
+                "-n", "4096" if cuda else "512", *flags, *([] if cuda else ["--device", "cpu"])]
+        result, lines, ran = script_record(argv, 600)
+        run = json.loads(lines[-2]) if ran["rc"] == 0 and len(lines) >= 2 else None
+        emit(name, argv=argv[2:], **ran, run=run, result=result)
+        if run is None:
+            raise RuntimeError(f"{name}: the accuracy run failed")
+        launches[name] = run["launches"]
+    equal = (rec["config"]["expand_pairs"]
+             and all(cli[k]["engine"] == "replicated" and not cli[k]["unequal"]
+                     for k in ("se", "pe")))
+    launched = not cuda or all(launches[path].get(kernel, 0) > 0 for path, kernel in (
+        ("isoform_world_script_se", "anchor_walk"), ("isoform_world_script_pe", "anchor_walk"),
+        ("isoform_world_script_cli_se", "anchor_walk"),
+        ("isoform_world_script_cli_pe", "anchor_walk"),
+        ("isoform_world_script_bitonic", "bitonic_sort_pairs"),
+        ("accuracy_script", "anchor_walk"), ("accuracy_score_script", "banded_scores")))
+    if not (equal and launched):
+        raise RuntimeError("isoform_world_script: the pair pool was off, the command line "
+                           f"differs, or a kernel did not launch ({launches})")
     return launches
 
 
@@ -4445,6 +4516,10 @@ def main() -> int:
     if cuda:
         torch.cuda.empty_cache()
     scale_launches = phase_scale_world(work, cuda)
+    # bench.py's primary regime, the isoform transcriptome, and the accuracy protocol
+    if cuda:
+        torch.cuda.empty_cache()
+    iso_launches = phase_isoform_world(work, cuda)
 
     # ---- data parallel, the SA-sharded engine, two command-line ranks -------
     # two replicas on the card against the single-device program; the
@@ -4487,6 +4562,9 @@ def main() -> int:
     def on_scale(kernel):
         return {path: n.get(kernel, 0) for path, n in scale_launches.items()}
 
+    def on_iso(kernel):
+        return {path: n.get(kernel, 0) for path, n in iso_launches.items()}
+
     cli_launches = {"cli_default": cli_default["launches"], "cli_chunked": cli_chunked["launches"],
                     "cli_fallback_starved": rep["starved"]["launches"],
                     "cli_fallback_ample": rep["ample"]["launches"],
@@ -4521,7 +4599,8 @@ def main() -> int:
         "launches_on_cli_paths": on_cli("bitonic_sort_pairs"),
         "launches_on_pe_paths": on_pe("bitonic_sort_pairs"),
         "launches_on_pseudo_paths": on_ps("bitonic_sort_pairs"),
-        "launches_on_scale_paths": on_scale("bitonic_sort_pairs"), "max_abs_err": sort_err,
+        "launches_on_scale_paths": on_scale("bitonic_sort_pairs"),
+        "launches_on_isoform_paths": on_iso("bitonic_sort_pairs"), "max_abs_err": sort_err,
         "matches_plain": sort_ok, "ms": sort_t["ms"], "wrapper_ms": sort_t["wrapper_ms"],
         "plain_ms": sort_t["plain_ms"], "bound_ms": sort_t["bound_ms"],
         "bound_by": sort_t["bound_by"], "bytes_bound_ms": sort_t["bytes_bound_ms"],
@@ -4535,7 +4614,8 @@ def main() -> int:
         "launches_on_cli_paths": on_cli("anchor_walk"),
         "launches_on_pe_paths": on_pe("anchor_walk"),
         "launches_on_pseudo_paths": on_ps("anchor_walk"),
-        "launches_on_scale_paths": on_scale("anchor_walk"), "max_abs_err": walk_err,
+        "launches_on_scale_paths": on_scale("anchor_walk"),
+        "launches_on_isoform_paths": on_iso("anchor_walk"), "max_abs_err": walk_err,
         "matches_plain": walk_ok, "ms": walk_t["ms"], "cold_ms": walk_t["cold_ms"],
         "wrapper_ms": walk_t["wrapper_ms"], "plain_ms": walk_t["plain_ms"],
         "bound_ms": walk_t["bound_ms"], "bound_by": walk_t["bound_by"], "library_ms": None,
@@ -4574,7 +4654,8 @@ def main() -> int:
         "replaces": "rapmap_tpu/ops/align.py:111",
         "launches": score_launches["banded_scores"],
         "launches_on_cli_paths": on_cli("banded_scores"),
-        "launches_on_pe_paths": on_pe("banded_scores"), "max_abs_err": score_err,
+        "launches_on_pe_paths": on_pe("banded_scores"),
+        "launches_on_isoform_paths": on_iso("banded_scores"), "max_abs_err": score_err,
         "matches_plain": score_ok, "ms": score_t["ms"], "cold_ms": score_t["cold_ms"],
         "wrapper_ms": score_t["wrapper_ms"], "plain_ms": score_t["plain_ms"],
         "bound_ms": score_t["bound_ms"], "bound_by": score_t["bound_by"], "library_ms": None,

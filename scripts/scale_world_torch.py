@@ -411,7 +411,7 @@ def kernel_checks(mapper, codes, c2, lens, cuda: bool, bitonic_n: int) -> dict:
     chunk of SE reads and one of mate-2 reads (through the wrapper and, on
     the card, the entry on 0xFF-filled outputs), the SE chunk timed with a
     warm and a cold L2 beside its counted byte bound (chip_smoke.py's
-    helpers)."""
+    helpers; on the card only)."""
     import torch
 
     import chip_smoke as cs
@@ -434,11 +434,14 @@ def kernel_checks(mapper, codes, c2, lens, cuda: bool, bitonic_n: int) -> dict:
     ops_rate = cs.INT_OPS_PER_S
     t_bytes = 16 * bitonic_n / cs.HBM_BYTES_PER_S * 1e3
     t_ops = exchanges * cs.SORT_OPS_PER_EXCHANGE / ops_rate * 1e3
-    k1 = dict(n=bitonic_n, max_abs_err=k1_err, equal_plain=k1_err == 0,
-              ms=cs.device_ms(lambda: bitonic_sort_pairs(hi, lo), 200, cuda)[0],
-              wrapper_ms=timer(lambda: bitonic_sort_pairs(hi, lo), reps=200),
-              plain_ms=timer(lambda: bitonic_sort_pairs_plain(hi, lo), reps=3, warm=1),
-              library_ms=cs.device_ms(lambda: torch.sort(key), 200, cuda)[0],
+    # off the card a time says how fast the CPU runs the plain version: none is taken
+    times = dict(
+        ms=cs.device_ms(lambda: bitonic_sort_pairs(hi, lo), 200, cuda)[0],
+        wrapper_ms=timer(lambda: bitonic_sort_pairs(hi, lo), reps=200),
+        plain_ms=timer(lambda: bitonic_sort_pairs_plain(hi, lo), reps=3, warm=1),
+        library_ms=cs.device_ms(lambda: torch.sort(key), 200, cuda)[0],
+    ) if cuda else dict.fromkeys(("ms", "wrapper_ms", "plain_ms", "library_ms"), "not measured")
+    k1 = dict(n=bitonic_n, max_abs_err=k1_err, equal_plain=k1_err == 0, **times,
               compare_exchanges=exchanges, ops_per_exchange=cs.SORT_OPS_PER_EXCHANGE,
               bound_ms=max(t_bytes, t_ops),
               bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -462,7 +465,8 @@ def kernel_checks(mapper, codes, c2, lens, cuda: bool, bitonic_n: int) -> dict:
         if se_inputs is None:
             se_inputs = (w, kw)
     w, kw = se_inputs
-    timing = cs.walk_timing(mapper.didx, w, kw, mmp.anchor_walk_plain, timer, cuda)
+    timing = (cs.walk_timing(mapper.didx, w, kw, mmp.anchor_walk_plain, timer, cuda) if cuda
+              else dict(ms="not measured", bound_ms="not measured"))
     timing["sa_cmp_bytes"] = int(mapper.didx.sa_cmp.numel() * 4)
     k23 = dict(sets=sets, equal_plain=all(s["equal_plain"] for s in sets),
                max_abs_err=max(max(s["field_err"].values()) for s in sets), timing=timing)
@@ -490,12 +494,58 @@ def oracle_rows_pe(idx, r1, r2, cfg) -> list[tuple]:
              0 if m.fwd2 else 1, int(m.pos2 is not None)) for m in ms]
 
 
+def program_rows(B: int, chunk: int = CHUNK) -> int:
+    """Rows of one device program of a batch of B: the chunk when the batch
+    is a multiple (>= 2) of it (models/quasi.py::_chunk_of), else B."""
+    return chunk if chunk and chunk < B and B % chunk == 0 else B
+
+
+def cut_rows(wr, C: int, slots: int) -> np.ndarray:
+    """Rows whose records a full record buffer may have cut: in each
+    program of C rows whose slots x C records all went out, the row that
+    reaches the buffer's end and every row after it (a program's counts are
+    clamped to what it wrote, ops/collate.py)."""
+    counts = np.asarray(wr.counts, np.int64)
+    C = C or len(counts)
+    out = np.zeros(len(counts), bool)
+    for c0 in range(0, len(counts), C):
+        ends = np.cumsum(counts[c0 : c0 + C])
+        if len(ends) and ends[-1] >= slots * C:
+            out[c0 + int(np.argmax(ends >= slots * C)) : c0 + C] = True
+    return out
+
+
+def side_lists(mapper, c1, c2, pe_batch: int, n_batches: int) -> list:
+    """Where the PE merge's per-mate winner lists overflowed, batch by batch.
+    ops/pairs.py::collate_records_pe compacts each mate's winner rows into
+    rec_slots x C rows before it joins them, and drops the rest without a
+    flag (rapmap_tpu's ops/pairs.py alike), so a pair whose mate lost its
+    rows there comes out as orphans. Each mate's list is what an SE batch of
+    that mate's reads emits under the same config and chunk, so the mates
+    mapped as SE batches give the cut: -> [(pairs whose list a full buffer
+    may have cut, either mate's list overflowed)] a batch."""
+    lens = np.full(pe_batch, READ_LEN, np.int32)
+    C, slots, out = program_rows(pe_batch, mapper.cfg.chunk), mapper.cfg.rec_slots, []
+    for b in range(n_batches):
+        sl = slice(b * pe_batch, (b + 1) * pe_batch)
+        s1, s2 = (mapper.fetch(mapper.map_se_async(m[sl], lens)) for m in (c1, c2))
+        out.append((cut_rows(s1, C, slots) | cut_rows(s2, C, slots),
+                    bool(s1.overflowed or s2.overflowed)))
+    return out
+
+
 def fallback_and_oracle(idx, cfg, raw_se, raw_pe, codes, c1, c2, se_batch: int,
-                        pe_batch: int, n_sample: int, seed: int = 21):
+                        pe_batch: int, n_sample: int, seed: int = 21, side=None):
     """Every batch through the host fallback (the flagged reads and pairs
-    remapped by the oracle and spliced in), then a sample drawn from every
-    batch held to the oracle, record for record -> (record, SE results
-    after the fallback, PE results after the fallback)."""
+    remapped by the oracle and spliced in), as the command line does, then a
+    sample drawn from every batch held to the oracle, record for record. A
+    sampled read (pair) that differs is cut_by_overflow when its records are
+    a strict prefix of the oracle's and it lies where a full record buffer
+    cut (cut_rows); a pair is cut_by_side_list when it lies where a mate's
+    winner list was cut (side_lists' `side`, when given); else it is
+    unequal. cut_outside_overflow counts the cut ones of batches whose
+    buffer or lists did not overflow -> (record, SE results after the
+    fallback, PE results after the fallback)."""
     from rapmap_tpu_torch.models import fallback as fb
     from rapmap_tpu_torch.oracle import quasimap as qm
     from rapmap_tpu_torch.ops.wire import FLAG_DEGRADED
@@ -503,45 +553,55 @@ def fallback_and_oracle(idx, cfg, raw_se, raw_pe, codes, c1, c2, se_batch: int,
     lens = np.full(max(se_batch, pe_batch), READ_LEN, np.int32)
     rec: dict = {}
     t0 = time.time()
-    se, pe, flags_se, flags_pe = [], [], [], []
+    se, pe = [], []
     for b, wr in enumerate(raw_se):
-        flags_se.append(np.asarray(wr.flags).copy())
-        wr = wr._replace(counters=dict(wr.counters))
-        se.append(fb.remap_se(wr, codes[b * se_batch : (b + 1) * se_batch], lens,
-                              len(wr.counts), idx, cfg, qm))
+        se.append(fb.remap_se(wr._replace(counters=dict(wr.counters)),
+                              codes[b * se_batch : (b + 1) * se_batch], lens, len(wr.counts),
+                              idx, cfg, qm))
     for b, wr in enumerate(raw_pe):
-        flags_pe.append(np.asarray(wr.flags).copy())
-        wr = wr._replace(counters=dict(wr.counters))
         sl = slice(b * pe_batch, (b + 1) * pe_batch)
-        pe.append(fb.remap_pe(wr, c1[sl], lens, c2[sl], lens, len(wr.counts), idx, cfg, qm))
+        pe.append(fb.remap_pe(wr._replace(counters=dict(wr.counters)), c1[sl], lens, c2[sl],
+                              lens, len(wr.counts), idx, cfg, qm))
     rec["fallback_s"] = time.time() - t0
     rec["fallback_reads"] = sum(int(r.counters.get("host_fallback", 0)) for r in se)
     rec["fallback_pairs"] = sum(int(r.counters.get("host_fallback", 0)) for r in pe)
 
     rng = np.random.default_rng(seed)
     t0 = time.time()
-    for kind, results, flags, batch, n_want in (
-            ("se", se, flags_se, se_batch, n_sample), ("pe", pe, flags_pe, pe_batch,
-                                                        n_sample // 2)):
+    for kind, results, raw, batch, n_want in (
+            ("se", se, raw_se, se_batch, n_sample), ("pe", pe, raw_pe, pe_batch, n_sample // 2)):
         per = -(-n_want // max(1, len(results)))
-        checked = unequal = flagged = flagged_unequal = 0
+        checked = unequal = flagged = flagged_unequal = cut = cut_side = cut_outside = 0
         for b, wr in enumerate(results):
             off = offsets_of(wr)
+            may_cut = cut_rows(raw[b], program_rows(batch, cfg.chunk), cfg.rec_slots)
+            side_cut, side_ovf = (side[b] if kind == "pe" and side
+                                  else (np.zeros_like(may_cut), False))
             for i in rng.choice(len(wr.counts), min(per, len(wr.counts)), replace=False):
-                g = b * batch + int(i)
+                i = int(i)
+                g = b * batch + i
                 want = (oracle_rows_se(idx, codes[g], cfg) if kind == "se"
                         else oracle_rows_pe(idx, c1[g], c2[g], cfg))
-                bad = recs_of(wr, int(i), off) != want
-                was_flagged = bool(flags[b][i] & FLAG_DEGRADED)
+                got = recs_of(wr, i, off)
+                was_flagged = bool(raw[b].flags[i] & FLAG_DEGRADED)
                 checked += 1
-                unequal += bad
                 flagged += was_flagged
-                flagged_unequal += bad and was_flagged
-                if bad:
-                    log(f"MISMATCH {kind} {g}: {recs_of(wr, int(i), off)[:3]} oracle {want[:3]}")
-        rec[f"oracle_{kind}"] = dict(checked=checked, unequal=unequal, flagged=flagged,
-                                     flagged_unequal=flagged_unequal,
-                                     parity=f"{checked - unequal}/{checked}")
+                if got == want:
+                    continue
+                if may_cut[i] and len(got) < len(want) and got == want[: len(got)]:
+                    cut += 1
+                    cut_outside += not raw[b].overflowed
+                elif side_cut[i]:
+                    cut_side += 1
+                    cut_outside += not side_ovf
+                else:
+                    unequal += 1
+                    flagged_unequal += was_flagged
+                    log(f"MISMATCH {kind} {g}: {got[:3]} oracle {want[:3]}")
+        rec[f"oracle_{kind}"] = dict(
+            checked=checked, unequal=unequal, flagged=flagged, flagged_unequal=flagged_unequal,
+            cut_by_overflow=cut, cut_by_side_list=cut_side, cut_outside_overflow=cut_outside,
+            parity=f"{checked - unequal - cut - cut_side}/{checked}")
     rec["oracle_s"] = time.time() - t0
     return rec, se, pe
 
@@ -587,22 +647,22 @@ def library_sam(kind: str, results, names, seqs, seqs2, txp_names, batch: int) -
     return out.getvalue()
 
 
-def cli_child(kind: str, index_dir: str, inputs: list[str], work: str, device: str,
-              batch: int, want: dict[str, list[str]]) -> dict:
-    """`python -m rapmap_tpu_torch.cli quasimap --engine auto --batchSize
-    <batch> --statsJson --profile` as a child process: its wall, its
-    largest VmRSS read every 0.2 s (wait4's maxrss would start from this
-    process's peak), the lowest MemAvailable, the engine it
-    picked, its stage seconds and kernel launches under --profile, its
-    --statsJson, and every read's (pair's) SAM lines against `want`."""
+def cli_child(kind: str, index_dir: str, inputs: list[str], flags: list[str], work: str,
+              device: str, want: dict[str, list[str]]) -> dict:
+    """`python -m rapmap_tpu_torch.cli quasimap <flags> --statsJson
+    --profile` as a child process: its wall, its largest VmRSS read every
+    0.2 s (wait4's maxrss would start from this process's peak), the lowest
+    MemAvailable, the engine it picked, its stage seconds and kernel
+    launches under --profile, its --statsJson, the record-buffer overflow
+    warnings it logged, and every read's (pair's) SAM lines against
+    `want`."""
     sam_path, stats, err_path = (os.path.join(work, f"cli_{kind}{x}") for x in (
         ".sam", "_stats.json", ".err"))
     env = {k: v for k, v in os.environ.items() if k != "TQM_FORCE_CPU"}
     if device == "cpu":
         env["TQM_FORCE_CPU"] = "1"
     argv = [sys.executable, "-m", "rapmap_tpu_torch.cli", "quasimap", "-i", index_dir,
-            *inputs, "-o", sam_path, "--engine", "auto", "--batchSize", str(batch),
-            "--statsJson", stats, "--profile"]
+            *inputs, "-o", sam_path, *flags, "--statsJson", stats, "--profile"]
     ch = run_child(argv, env, err_path)
     rec = dict(argv=argv[2:], rc=ch["rc"], wall_s=ch["wall_s"],
                child_rss_polled_max_gb=ch["rss_polled_max_gb"],
@@ -618,7 +678,8 @@ def cli_child(kind: str, index_dir: str, inputs: list[str], work: str, device: s
     unequal = sum(got.get(name) != lines for name, lines in want.items())
     return dict(rec, engine="staged" if "-> host-staged engine" in ch["log"] else "replicated",
                 stages_s=stage, launches=launches, stats=st,
-                steady_reads_per_s=st.get("steady_reads_per_s"), checked=len(want),
+                steady_reads_per_s=st.get("steady_reads_per_s"),
+                overflow_warnings=ch["log"].count("record buffer overflow"), checked=len(want),
                 unequal=unequal, extra=len(set(got) - set(want)))
 
 
@@ -732,12 +793,6 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="cuda (default) fails without a card; cpu runs the plain versions")
     return ap
-
-
-def program_rows(B: int) -> int:
-    """Rows of one device program of a batch of B: the chunk when the batch
-    is a multiple (>= 2) of it (models/quasi.py::_chunk_of), else B."""
-    return CHUNK if CHUNK < B and B % CHUNK == 0 else B
 
 
 def check_args(ap, args) -> None:
@@ -950,8 +1005,9 @@ def run(ap: argparse.ArgumentParser, argv: list[str] | None = None):
             del text
             want = sam_groups(library_sam(kind, results, names, seqs, seqs2, txp_names, batch))
             del seqs, seqs2
-            c = rec["cli"][kind] = cli_child(kind, idx_dir, inputs, cache, args.device,
-                                              args.batch, want)
+            c = rec["cli"][kind] = cli_child(
+                kind, idx_dir, inputs, ["--engine", "auto", "--batchSize", str(args.batch)],
+                cache, args.device, want)
             for p in paths:
                 os.remove(p)
             del want

@@ -220,11 +220,14 @@ def _imports(path: str) -> set[str]:
 @pytest.mark.parametrize("where", ["parallel", "chip_smoke.py",
                                    "scripts/genome_scale_torch.py",
                                    "scripts/core_artifact_genome_torch.py",
-                                   "scripts/scale_world_torch.py"])
+                                   "scripts/scale_world_torch.py",
+                                   "scripts/isoform_world_torch.py",
+                                   "scripts/eval_accuracy_torch.py"])
 def test_no_jax_imports(where):
     """The parallel subpackage (staged, dp, multihost, sharded),
     chip_smoke.py, scripts/genome_scale_torch.py,
-    scripts/core_artifact_genome_torch.py and scripts/scale_world_torch.py
+    scripts/core_artifact_genome_torch.py, scripts/scale_world_torch.py,
+    scripts/isoform_world_torch.py and scripts/eval_accuracy_torch.py
     name neither jax nor rapmap_tpu
     in any import statement (the run above refuses them at
     import; this reads the source, so an import on a path the run does not
