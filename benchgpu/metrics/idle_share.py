@@ -1,0 +1,7 @@
+"""Percent of the traced stretch in which no device operation ran
+(torch.profiler)."""
+
+
+def read(run):
+    t = run.trace
+    return 100.0 * (1.0 - t["busy_s"] / t["window_s"]) if t else None
