@@ -1,0 +1,9 @@
+"""Device ms a batch of the operations launched under `tqm.merge`, the
+innermost program range at their launch (benchgpu/progtrace.py). None
+where the trace has no program stages or no such range."""
+
+
+def read(run):
+    st = (run.trace or {}).get("stages")
+    v = st["ranges"].get("tqm.merge") if st else None
+    return v["device_ms"] if v else None

@@ -329,9 +329,13 @@ def _map(args, pseudo: bool, world: int, rank: int) -> int:
     device = _pick_device(args.cmd)
     if device is None:
         return 1
-    from rapmap_tpu_torch.utils.timers import StageTimers, device_trace
+    from rapmap_tpu_torch.utils.timers import StageTimers, device_trace, recording
 
     timers = StageTimers()
+    # --profile and --traceDir record the program's stages (tqm.*) as well,
+    # and a trace holds them as ranges beside the device's operations
+    timers.annotate = bool(args.traceDir)
+    recorder = timers if args.profile or args.traceDir else None
     with timers.stage("index_load"):
         idx = load_index(args.index)
     cfg = _cfg_from_args(args, idx.k)
@@ -508,7 +512,7 @@ def _map(args, pseudo: bool, world: int, rank: int) -> int:
             if out is not None and out is not sys.stdout:
                 save_progress(done[0], out)
 
-        with device_trace(args.traceDir):
+        with device_trace(args.traceDir), recording(recorder):
             if args.numThreads >= 2:
                 it = fastx.prefetch(it, depth=max(2, args.pipelineDepth))
             bi = my_bi = 0

@@ -22,6 +22,7 @@ from rapmap_tpu_torch.index.kmer_table import (
 )
 from rapmap_tpu_torch.index.suffix_array import suffix_array_numpy
 from rapmap_tpu_torch.io.fastx import read_fasta
+from rapmap_tpu_torch.utils.timers import StageTimers, recorder
 
 log = logging.getLogger("tqm.index")
 
@@ -70,6 +71,17 @@ def concat_transcriptome(fasta_path: str, seed: int = 0, dedup: bool = True):
         np.array(offsets, dtype=np.int64),
         np.array(lens, dtype=np.int32),
     )
+
+
+def _load_native() -> None:
+    """Loads the native library, building it on first use; the SA build
+    falls back to numpy where that fails."""
+    try:
+        from rapmap_tpu_torch.native import bindings as nat
+
+        nat.available()
+    except Exception as exc:  # pragma: no cover - native build issues
+        log.warning("native library unavailable (%s)", exc)
 
 
 def _build_sa(text: np.ndarray, n_text: int) -> np.ndarray:
@@ -131,10 +143,16 @@ def build_quasi_index(
     mappers build per-shard tables or use the binary-search probe)."""
     if not (1 <= k <= 32):
         raise ValueError("k must be in [1, 32]")
-    t0 = time.time()
-    text, n_text, names, offsets, lens = concat_transcriptome(fasta_path, seed, dedup)
-    log.info("concat %d transcripts, %d bases (%.1fs)", len(names), n_text, time.time() - t0)
-    t0 = time.time()
+    # each stage is timed once, by the installed recorder or else by one of
+    # the build's own, and the log reads its time from there
+    rec = recorder() or StageTimers()
+    stage = rec.stage
+    with stage("tqm.build.concat"):
+        text, n_text, names, offsets, lens = concat_transcriptome(fasta_path, seed, dedup)
+    log.info("concat %d transcripts, %d bases (%.1fs)", len(names), n_text,
+             rec.last["tqm.build.concat"])
+    with stage("tqm.build.native"):  # a first use builds it: kept out of tqm.build.sa
+        _load_native()
     # SA-IS runs in a worker thread (the native call releases the GIL) while
     # the main thread packs the text — the pack only needs `text` and the
     # single-threaded SA build leaves cores idle otherwise
@@ -148,23 +166,24 @@ def build_quasi_index(
         except BaseException as exc:  # re-raised at join
             sa_box["exc"] = exc
 
-    th_sa = threading.Thread(target=_sa_job, name="tqm-sa")
-    th_sa.start()
-    text2b, smask2b = pack_text_2bit(text)  # one pack serves scan + device text
-    th_sa.join()
+    with stage("tqm.build.sa"):
+        th_sa = threading.Thread(target=_sa_job, name="tqm-sa")
+        th_sa.start()
+        text2b, smask2b = pack_text_2bit(text)  # one pack serves scan + device text
+        th_sa.join()
     if "exc" in sa_box:
         raise sa_box["exc"]
     sa = sa_box.pop("sa")  # the box must not keep a second SA alive
     if big_sa:
         sa = sa.astype(np.int64, copy=False)
-    log.info("suffix array + text pack built (%.1fs, overlapped)", time.time() - t0)
-    t0 = time.time()
-    khi, klo, kb, ke = build_kmer_table(
-        text[:n_text], sa, k, packed_smask=(text2b, smask2b)
-    )
+    log.info("suffix array + text pack built (%.1fs, overlapped)", rec.last["tqm.build.sa"])
+    with stage("tqm.build.kmers"):
+        khi, klo, kb, ke = build_kmer_table(
+            text[:n_text], sa, k, packed_smask=(text2b, smask2b)
+        )
     del smask2b
-    log.info("k-mer table: %d distinct %d-mers (%.1fs)", len(kb), k, time.time() - t0)
-    t0 = time.time()
+    log.info("k-mer table: %d distinct %d-mers (%.1fs)", len(kb), k,
+             rec.last["tqm.build.kmers"])
     # canonical-class CHD perfect hash (BooPHF role): the device resolves
     # BOTH strands of a window with one 2-gather probe (ops/lookup.py).
     # It only needs the k-mer keys, so it runs in a worker thread (native,
@@ -177,7 +196,8 @@ def build_quasi_index(
 
         def _chd_job():
             try:
-                chd_box["chd"] = build_canonical_chd(khi, klo, k, seed0=seed + 1)
+                with stage("tqm.build.chd"):
+                    chd_box["chd"] = build_canonical_chd(khi, klo, k, seed0=seed + 1)
             except BaseException as exc:
                 chd_box["exc"] = exc
 
@@ -193,26 +213,27 @@ def build_quasi_index(
 
         nk = max(1, len(kb))
         prefix_bases = max(4, min(k, 12, _math.ceil(_math.log(nk, 4)) + 1))
-    lut = build_prefix_lut(khi, klo, k, prefix_bases)
-    sa_txp, sa_tpos = sa_txp_tpos(sa, offsets, lens)
-    log.info("lut/pack/sa_txp derived (%.1fs)", time.time() - t0)
-    t0 = time.time()
+    with stage("tqm.build.derive"):
+        lut = build_prefix_lut(khi, klo, k, prefix_bases)
+        sa_txp, sa_tpos = sa_txp_tpos(sa, offsets, lens)
+    log.info("lut/pack/sa_txp derived (%.1fs)", rec.last["tqm.build.derive"])
     pre_hashes: dict = {}
     if outdir and th_chd is not None:
         # stream the big non-CHD arrays to disk while the CHD displacement
         # search finishes; save_index below skips the already-written names
         from rapmap_tpu_torch.index.format import save_arrays
 
-        pre_hashes = save_arrays(outdir, {
-            "text": text, "text2b": text2b, "sa": sa, "sa_txp": sa_txp,
-            "sa_tpos": sa_tpos, "kmer_hi": khi, "kmer_lo": klo,
-            "kmer_b": kb, "kmer_e": ke, "prefix_lut": lut,
-            "txp_offsets": offsets, "txp_lens": lens,
-        })
-        log.info("non-CHD arrays saved under the CHD join (%.1fs)", time.time() - t0)
-        t0 = time.time()
+        with stage("tqm.build.save"):
+            pre_hashes = save_arrays(outdir, {
+                "text": text, "text2b": text2b, "sa": sa, "sa_txp": sa_txp,
+                "sa_tpos": sa_tpos, "kmer_hi": khi, "kmer_lo": klo,
+                "kmer_b": kb, "kmer_e": ke, "prefix_lut": lut,
+                "txp_offsets": offsets, "txp_lens": lens,
+            })
+        log.info("non-CHD arrays saved under the CHD join (%.1fs)", rec.last["tqm.build.save"])
     if th_chd is not None:
-        th_chd.join()
+        with stage("tqm.build.chd_join"):
+            th_chd.join()
         if "exc" in chd_box:
             raise chd_box["exc"]
         chd = chd_box.get("chd")
@@ -225,7 +246,7 @@ def build_quasi_index(
         meta["chd"] = {k_: chd[k_] for k_ in ("seed", "m_bits", "t_bits", "p_bits", "canonical")}
         log.info(
             "canonical CHD perfect hash built (overlapped; %.1fs beyond the "
-            "derived stage)", time.time() - t0,
+            "derived stage)", rec.last["tqm.build.chd_join"],
         )
     elif require_chd:
         raise RuntimeError(

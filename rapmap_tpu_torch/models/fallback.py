@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 
 from rapmap_tpu_torch.ops.wire import FLAG_DEGRADED, FLAG_MAPPED, WireResult
+from rapmap_tpu_torch.utils.timers import span
 
 
 def _splice(recsd: WireResult, n: int, new_rows: dict[int, np.ndarray]) -> WireResult:
@@ -63,6 +64,11 @@ def _rec_score(idx, cfg, rcodes, t, pos, fwd, support) -> int:
 def remap_se(recsd: WireResult, codes, lens, n: int, idx, cfg, oracle) -> WireResult:
     """Re-resolve FLAG_DEGRADED single-end reads with oracle.map_read; the
     record score field is the MMP support, or the alignment score."""
+    with span("tqm.fallback"):
+        return _remap_se(recsd, codes, lens, n, idx, cfg, oracle)
+
+
+def _remap_se(recsd: WireResult, codes, lens, n: int, idx, cfg, oracle) -> WireResult:
     flags = np.asarray(recsd.flags)
     bad = np.flatnonzero((flags[:n] & FLAG_DEGRADED) != 0)
     if bad.size == 0:
@@ -89,6 +95,11 @@ def remap_pe(recsd: WireResult, c1, l1, c2, l2, n: int, idx, cfg, oracle) -> Wir
     """Re-resolve FLAG_DEGRADED pairs with oracle.map_pair; rows are
     (t, p1, s1, has1, p2, s2, has2), a missing mate's fields 0, plus the
     per-mate scores (sc1, sc2; 0 for a missing mate) under --mappingScore."""
+    with span("tqm.fallback"):
+        return _remap_pe(recsd, c1, l1, c2, l2, n, idx, cfg, oracle)
+
+
+def _remap_pe(recsd: WireResult, c1, l1, c2, l2, n: int, idx, cfg, oracle) -> WireResult:
     flags = np.asarray(recsd.flags)
     bad = np.flatnonzero((flags[:n] & FLAG_DEGRADED) != 0)
     if bad.size == 0:

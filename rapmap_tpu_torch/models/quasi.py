@@ -41,6 +41,7 @@ from rapmap_tpu_torch.ops.wire import (
     HDR, encode_read_flags, pack_counts_flags, pack_in_pe, pack_in_se, pack_out,
     rec_spec_pe, rec_spec_se, unpack_in_pe, unpack_in_se, unpack_out,
 )
+from rapmap_tpu_torch.utils.timers import span
 
 
 class Counters(NamedTuple):
@@ -63,7 +64,8 @@ def map_batch_se(
     cfg: MapConfig,
 ) -> tuple[MapOut, Counters]:
     hits = scan_dispatch(didx, st, reads, lens, cfg)
-    out = collate_batch(didx, st, hits, lens, cfg)
+    with span("tqm.vote"):
+        out = collate_batch(didx, st, hits, lens, cfg)
     return out, mapout_counters(out, n_valid)
 
 
@@ -92,7 +94,8 @@ def map_batch_pe(
 ) -> tuple[MapOut, MapOut, PairOut, Counters]:
     out1, _ = map_batch_se(didx, st, reads1, lens1, n_valid, cfg)
     out2, _ = map_batch_se(didx, st, reads2, lens2, n_valid, cfg)
-    pairs = merge_pairs_batch(out1, out2, cfg)
+    with span("tqm.merge"):
+        pairs = merge_pairs_batch(out1, out2, cfg)
     return out1, out2, pairs, pair_counters(out1, out2, pairs, n_valid)
 
 
@@ -130,15 +133,18 @@ def map_batch_se_wire(
     reads, lens, n_valid = unpack_in_se(wire_in, B, L)
     out, ctr = map_batch_se(didx, st, reads, lens, n_valid, cfg)
     flags = encode_read_flags(out.over_budget, out.out_truncated, out.too_ambiguous, out.mapped)
-    se = compact_se(out, cap)
+    with span("tqm.compact"):
+        se = compact_se(out, cap)
     if cfg.mapping_score:
         from rapmap_tpu_torch.ops.align import score_records
 
-        rid = rid_from_counts(se.counts, cap)
-        live = torch.arange(cap, device=se.recs.device) < se.total.clamp(max=cap)
-        se.recs[:, 3] = score_records(didx, cfg, reads, lens, rid, se.recs[:, 0],
-                                      se.recs[:, 1], se.recs[:, 2], live)
-    return pack_out(se, ctr, flags)
+        with span("tqm.score"):
+            rid = rid_from_counts(se.counts, cap)
+            live = torch.arange(cap, device=se.recs.device) < se.total.clamp(max=cap)
+            se.recs[:, 3] = score_records(didx, cfg, reads, lens, rid, se.recs[:, 0],
+                                          se.recs[:, 1], se.recs[:, 2], live)
+    with span("tqm.pack_out"):
+        return pack_out(se, ctr, flags)
 
 
 def map_batch_pe_wire(
@@ -151,8 +157,10 @@ def map_batch_pe_wire(
     r1, l1, r2, l2, n_valid = unpack_in_pe(wire_in, B, L)
     out1, out2, pairs, ctr = map_batch_pe(didx, st, r1, l1, r2, l2, n_valid, cfg)
     sargs = (didx, cfg, r1, l1, r2, l2) if cfg.mapping_score else None
-    return pack_out(compact_pe(pairs, cap, score_args=sargs), ctr,
-                    _pe_flags(out1, out2, pairs))
+    with span("tqm.compact"):
+        pe = compact_pe(pairs, cap, score_args=sargs)
+    with span("tqm.pack_out"):
+        return pack_out(pe, ctr, _pe_flags(out1, out2, pairs))
 
 
 def _chunk_counters(flags, n_valid, C: int) -> Counters:
@@ -190,11 +198,12 @@ def _chunk_block(recsd, ctr: Counters, fbits: torch.Tensor, packed_cf: bool) -> 
 def _join_chunks(blocks: list[torch.Tensor]) -> torch.Tensor:
     """Chunk blocks -> one wire_out: the headers summed (overflowed: the
     max), then every block's body in chunk order."""
-    outs = torch.stack(blocks)
-    hdrs = outs[:, :HDR]
-    hdr = hdrs.sum(dim=0, dtype=torch.int32)
-    hdr[1] = hdrs[:, 1].max()
-    return torch.cat([hdr, outs[:, HDR:].reshape(-1)])
+    with span("tqm.pack_out"):
+        outs = torch.stack(blocks)
+        hdrs = outs[:, :HDR]
+        hdr = hdrs.sum(dim=0, dtype=torch.int32)
+        hdr[1] = hdrs[:, 1].max()
+        return torch.cat([hdr, outs[:, HDR:].reshape(-1)])
 
 
 def map_batch_se_wire_chunked(
@@ -214,12 +223,14 @@ def map_batch_se_wire_chunked(
         r, ln = reads[c * C : (c + 1) * C], lens[c * C : (c + 1) * C]
         nv = (n_valid - c * C).clamp(0, C)
         hits = scan_dispatch(didx, st, r, ln, cfg)
-        se, flags = collate_records_se(didx, st, hits, ln, cfg, capc, rec_spec=spec,
-                                       reads=r)
-        fbits = encode_read_flags(
-            flags.over_budget, flags.out_truncated, flags.too_ambiguous, flags.mapped
-        )
-        blocks.append(_chunk_block(se, _chunk_counters(flags, nv, C), fbits, packed_cf))
+        with span("tqm.vote"):
+            se, flags = collate_records_se(didx, st, hits, ln, cfg, capc, rec_spec=spec,
+                                           reads=r)
+        with span("tqm.compact"):
+            fbits = encode_read_flags(
+                flags.over_budget, flags.out_truncated, flags.too_ambiguous, flags.mapped
+            )
+            blocks.append(_chunk_block(se, _chunk_counters(flags, nv, C), fbits, packed_cf))
     return _join_chunks(blocks)
 
 
@@ -245,20 +256,24 @@ def map_batch_pe_wire_chunked(
         if direct:
             hits1 = scan_dispatch(didx, st, a, la, cfg)
             hits2 = scan_dispatch(didx, st, b, lb, cfg)
-            pe, fl, _ = collate_records_pe(
-                didx, st, hits1, la, hits2, lb, cfg, capc, rec_spec=spec,
-                reads1=a, reads2=b,
-            )
-            ctr = _chunk_counters(fl, nv, C)
-            fbits = encode_read_flags(
-                fl.over_budget, fl.out_truncated, fl.too_ambiguous, fl.mapped
-            )
+            with span("tqm.vote"):
+                pe, fl, _ = collate_records_pe(
+                    didx, st, hits1, la, hits2, lb, cfg, capc, rec_spec=spec,
+                    reads1=a, reads2=b,
+                )
+            with span("tqm.compact"):
+                ctr = _chunk_counters(fl, nv, C)
+                fbits = encode_read_flags(
+                    fl.over_budget, fl.out_truncated, fl.too_ambiguous, fl.mapped
+                )
+                blocks.append(_chunk_block(pe, ctr, fbits, packed_cf))
         else:
             out1, out2, pairs, ctr = map_batch_pe(didx, st, a, la, b, lb, nv, cfg)
             sargs = (didx, cfg, a, la, b, lb) if cfg.mapping_score else None
-            pe = compact_pe(pairs, capc, rec_spec=spec, score_args=sargs)
-            fbits = _pe_flags(out1, out2, pairs)
-        blocks.append(_chunk_block(pe, ctr, fbits, packed_cf))
+            with span("tqm.compact"):
+                pe = compact_pe(pairs, capc, rec_spec=spec, score_args=sargs)
+                fbits = _pe_flags(out1, out2, pairs)
+                blocks.append(_chunk_block(pe, ctr, fbits, packed_cf))
     return _join_chunks(blocks)
 
 
@@ -272,6 +287,7 @@ class MapHandle(NamedTuple):
     C: int                           # chunk size, 0 = one program over the batch
     capc: int
     spec: object
+    seq: int = -1                    # the mapper's number of the batch
 
 
 def _host(x: torch.Tensor) -> np.ndarray:
@@ -301,6 +317,7 @@ class _Mapper:
 
     device: torch.device
     cfg: MapConfig
+    _seq = -1  # number of the last batch dispatched
 
     def _codes(self, codes) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(codes, dtype=np.int8)).to(self.device)
@@ -327,44 +344,58 @@ class _Mapper:
         with the mapping score."""
         return 9 if self.cfg.mapping_score else 7
 
-    def _dispatch(self, kind: str, win: np.ndarray, B: int, L: int) -> MapHandle:
-        """Upload one packed wire_in, enqueue its program and the copy of its
-        wire_out to pinned host memory."""
-        win = torch.from_numpy(win)
+    def _dispatch(self, kind: str, pack, B: int, L: int) -> MapHandle:
+        """Pack one wire_in (`pack()`, a new batch), upload it, enqueue its
+        program and the copy of its wire_out to pinned host memory. Only
+        `win` holds the packed array, so it is freed once uploaded."""
+        self._seq += 1
+        with span("tqm.pack_in", self._seq):
+            win = pack()
         on_cuda = self.device.type == "cuda"
-        if on_cuda:
-            win = win.pin_memory().to(self.device, non_blocking=True)
-        out, C, capc, spec = self._program(kind, win, B, L)
+        with span("tqm.upload"):
+            win = torch.from_numpy(win)
+            if on_cuda:
+                win = win.pin_memory().to(self.device, non_blocking=True)
+        with span("tqm.program"):
+            out, C, capc, spec = self._program(kind, win, B, L)
         done = None
         if on_cuda:
-            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            host.copy_(out, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
+            with span("tqm.copy_out"):
+                host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+                host.copy_(out, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
             out = host
-        return MapHandle(kind, B, out, done, C, capc, spec)
+        return MapHandle(kind, B, out, done, C, capc, spec, self._seq)
 
     def map_se_async(self, codes, lens, n_valid: int | None = None) -> MapHandle:
         B, L = codes.shape
         nv = n_valid if n_valid is not None else B
-        return self._dispatch("se", pack_in_se(np.asarray(codes), np.asarray(lens), nv), B, L)
+        return self._dispatch(
+            "se", lambda: pack_in_se(np.asarray(codes), np.asarray(lens), nv), B, L
+        )
 
     def map_pe_async(self, c1, l1, c2, l2, n_valid: int | None = None) -> MapHandle:
         B, L = c1.shape
         nv = n_valid if n_valid is not None else B
-        win = pack_in_pe(np.asarray(c1), np.asarray(l1), np.asarray(c2), np.asarray(l2), nv)
-        return self._dispatch("pe", win, B, L)
+        return self._dispatch(
+            "pe",
+            lambda: pack_in_pe(np.asarray(c1), np.asarray(l1), np.asarray(c2), np.asarray(l2), nv),
+            B, L,
+        )
 
     def fetch(self, result: MapHandle):
         """-> WireResult; recs fields SE (t, pos, strand, score), PE (t, p1,
         s1, has1, p2, s2, has2 [, sc1, sc2 with the mapping score])."""
-        if result.done is not None:
-            result.done.synchronize()
-        return unpack_out(
-            result.wire.numpy(), result.B, 4 if result.kind == "se" else self._pe_width(),
-            chunk=result.C, capc=result.capc, rec_spec=result.spec,
-            packed_cf=bool(result.C) and _packed_cf(self.cfg, result.C),
-        )
+        with span("tqm.fetch_wait", result.seq):
+            if result.done is not None:
+                result.done.synchronize()
+        with span("tqm.unpack_out"):
+            return unpack_out(
+                result.wire.numpy(), result.B, 4 if result.kind == "se" else self._pe_width(),
+                chunk=result.C, capc=result.capc, rec_spec=result.spec,
+                packed_cf=bool(result.C) and _packed_cf(self.cfg, result.C),
+            )
 
 
 class QuasiMapper(_Mapper):

@@ -50,6 +50,7 @@ from rapmap_tpu_torch.ops.device_index import DeviceQuasiIndex, EngineStatic
 from rapmap_tpu_torch.ops.extend_packed import ext_words, extend_packed, pack_reads
 from rapmap_tpu_torch.ops.gather import flat_gather, row_gather
 from rapmap_tpu_torch.ops.lookup import kmer_lookup, kmer_lookup_2str
+from rapmap_tpu_torch.utils.timers import span
 
 WALK_FUSED_WORDS_MAX = 8  # csrc/walk.cu kRegWords: fused sa_cmp words it holds in registers
 
@@ -650,5 +651,7 @@ def scan_dispatch(
     canonical-CHD paired scan (one dense probe per k-mer class) when the
     index carries one, else builds [fwd; rc] lanes explicitly and runs the
     per-lane scan (`scan_batch`). Rows [0, B) are forward lanes, [B, 2B) rc."""
-    w, kw = scan_inputs(didx, st, reads, lens, cfg)
-    return anchor_walk(didx, *w, **kw)
+    with span("tqm.dense"):
+        w, kw = scan_inputs(didx, st, reads, lens, cfg)
+    with span("tqm.walk"):
+        return anchor_walk(didx, *w, **kw)

@@ -174,6 +174,16 @@ def test_no_output_flag(world):
     assert not os.path.exists("-.tqm_progress.json")
 
 
+def test_profile_logs_the_program_stages(world):
+    """--profile's stage log holds the program's own stages beside the
+    command line's."""
+    tmp, txps, reads, fq = world
+    r = port("quasimap", "-i", str(tmp / "idx"), "-r", fq, "-n", "--profile",
+             "--batchSize", "16")
+    assert r.returncode == 0, r.stderr
+    assert "stage tqm.vote" in r.stderr and "stage dispatch" in r.stderr
+
+
 def test_resume_produces_identical_sam(world):
     """Twin of tests/test_resume.py: interrupted run + --resume == clean run,
     and the clean run equals the reference's."""
