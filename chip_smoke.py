@@ -4,7 +4,10 @@
     python3 chip_smoke.py [--seed 0]
 
 Builds the port's native host library and every CUDA kernel from the
-sources in this checkout, holds each kernel (the voting sort of
+sources in this checkout, checks the wire_in pack through the mapper's
+dispatch (phase_wire_pack: four batches in flight, each one's device bytes
+equal to the numpy pack's, every mate block packed by the native pass),
+holds each kernel (the voting sort of
 csrc/sort2.cu, the anchor walk of csrc/walk.cu in its three forms and its
 pseudo build, the banded DP of csrc/align.cu) against
 its plain PyTorch version on the card, builds a 20 Mbp random transcriptome world from the
@@ -3631,6 +3634,106 @@ def head_of(path: str, n: int) -> list[str]:
             if ln[0] == "@" or int(ln.split(":", 1)[0][1:]) < n]
 
 
+def wire_probe(device):
+    """A mapper whose program hands its device wire_in back as its
+    wire_out: `_Mapper._dispatch` as the mappers run it (pack into pinned
+    memory, upload, program, pinned copy out) with nothing mapped."""
+    from rapmap_tpu_torch.models.quasi import _Mapper
+
+    class WireProbe(_Mapper):
+        def _program(self, kind, win, B, L):
+            return win.clone(), 0, 0, None
+
+    probe = WireProbe()
+    probe.device = device
+    return probe
+
+
+def numpy_wire_in(mates, lens, n_valid: int) -> np.ndarray:
+    """The wire_in bytes of ops/wire.py's numpy pack (`_pack_codes_np`)."""
+    from rapmap_tpu_torch.ops import wire
+
+    parts = [a.reshape(-1) for c in mates for a in wire._pack_codes_np(np.asarray(c, np.int8))]
+    parts += [np.asarray(ln, np.uint16).view(np.uint8) for ln in lens]
+    return np.concatenate(parts + [np.array([n_valid], np.int32).view(np.uint8)])
+
+
+def phase_wire_pack(dev, cuda: bool, seed: int, B: int = 65536, L: int = READ_LEN,
+                    in_flight: int = 4) -> dict:
+    """The wire_in pack on the card, through `_Mapper._dispatch`: `in_flight`
+    SE batches, then as many PE batches, of distinct seeded codes (0..5 and
+    the whole int8 range, ragged lens), dispatched one after another while
+    the stream is held by a sleep, so that every upload waits behind the
+    packs and each batch's pinned buffer is dropped (back to PyTorch's
+    caching host allocator) long before its copy runs. Each batch's device
+    wire_in must equal the numpy pack's bytes: a block handed out again
+    before its copy completed would carry a later batch's bytes. Every mate
+    block must go through the native pass (`PACKS`). Reports the host's
+    `pack_ms` (span `tqm.pack_in`) and the numpy pack's ms beside it."""
+    import torch
+
+    from rapmap_tpu_torch import kernels
+    from rapmap_tpu_torch.ops import wire
+    from rapmap_tpu_torch.utils.timers import StageTimers, recording
+
+    rng = np.random.default_rng(seed + 22)
+    probe = wire_probe(dev)
+    out = {}
+    for kind, mates in (("se", 1), ("pe", 2)):
+        batches = []
+        for _ in range(in_flight):
+            cs = [np.where(rng.random((B, L)) < 0.9, rng.integers(0, 6, (B, L), dtype=np.int8),
+                           rng.integers(-128, 128, (B, L), dtype=np.int8))
+                  for _ in range(mates)]
+            ls = [rng.integers(L // 2, L + 1, B).astype(np.int32) for _ in range(mates)]
+            batches.append((cs, ls, int(rng.integers(B // 2, B + 1))))
+        t0 = time.perf_counter()
+        want = [numpy_wire_in(cs, ls, nv) for cs, ls, nv in batches]
+        numpy_ms = (time.perf_counter() - t0) * 1e3 / in_flight
+
+        def dispatch_all():
+            if kind == "se":
+                return [probe.map_se_async(cs[0], ls[0], nv) for cs, ls, nv in batches]
+            return [probe.map_pe_async(cs[0], ls[0], cs[1], ls[1], nv)
+                    for cs, ls, nv in batches]
+
+        for h in dispatch_all():  # fills the allocator's cache: no cudaHostAlloc below
+            if h.done is not None:
+                h.done.synchronize()
+        kernels.reset_launches()
+        held = None
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda._sleep(400_000_000)  # ~0.2 s at the H100's clock
+            slept = torch.cuda.Event()
+            slept.record()
+        timers = StageTimers()
+        with recording(timers):
+            handles = dispatch_all()
+            if cuda:
+                held = not slept.query()  # the device still asleep: every upload waited
+        equal = []
+        for h, w in zip(handles, want):
+            if h.done is not None:
+                h.done.synchronize()
+            equal.append(bool(np.array_equal(h.wire.numpy(), w)))
+        distinct = len({w.tobytes() for w in want}) == in_flight
+        packs = dict(wire.PACKS)
+        out[kind] = dict(
+            equal=equal, distinct=distinct, held=held, packs=packs,
+            pack_ms=timers.totals["tqm.pack_in"] * 1e3 / in_flight,
+            upload_ms=timers.totals["tqm.upload"] * 1e3 / in_flight,
+            numpy_pack_ms=numpy_ms, wire_in_bytes=len(want[0]),
+        )
+        if not (all(equal) and distinct and held is not False
+                and packs == {"native": mates * in_flight, "numpy": 0}):
+            emit("wire_pack", ok=False, **out)
+            raise RuntimeError(f"wire_pack {kind}: device wire_in differs from the numpy "
+                               "pack, the stream was not held, or a block went through numpy")
+    emit("wire_pack", ok=True, batch=B, read_len=L, in_flight=in_flight, **out)
+    return out
+
+
 def main() -> int:
     t_start = time.time()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3674,6 +3777,7 @@ def main() -> int:
     t0 = time.time()
     libs = kernels.build_all() if cuda else {}
     emit("build", native_s=native_s, kernels=sorted(libs), kernels_s=time.time() - t0)
+    phase_wire_pack(dev, cuda, args.seed, B=65536 if cuda else 2048)
 
     # ---- kernels against their plain versions ----------------------------
     sort_ok, sort_err, sort_t = phase_sort_kernel(dev, timer)

@@ -9,6 +9,8 @@ hash of its source, so an edited source never loads a stale build.
 Every kernel wrapper adds one to `LAUNCHES[<kernel>]` where it launches its
 kernel, and nowhere else, so a run can show that its path went through the
 kernels (chip_smoke.py zeroes the counts before the main path).
+`reset_launches()` also zeroes `ops/wire.py::PACKS`, the wire_in mate
+blocks packed by the native pass and by the numpy fallback.
 """
 
 from __future__ import annotations
@@ -50,8 +52,11 @@ _libs: dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    from rapmap_tpu_torch.ops.wire import PACKS
+
+    for counts in (LAUNCHES, PACKS):
+        for name in counts:
+            counts[name] = 0
 
 
 def sources() -> list[str]:

@@ -38,7 +38,7 @@ from rapmap_tpu_torch.ops.pairs import (
     PairOut, collate_records_pe, merge_pairs_batch, pe_direct_eligible,
 )
 from rapmap_tpu_torch.ops.wire import (
-    HDR, encode_read_flags, pack_counts_flags, pack_in_pe, pack_in_se, pack_out,
+    HDR, encode_read_flags, in_bytes, pack_counts_flags, pack_in_pe, pack_in_se, pack_out,
     rec_spec_pe, rec_spec_se, unpack_in_pe, unpack_in_se, unpack_out,
 )
 from rapmap_tpu_torch.utils.timers import span
@@ -345,17 +345,22 @@ class _Mapper:
         return 9 if self.cfg.mapping_score else 7
 
     def _dispatch(self, kind: str, pack, B: int, L: int) -> MapHandle:
-        """Pack one wire_in (`pack()`, a new batch), upload it, enqueue its
-        program and the copy of its wire_out to pinned host memory. Only
-        `win` holds the packed array, so it is freed once uploaded."""
+        """Pack one wire_in (`pack(out)`, a new batch) straight into the
+        buffer that is uploaded, upload it, enqueue its program and the copy
+        of its wire_out to pinned host memory. On CUDA the buffer is pinned,
+        from PyTorch's caching host allocator, which hands a block out again
+        only once the copy that read it has completed; on the CPU it is a
+        plain array. Only `win` holds the buffer, so it is freed once
+        uploaded."""
         self._seq += 1
-        with span("tqm.pack_in", self._seq):
-            win = pack()
         on_cuda = self.device.type == "cuda"
+        with span("tqm.pack_in", self._seq):
+            n = in_bytes(B, L, 2 if kind == "pe" else 1)
+            win = torch.empty(n, dtype=torch.uint8, pin_memory=on_cuda)
+            pack(win.numpy())
         with span("tqm.upload"):
-            win = torch.from_numpy(win)
             if on_cuda:
-                win = win.pin_memory().to(self.device, non_blocking=True)
+                win = win.to(self.device, non_blocking=True)
         with span("tqm.program"):
             out, C, capc, spec = self._program(kind, win, B, L)
         done = None
@@ -371,18 +376,12 @@ class _Mapper:
     def map_se_async(self, codes, lens, n_valid: int | None = None) -> MapHandle:
         B, L = codes.shape
         nv = n_valid if n_valid is not None else B
-        return self._dispatch(
-            "se", lambda: pack_in_se(np.asarray(codes), np.asarray(lens), nv), B, L
-        )
+        return self._dispatch("se", lambda out: pack_in_se(codes, lens, nv, out), B, L)
 
     def map_pe_async(self, c1, l1, c2, l2, n_valid: int | None = None) -> MapHandle:
         B, L = c1.shape
         nv = n_valid if n_valid is not None else B
-        return self._dispatch(
-            "pe",
-            lambda: pack_in_pe(np.asarray(c1), np.asarray(l1), np.asarray(c2), np.asarray(l2), nv),
-            B, L,
-        )
+        return self._dispatch("pe", lambda out: pack_in_pe(c1, l1, c2, l2, nv, out), B, L)
 
     def fetch(self, result: MapHandle):
         """-> WireResult; recs fields SE (t, pos, strand, score), PE (t, p1,

@@ -4,4 +4,4 @@
 // TQM_ABI_VERSION on ANY extern "C" signature or semantic change.
 #include <cstdint>
 
-extern "C" int32_t tqm_abi_version() { return 8; }
+extern "C" int32_t tqm_abi_version() { return 9; }

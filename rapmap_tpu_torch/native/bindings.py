@@ -1,6 +1,6 @@
 """ctypes bindings for the native host library (SA-IS, k-mer scan,
-canonical classes, CHD, FASTQ parser, SAM formatter). Copy of
-rapmap_tpu.native.bindings.
+canonical classes, CHD, FASTQ parser, SAM formatter, wire_in pack). Copy of
+rapmap_tpu.native.bindings, plus the wire_in pack.
 
 Builds libtqm_native.so with make on first use, into the checkout's
 build/native/ (the sources stay read-only in the package). All callers fall
@@ -28,7 +28,7 @@ _BUILD_DIR = os.path.join(
 # must equal native/abi.cpp's tqm_abi_version(); a mismatched (stale) .so is
 # rebuilt once, and rejected if still stale — calling through a changed
 # signature corrupts memory silently, the numpy fallbacks are always safe
-ABI_VERSION = 8
+ABI_VERSION = 9
 
 # the file name carries the ABI version: a process that has loaded a stale
 # build gets the same stale handle back from dlopen() of the same path, so a
@@ -151,6 +151,8 @@ def _load() -> ctypes.CDLL | None:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ]
+        lib.tqm_pack_codes.restype = I32
+        lib.tqm_pack_codes.argtypes = [P, I64, I64, I64, P, P]  # codes, B, L, stride, out2, outm
         _lib = lib
         return _lib
 
@@ -308,6 +310,30 @@ def fastq_parse(buf: bytes, max_reads: int, pad_len: int):
     if n < 0:
         raise ValueError(f"malformed FASTQ at byte {consumed.value}")
     return codes, lens, name_off, name_len, seq_off, seq_len, qual_off, int(consumed.value), int(n)
+
+
+def pack_codes(codes: np.ndarray, out2: np.ndarray, outm: np.ndarray) -> bool:
+    """Pack (B, L) int8 read codes into out2 (B * ceil(L/4) 2-bit bytes) and
+    outm (B * ceil(L/8) non-ACGT mask bytes), the bytes of
+    ops/wire.py::_pack_codes_np, in one pass; rows may be strided, a row's
+    codes must be adjacent. False when the library is unavailable."""
+    lib = _load()
+    if lib is None:
+        return False
+    if codes.dtype != np.int8 or codes.ndim != 2:
+        raise ValueError("pack_codes takes a (B, L) int8 array")
+    B, L = codes.shape
+    if L > 1 and codes.strides[1] != 1:
+        raise ValueError("pack_codes needs each row's codes adjacent")
+    for out, n in ((out2, B * ((L + 3) // 4)), (outm, B * ((L + 7) // 8))):
+        if (out.dtype != np.uint8 or out.shape != (n,) or not out.flags.c_contiguous
+                or not out.flags.writeable):
+            raise ValueError(f"pack_codes needs a writeable contiguous uint8 output of {n} bytes")
+    rc = lib.tqm_pack_codes(codes.ctypes.data, B, L, codes.strides[0],
+                            out2.ctypes.data, outm.ctypes.data)
+    if rc != 0:
+        raise ValueError(f"tqm_pack_codes failed with code {rc}")
+    return True
 
 
 def _max_len(off: np.ndarray) -> int:

@@ -24,6 +24,11 @@ wire_out (int32): [0] total records | [1] overflowed | [2:8] counters
 
 The per-read flags let the host apply a targeted oracle remap to exactly the
 reads whose device results were degraded by a static budget.
+
+The host pack writes each mate block with the native library's one pass
+(native/wire.cpp) straight into the caller's buffer (`out=`), and with the
+numpy passes of `_pack_codes_np` where the library cannot load; `PACKS`
+counts the mate blocks each path packed.
 """
 
 from __future__ import annotations
@@ -33,9 +38,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from rapmap_tpu_torch.native import bindings as native
 from rapmap_tpu_torch.ops.bits import as_i32
 
 HDR = 8
+
+# mate blocks of wire_in packed by each path since the last
+# kernels.reset_launches()
+PACKS: dict[str, int] = {"native": 0, "numpy": 0}
 
 FLAG_OVER_BUDGET = 1
 FLAG_OUT_TRUNCATED = 2
@@ -90,14 +100,68 @@ def _unpack_codes_dev(b2: torch.Tensor, bm: torch.Tensor, L: int) -> torch.Tenso
     return torch.where(bits != 0, 5, nibs + 1).to(torch.int8)
 
 
-def pack_in_se(codes: np.ndarray, lens: np.ndarray, n_valid: int) -> np.ndarray:
-    codes = np.asarray(codes, dtype=np.int8)
-    b2, bm = _pack_codes_np(codes)
-    return np.concatenate([
-        b2.reshape(-1), bm.reshape(-1),
-        np.ascontiguousarray(lens, dtype=np.uint16).view(np.uint8),
-        np.array([n_valid], dtype=np.int32).view(np.uint8),
-    ])
+def in_bytes(B: int, L: int, mates: int = 1) -> int:
+    """Bytes of a wire_in of B rows of L codes, one mate (SE) or two (PE)."""
+    nb2, nbm = _in_sizes(L)
+    return mates * B * (nb2 + nbm + 2) + 4
+
+
+def _codes_i8(codes) -> np.ndarray:
+    """(B, L) codes as int8 the native pass walks in place: an int8 array
+    whose rows hold adjacent codes (a row-strided view) as it is, any other
+    converted as `np.asarray(codes, dtype=np.int8)` converts it."""
+    c = np.asarray(codes)
+    if c.ndim != 2:
+        raise ValueError("read codes must be (B, L)")
+    if c.dtype != np.int8 or (c.shape[1] > 1 and c.strides[1] != 1):
+        c = np.ascontiguousarray(c, dtype=np.int8)
+    return c
+
+
+def _in_buffer(out: np.ndarray | None, n: int) -> np.ndarray:
+    if out is None:
+        return np.empty(n, np.uint8)
+    if (out.dtype != np.uint8 or out.shape != (n,) or not out.flags.c_contiguous
+            or not out.flags.writeable):
+        raise ValueError(f"wire_in buffer must be a writeable contiguous uint8 array of {n} bytes")
+    return out
+
+
+def _pack_mate(codes: np.ndarray, out: np.ndarray, o: int) -> int:
+    """One (B, L) mate block's 2-bit then mask bytes into out at byte o ->
+    the offset past them."""
+    B, L = codes.shape
+    nb2, nbm = _in_sizes(L)
+    b2 = out[o : o + B * nb2]
+    bm = out[o + B * nb2 : o + B * (nb2 + nbm)]
+    if native.pack_codes(codes, b2, bm):
+        PACKS["native"] += 1
+    else:
+        p2, pm = _pack_codes_np(codes)
+        b2[:] = p2.reshape(-1)
+        bm[:] = pm.reshape(-1)
+        PACKS["numpy"] += 1
+    return o + B * (nb2 + nbm)
+
+
+def _put_lens(out: np.ndarray, o: int, lens, B: int) -> int:
+    lens = np.asarray(lens)
+    if lens.shape != (B,):
+        raise ValueError(f"lens must be ({B},), got {lens.shape}")
+    out[o : o + 2 * B].view("<u2")[:] = lens
+    return o + 2 * B
+
+
+def pack_in_se(codes, lens, n_valid: int, out: np.ndarray | None = None) -> np.ndarray:
+    """(B, L) codes, (B,) lens -> the SE wire_in, written into `out` (a
+    uint8 array of in_bytes(B, L)) when given, else into a new array."""
+    codes = _codes_i8(codes)
+    B, L = codes.shape
+    out = _in_buffer(out, in_bytes(B, L))
+    o = _pack_mate(codes, out, 0)
+    o = _put_lens(out, o, lens, B)
+    out[o : o + 4].view("<i4")[0] = n_valid
+    return out
 
 
 def _lens_dev(wire: torch.Tensor, o: int, B: int) -> torch.Tensor:
@@ -124,15 +188,18 @@ def unpack_in_se(wire: torch.Tensor, B: int, L: int):
     return codes, lens, _n_valid_dev(wire, o)
 
 
-def pack_in_pe(c1, l1, c2, l2, n_valid: int) -> np.ndarray:
-    b21, bm1 = _pack_codes_np(np.asarray(c1, dtype=np.int8))
-    b22, bm2 = _pack_codes_np(np.asarray(c2, dtype=np.int8))
-    return np.concatenate([
-        b21.reshape(-1), bm1.reshape(-1), b22.reshape(-1), bm2.reshape(-1),
-        np.ascontiguousarray(l1, dtype=np.uint16).view(np.uint8),
-        np.ascontiguousarray(l2, dtype=np.uint16).view(np.uint8),
-        np.array([n_valid], dtype=np.int32).view(np.uint8),
-    ])
+def pack_in_pe(c1, l1, c2, l2, n_valid: int, out: np.ndarray | None = None) -> np.ndarray:
+    """Both mates' (B, L) codes and (B,) lens -> the PE wire_in, written
+    into `out` (a uint8 array of in_bytes(B, L, 2)) when given."""
+    c1, c2 = _codes_i8(c1), _codes_i8(c2)
+    if c1.shape != c2.shape:
+        raise ValueError(f"mates differ in shape: {c1.shape} and {c2.shape}")
+    B, L = c1.shape
+    out = _in_buffer(out, in_bytes(B, L, 2))
+    o = _pack_mate(c2, out, _pack_mate(c1, out, 0))
+    o = _put_lens(out, _put_lens(out, o, l1, B), l2, B)
+    out[o : o + 4].view("<i4")[0] = n_valid
+    return out
 
 
 def unpack_in_pe(wire: torch.Tensor, B: int, L: int):
